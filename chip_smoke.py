@@ -6,8 +6,11 @@ Run from the root of a checkout.  It builds the CUDA kernels from the
 sources in the checkout, holds each against its plain PyTorch version on
 the card, runs the sync FedHC engine through ``repro_torch.api.run`` for
 the five paper methods and for fedhc at the paper's 800 satellites (with
-the kernels and without), checks the results, and prints one JSON line
-per phase.  The line before the last is ``{"kernels": [...]}``, the last
+the kernels and without), serves the full gemma2-2b (26 layers, bf16,
+random weights) through ``repro_torch.launch.serve.serve_batch`` with a
+prompt longer than its 4096-token window, checks prefill + decode against
+a longer prefill, profiles one prefill, and prints one JSON line per
+phase.  The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.  Any failure raises: nothing is caught,
 and the exit code is then not 0.  Without CUDA, or outside a checkout, it
 exits with an error before printing any result.  It imports nothing of
@@ -25,17 +28,55 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
+T_START = time.perf_counter()
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12           # H100 SXM bf16 tensor cores, dense
 WAGG_TOL = 2e-5               # rtol and atol, f32 stacks (test_kernels.py)
 WAGG_TOL_BF16 = 3e-2
+WAGG1_TOL = 1e-5              # weighted_agg sweep (test_kernels.py)
+FLASH_TOL = 3e-5              # rtol and atol, flash sweep (test_kernels.py)
+FLASH_TOL_BF16 = 4e-2
+# gemma2-2b's layer shapes in bf16: both sides compute in f32 from the same
+# bf16 inputs and round the output to bf16, so they differ by at most one
+# bf16 ulp (2^-7 of the value, under rtol); outputs there are ~0.02-0.03
+# (thousands of live keys), so the sweep's 4e-2 would pass a dropped kv tile.
+# The f32 run at the same shapes holds the kernel to FLASH_TOL.
+FLASH_LAYER_RTOL_BF16 = 1e-2
+FLASH_LAYER_ATOL_BF16 = 1e-3
 KMEANS_D_TOL = 1e-5           # |d - d_plain| / (|x|^2 + |c|^2)
 KMEANS_TIE = 1e-5             # assignments must agree where the two best
 #                               distances differ by more than this, relative
 TRAJ_RTOL = 1e-5              # time and energy, kernels on vs off
 LOSS_RTOL = 1e-3
 PAPER_METHODS = ("fedhc", "fedhc-nomaml", "h-base", "fedce", "c-fedavg")
+# the reference's flash sweep (tests/test_kernels.py):
+# B, Hq, Hkv, Sq, Sk, D, causal, window, softcap
+FLASH_CASES = [
+    (1, 4, 2, 128, 128, 64, True, 0, 0.0),
+    (2, 4, 4, 96, 96, 32, True, 0, 50.0),
+    (1, 8, 2, 256, 256, 64, True, 64, 0.0),
+    (1, 2, 1, 1, 300, 64, True, 0, 0.0),
+    (1, 2, 1, 1, 300, 64, True, 128, 0.0),
+    (1, 2, 2, 128, 128, 64, False, 0, 0.0),
+    (2, 2, 2, 70, 70, 128, True, 0, 0.0),
+]
+SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 2, 8192, 32
+DECODE_STEPS = 8              # decode steps in the profile phase
+# gemma2-2b's attention layers: B, Hq, Hkv, S, D, soft-cap; window 4096
+FLASH_LAYER = (SERVE_BATCH, 8, 4, SERVE_PROMPT, 256, 50.0)
+# prefill over S + 1 tokens against prefill over S then one decode step:
+# float32 at full width and 2 layers, both sides sum the same products in
+# other orders (a 4097-row GEMM and flash tiles against a 1-row GEMM and the
+# decode's direct attention) over 2304-wide rows: float32 rounding of logits
+# of order 1 (capped at +-30) stays near 1e-5
+CONSIST_TOL_F32 = 1e-4
+# bfloat16 at full depth: each side rounds every activation to bf16 (8 bits
+# of mantissa) after differently ordered sums, and a flipped rounding
+# carries through 26 residual layers; two ulps of a bf16 logit near the
+# +-30 cap (0.125 each)
+CONSIST_TOL_BF16 = 0.25
 
 
 def emit(obj) -> None:
@@ -221,6 +262,229 @@ def check_kmeans(gen):
     }
 
 
+def check_weighted_agg_single(gen):
+    """The K = 1 kernel (``weighted_agg``) vs plain on the reference's sweep
+    shapes; times at kernel_bench.py's C = 16, P = 1,000,000 f32."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    cases = [(c, p, dt) for c, p in ((2, 64), (16, 1000), (8, 4096), (5, 17))
+             for dt in (torch.float32, torch.bfloat16)]
+    worst = 0.0
+    for c, p, dt in cases:
+        s = torch.randn((c, p), generator=gen, device=DEV).to(dt)
+        w = torch.rand((c,), generator=gen, device=DEV)
+        got = ops.weighted_agg(s, w)
+        want = ref.weighted_agg_ref(s, w)
+        torch.cuda.synchronize()
+        tol = WAGG1_TOL if dt == torch.float32 else WAGG_TOL_BF16
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        worst = max(worst, float((got.float() - want.float()).abs().max()))
+    c, p = 16, 1_000_000
+    s = torch.randn((c, p), generator=gen, device=DEV)
+    w = torch.rand((c,), generator=gen, device=DEV)
+    err = float((ops.weighted_agg(s, w) - ref.weighted_agg_ref(s, w))
+                .abs().max())
+    n_bytes = 4 * (c * p + c + p)
+    n_ops = 2 * c * p
+    return {
+        "max_abs_err": err, "max_abs_err_sweep": worst, "cases": len(cases),
+        "ms": device_ms(lambda: ops.weighted_agg(s, w)),
+        "plain_ms": device_ms(lambda: ref.weighted_agg_ref(s, w)),
+        "library_ms": device_ms(lambda: torch.matmul(w, s)),
+        "bound_ms": max(n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOPS) * 1e3,
+        "bound_by": ("bytes" if n_bytes / HBM_BYTES_PER_S
+                     >= n_ops / F32_FLOPS else "operations"),
+        "shape": f"C={c}, P={p}, f32 (benchmarks/kernel_bench.py)",
+    }
+
+
+def flash_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """Live (q, k) pairs of one head: the band the masks leave."""
+    total = 0
+    for i in range(sq):
+        qp = sk - sq + i
+        hi = min(sk, qp + 1) if causal else sk
+        lo = max(0, qp - window + 1) if window else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def check_flash(gen):
+    """The flash kernel vs plain on the reference's sweep (f32 and bf16) and
+    at gemma2-2b's global and local layer shapes (B = 2, Hq = 8, Hkv = 4,
+    S = 8192, D = 256, soft-cap 50, window 0 / 4096; f32 and bf16), timed
+    there in bf16 beside the plain version, the bound and SDPA (causal,
+    GQA; it applies neither the soft-cap nor the window)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+
+    def qkv(b, hq, hkv, sq, sk, d, dt):
+        return (torch.randn((b, hq, sq, d), generator=gen, device=DEV).to(dt),
+                torch.randn((b, hkv, sk, d), generator=gen, device=DEV).to(dt),
+                torch.randn((b, hkv, sk, d), generator=gen, device=DEV).to(dt))
+
+    sweep = {}
+    for case in FLASH_CASES:
+        causal, window, cap = case[6:]
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = qkv(*case[:6], dt)
+            got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                      softcap=cap)
+            torch.cuda.synchronize()
+            want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                           window=window, softcap=cap)
+            tol = FLASH_TOL if dt == torch.float32 else FLASH_TOL_BF16
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol)
+            assert got.dtype == dt and got.shape == q.shape
+            sweep[f"{case}/{str(dt)[6:]}"] = float(
+                (got.float() - want.float()).abs().max())
+
+    layers = {}
+    b, hq, hkv, s, d, cap = FLASH_LAYER
+    for kind, window in (("global", 0), ("local", 4096)):
+        q, k, v = qkv(b, hq, hkv, s, s, d, torch.float32)
+        got = ops.flash_attention(q, k, v, window=window, softcap=cap)
+        torch.cuda.synchronize()
+        want = ref.flash_attention_ref(q, k, v, window=window, softcap=cap)
+        torch.testing.assert_close(got, want, rtol=FLASH_TOL, atol=FLASH_TOL)
+        err_f32 = float((got - want).abs().max())
+        q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        del got, want
+        got = ops.flash_attention(q, k, v, window=window, softcap=cap)
+        torch.cuda.synchronize()
+        want = ref.flash_attention_ref(q, k, v, window=window, softcap=cap)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=FLASH_LAYER_RTOL_BF16,
+                                   atol=FLASH_LAYER_ATOL_BF16)
+        diff = got.float() - want.float()
+        err = float(diff.abs().max())
+        rel_rms = float(diff.square().mean().sqrt()
+                        / want.float().square().mean().sqrt())
+        del got, want, diff
+        pairs = b * hq * flash_pairs(s, s, True, window)
+        n_ops = 4 * d * pairs
+        n_bytes = 2 * (2 * q.numel() + 2 * k.numel())
+        kernel_ms = device_ms(
+            lambda: ops.flash_attention(q, k, v, window=window, softcap=cap),
+            reps=2, samples=5)
+        layers[kind] = {
+            "window": window, "max_abs_err": err, "rel_rms_err": rel_rms,
+            "max_abs_err_f32": err_f32, "ms": kernel_ms,
+            "plain_ms": device_ms(
+                lambda: ref.flash_attention_ref(q, k, v, window=window,
+                                                softcap=cap),
+                reps=1, samples=3),
+            "library_ms": device_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True),
+                reps=2, samples=5),
+            "bound_ms": max(n_bytes / HBM_BYTES_PER_S,
+                            n_ops / BF16_FLOPS) * 1e3,
+            "bound_by": ("bytes" if n_bytes / HBM_BYTES_PER_S
+                         >= n_ops / BF16_FLOPS else "operations"),
+            "live_pairs": pairs, "gflop": n_ops / 1e9,
+            "tflop_per_s": n_ops / kernel_ms / 1e9,
+        }
+        del q, k, v
+        gc.collect()
+        torch.cuda.empty_cache()
+    # one prefill of the main path: 13 global and 13 local layers
+    per_prefill = {key: 13 * (layers["global"][key] + layers["local"][key])
+                   for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    return {
+        "max_abs_err": max(layers[x]["max_abs_err"] for x in layers),
+        "max_abs_err_sweep": max(sweep.values()), "cases": len(sweep),
+        "sweep": sweep, "layers": layers, **per_prefill,
+        "bound_by": layers["global"]["bound_by"],
+        "shape": "one gemma2-2b prefill's 26 launches: 13 global + 13 local "
+                 "(window 4096) layers of B=2, Hq=8, Hkv=4, S=8192, D=256, "
+                 "bf16, soft-cap 50",
+    }
+
+
+def last_logits_consistency(cfg, params, prompts):
+    """prefill_last over S + 1 tokens vs prefill over S tokens then one
+    decode_step of token S + 1: the last position's logits, (B, V) each."""
+    import torch
+    from repro_torch.models import decode_step
+    from repro_torch.models.model import prefill_last
+    s = prompts.shape[1] - 1
+    with torch.inference_mode():
+        full, _ = prefill_last(cfg, params, {"tokens": prompts}, s + 1)
+        _, caches = prefill_last(cfg, params, {"tokens": prompts[:, :s]},
+                                 s + 1)
+        step, _ = decode_step(cfg, params, caches, prompts[:, s:], s)
+        del caches
+    full, step = full.float(), step[:, 0].float()
+    assert torch.isfinite(full).all() and torch.isfinite(step).all()
+    diff = (full - step).abs()
+    return {"max_abs_err": float(diff.max()),
+            "rms_err": float(diff.square().mean().sqrt()),
+            "logit_rms": float(full.square().mean().sqrt()),
+            "argmax_agree": float((full.argmax(-1) == step.argmax(-1))
+                                  .float().mean())}
+
+
+def device_kernels(prof):
+    """(device ms, name, count) of each kernel in a profile, largest first."""
+    import torch
+    kernels = [(getattr(e, "self_device_time_total", 0) / 1e3, e.key, e.count)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sorted(kernels, reverse=True)
+
+
+def profile_serving(cfg, params, prompts, prefill_wall_s: float) -> dict:
+    """Device time by kernel over one full prefill, and over DECODE_STEPS
+    decode steps after it, under torch.profiler; each beside the same
+    work's unprofiled wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import decode_step
+    from repro_torch.models.model import prefill_last
+    s = prompts.shape[1]
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch.inference_mode():
+        with profile(activities=acts) as prof:
+            prefill_last(cfg, params, {"tokens": prompts}, s + SERVE_TOKENS)
+            torch.cuda.synchronize()
+        pre = device_kernels(prof)
+        logits, caches = prefill_last(cfg, params, {"tokens": prompts},
+                                      s + SERVE_TOKENS)
+        tok = logits.argmax(-1)[:, None]
+
+        def steps(first):
+            for i in range(first, first + DECODE_STEPS):
+                decode_step(cfg, params, caches, tok, s + i)
+            torch.cuda.synchronize()
+        steps(0)                                  # warm
+        t0 = time.perf_counter()
+        steps(DECODE_STEPS)
+        decode_wall_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=acts) as prof:
+            steps(2 * DECODE_STEPS)
+        dec = device_kernels(prof)
+
+    def summary(kernels, wall_ms):
+        busy = sum(k[0] for k in kernels)
+        flash = sum(k[0] for k in kernels if "flash_fwd_kernel" in k[1])
+        return {"wall_ms": wall_ms, "device_busy_ms": busy,
+                "device_idle_share": 1.0 - busy / wall_ms,
+                "flash_attention_ms": flash,
+                "flash_attention_share_of_busy": flash / busy,
+                "kernel_launches": sum(k[2] for k in kernels),
+                "top": [{"name": k[1][:90], "device_ms": k[0], "count": k[2]}
+                        for k in kernels[:12]]}
+    return {"phase": "profile_serving", "arch": cfg.name,
+            "batch": prompts.shape[0], "prompt": s,
+            "prefill": summary(pre, prefill_wall_s * 1e3),
+            "decode_steps": DECODE_STEPS,
+            "decode": summary(dec, decode_wall_ms)}
+
+
 def profile_round_loop(sc) -> dict:
     """Device time by kernel over one run's round loop (setup excluded),
     from torch.profiler, beside the same loop's wall time measured without
@@ -282,7 +546,10 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import api, device as device_lib
     from repro_torch.api import ExecSpec, FleetSpec, Scenario, TrainSpec
+    from repro_torch.configs import get_config, replace
     from repro_torch.kernels import build, ops
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import init_params, param_count
 
     # ---- 1. device -----------------------------------------------------
     device_lib.resolve("cuda")
@@ -309,8 +576,11 @@ def main() -> int:
     gen = torch.Generator(device=DEV).manual_seed(11)
     wagg = check_weighted_agg(gen)
     km = check_kmeans(gen)
+    wagg1 = check_weighted_agg_single(gen)
+    flash = check_flash(gen)
     emit({"phase": "kernels_vs_plain", "weighted_agg_multi": wagg,
-          "kmeans_assign": km})
+          "kmeans_assign": km, "weighted_agg": wagg1,
+          "flash_attention": flash})
     gc.collect()            # the checks' tensors and graphs: out of the
     torch.cuda.empty_cache()  # main path's peak-memory readings
 
@@ -349,7 +619,7 @@ def main() -> int:
     launches = dict(ops.LAUNCHES)
     ops.reset_launches()
     off = api.run(scenario("fedhc", 800, False, **drift), device=DEV)
-    assert ops.LAUNCHES == {"weighted_agg_multi": 0, "kmeans_assign": 0}
+    assert set(ops.LAUNCHES.values()) == {0}, ops.LAUNCHES
     for res in (on, off):
         check_result(res, 10, 5)
     assert on.reclusters == off.reclusters >= 1, (on.reclusters,
@@ -380,13 +650,78 @@ def main() -> int:
     # ---- 5. where the time goes: fedhc at N = 800 under torch.profiler ----
     emit(profile_round_loop(scenario("fedhc", 800, True, **drift)))
 
-    # ---- 6. the kernels line ---------------------------------------------
+    # ---- 6. serving: full gemma2-2b, prefill + greedy decode -------------
+    del on, off
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("gemma2-2b")
+    sgen = torch.Generator(device=DEV).manual_seed(12)
+    t0 = time.perf_counter()
+    params = init_params(cfg, sgen)           # bf16, the config's dtype
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=sgen, device=DEV)
+    ops.reset_launches()
+    first = serve_batch(cfg, params, prompts, SERVE_TOKENS, device=DEV)
+    serve_launches = dict(ops.LAUNCHES)
+    assert serve_launches["flash_attention"] == cfg.num_layers, serve_launches
+    second = serve_batch(cfg, params, prompts, SERVE_TOKENS, device=DEV)
+    for res in (first, second):
+        assert res.tokens.shape == (SERVE_BATCH, SERVE_TOKENS)
+        assert 0 <= int(res.tokens.min()) <= int(res.tokens.max()) \
+            < cfg.vocab_size
+    assert torch.equal(first.tokens, second.tokens), "greedy decode differs"
+    emit({"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "params": param_count(params),
+          "dtype": cfg.dtype, "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
+          "new_tokens": SERVE_TOKENS, "init_s": init_s,
+          "launches": serve_launches,
+          "runs": [{"prefill_s": r.prefill_s, "decode_s": r.decode_s,
+                    "decode_tokens_per_s": r.decode_tokens_per_s,
+                    "peak_device_mem_mb": r.peak_device_mem_mb}
+                   for r in (first, second)],
+          "first_tokens": first.tokens[:, :8].tolist()})
+
+    # ---- 7. prefill + decode == a longer prefill --------------------------
+    consist = {}
+    # bf16, full depth: 8191 prompt tokens, then token 8192
+    bf16 = last_logits_consistency(cfg, params, prompts)
+    assert bf16["max_abs_err"] <= CONSIST_TOL_BF16, bf16
+    consist["bf16_26_layers"] = {**bf16, "tol": CONSIST_TOL_BF16,
+                                 "prompt": SERVE_PROMPT - 1}
+    # f32, full width, one local and one global layer: 4608 > 4096 tokens
+    cfg32 = replace(cfg, num_layers=2, dtype="float32")
+    p32 = init_params(cfg32, sgen)
+    f32 = last_logits_consistency(cfg32, p32, prompts[:, :4609])
+    assert f32["max_abs_err"] <= CONSIST_TOL_F32, f32
+    consist["f32_2_layers"] = {**f32, "tol": CONSIST_TOL_F32, "prompt": 4608}
+    emit({"phase": "serve_consistency", **consist})
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 8. where the time goes: a gemma2-2b prefill and decode steps
+    emit(profile_serving(cfg, params, prompts, second.prefill_s))
+    del params
+
+    emit({"phase": "elapsed", "script_s": time.perf_counter() - T_START})
+
+    # ---- 9. the kernels line ---------------------------------------------
+    # no main path runs weighted_agg: both runs counted it at 0
+    assert launches["weighted_agg"] == serve_launches["weighted_agg"] == 0, \
+        (launches, serve_launches)
+    launches["flash_attention"] = serve_launches["flash_attention"]
     rows = []
     for kname, src, replaces, m in (
             ("weighted_agg_multi", "src/repro_torch/csrc/weighted_agg.cu",
              "src/repro/kernels/weighted_agg.py:76", wagg),
             ("kmeans_assign", "src/repro_torch/csrc/kmeans.cu",
-             "src/repro/kernels/kmeans.py:35", km)):
+             "src/repro/kernels/kmeans.py:35", km),
+            ("weighted_agg", "src/repro_torch/csrc/weighted_agg.cu",
+             "src/repro/kernels/weighted_agg.py:34", wagg1),
+            ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:88", flash)):
         rows.append({"name": kname, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[kname],
                      "max_abs_err": m["max_abs_err"], "ms": m["ms"],

@@ -25,7 +25,7 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
-SOURCES = ("weighted_agg", "kmeans")
+SOURCES = ("weighted_agg", "kmeans", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")

@@ -13,12 +13,14 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import kmeans as _kmeans
 from repro_torch.kernels import ref
 from repro_torch.kernels import weighted_agg as _wagg
 from repro_torch.tree import tree_map
 
-LAUNCHES: Dict[str, int] = {"weighted_agg_multi": 0, "kmeans_assign": 0}
+LAUNCHES: Dict[str, int] = {"weighted_agg_multi": 0, "kmeans_assign": 0,
+                            "weighted_agg": 0, "flash_attention": 0}
 
 
 def reset_launches() -> None:
@@ -46,6 +48,47 @@ def weighted_agg_multi_tree(tree: Any, weights: torch.Tensor) -> Any:
         flat = x.reshape(x.shape[0], -1)
         return weighted_agg_multi(flat, weights).reshape((k,) + x.shape[1:])
     return tree_map(one, tree)
+
+
+def weighted_agg(stack: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """stack (C, P), weights (C,) -> (P,): the K = 1 case of the
+    ``weighted_agg_multi`` kernel (``csrc/weighted_agg.cu``)."""
+    if stack.device.type == "cpu":
+        return ref.weighted_agg_ref(stack, weights)
+    out = _wagg.launch(stack, weights.reshape(-1, 1))
+    LAUNCHES["weighted_agg"] += 1
+    return out.reshape(stack.shape[1])
+
+
+def weighted_agg_tree(tree: Any, weights: torch.Tensor) -> Any:
+    """Leaf-wise: (C, ...) tree + (C,) weights -> (...) tree, one launch
+    per leaf, as the reference's tree form."""
+    def one(x):
+        return weighted_agg(x.reshape(x.shape[0], -1),
+                            weights).reshape(x.shape[1:])
+    return tree_map(one, tree)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0) -> torch.Tensor:
+    """q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D) -> (B, Hq, Sq, D): GQA,
+    scale 1/sqrt(D), optional tanh soft-cap, causal and sliding-window masks
+    with q tokens at the end of the kv axis (``q_pos = Sk - Sq + i``).
+    Forward only: the kernel's output carries no gradient, so on the card a
+    call that autograd would differentiate raises."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       softcap=softcap)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention: the CUDA kernel is forward only; its backward "
+            "comes with the transformer training slice (ROADMAP queue 1, "
+            "item 16)")
+    out = _flash.launch(q, k, v, causal=causal, window=window,
+                        softcap=softcap)
+    LAUNCHES["flash_attention"] += 1
+    return out
 
 
 def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor

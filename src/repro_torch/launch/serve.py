@@ -1,0 +1,117 @@
+"""Batched greedy serving on one device: prefill a batch of prompts, then
+decode with ring-buffer KV caches.
+
+    python -m repro_torch.launch.serve --arch gemma2-2b \
+        [--smoke] [--batch 2] [--prompt-len 64] [--tokens 16] [--device cpu]
+
+The port's counterpart of ``examples/serve_batch.py`` and, on one card, of
+``launch/serve.py``: the full-size config by default (``--smoke`` takes its
+``smoke_variant``), random weights from ``--seed``, on ``cuda`` unless
+``--device cpu`` is asked for (no fallback).  Prints one JSON line with the
+timings and the first generated tokens.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch import device as device_lib
+from repro_torch.configs import get_config, smoke_variant
+from repro_torch.models import decode_step, init_params, param_count
+from repro_torch.models.model import prefill_last
+from repro_torch.tree import tree_leaves
+
+
+class ServeResult(NamedTuple):
+    tokens: torch.Tensor        # (B, new_tokens) greedy continuations, CPU
+    prefill_s: float            # prefill of the whole batch, host clock
+    decode_s: float             # the new_tokens - 1 decode steps
+    decode_tokens_per_s: float  # B * (new_tokens - 1) / decode_s
+    peak_device_mem_mb: Optional[float]
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serve_batch(cfg, params: dict, prompts: torch.Tensor, new_tokens: int,
+                *, device=None) -> ServeResult:
+    """Greedy continuation of ``prompts`` (B, S) by ``new_tokens`` tokens:
+    one prefill (which gives the first new token), then ``new_tokens - 1``
+    decode steps.  Every timing ends in a device synchronize."""
+    dev = device_lib.resolve(device)
+    if new_tokens < 1:
+        raise ValueError(f"new_tokens={new_tokens} must be >= 1")
+    leaf = tree_leaves(params)[0]
+    if leaf.device.type != dev.type:
+        raise ValueError(f"params on {leaf.device}, serving on {dev}")
+    prompts = prompts.to(dev)
+    b, s = prompts.shape
+    max_len = s + new_tokens
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    with torch.inference_mode():
+        _sync(dev)
+        t0 = time.perf_counter()
+        logits, caches = prefill_last(cfg, params, {"tokens": prompts},
+                                      max_len)
+        tok = logits.argmax(-1)[:, None]
+        _sync(dev)
+        t1 = time.perf_counter()
+        out = [tok]
+        for i in range(new_tokens - 1):
+            logits, caches = decode_step(cfg, params, caches, tok, s + i)
+            tok = logits[:, 0].argmax(-1)[:, None]
+            out.append(tok)
+        _sync(dev)
+        t2 = time.perf_counter()
+    decode_s = t2 - t1
+    steps = b * (new_tokens - 1)
+    return ServeResult(
+        tokens=torch.cat(out, dim=1).cpu(), prefill_s=t1 - t0,
+        decode_s=decode_s,
+        decode_tokens_per_s=steps / decode_s if steps else 0.0,
+        peak_device_mem_mb=device_lib.peak_device_mem_mb(dev))
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="gemma2-2b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the config's reduced smoke_variant")
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--tokens", type=int, default=16)
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    dev = device_lib.resolve(args.device)
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = smoke_variant(cfg)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = init_params(cfg, gen)
+    prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                            generator=gen, device=dev)
+    res = serve_batch(cfg, params, prompts, args.tokens, device=dev)
+    print(json.dumps({
+        "arch": cfg.name, "device": str(dev),
+        "kind": torch.cuda.get_device_name(dev) if dev.type == "cuda"
+        else "cpu",
+        "params": param_count(params), "dtype": cfg.dtype,
+        "batch": args.batch, "prompt_len": args.prompt_len,
+        "new_tokens": args.tokens, "prefill_s": res.prefill_s,
+        "decode_s": res.decode_s,
+        "decode_tokens_per_s": res.decode_tokens_per_s,
+        "peak_device_mem_mb": res.peak_device_mem_mb,
+        "first_tokens": res.tokens[:, :12].tolist()}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,181 @@
+"""Transformer stack over a cycled layer pattern.  Counterpart of
+``repro/models/transformer.py``.
+
+The parameter tree is the reference's: one stacked tree per position of
+``layer_pattern`` with the cycle as its leading dimension
+(``params["layers"][j]``), the ``num_layers % len(pattern)`` leftover layers
+unstacked in ``params["rem_layers"]``, then ``embed`` and ``final_norm``.
+The reference scans over the cycles; here a Python loop walks them through
+views of the stacked leaves, so caches written in place land in the stacked
+cache tensors.
+
+This slice covers the attention layer kinds (attn, swa, local, global) with
+a dense gated MLP and optional post-norms: gemma2-2b, h2o-danube-1.8b,
+granite-3-8b, qwen2-72b and pixtral-12b's text stack.  RG-LRU, SSD, MoE and
+encoder-decoder models raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ATTN_KINDS, ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import layers as L
+from repro_torch.tree import tree_map
+
+_LATER = "(ROADMAP queue 1, item 16, the rest of the transformer shelf)"
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    for kind in cfg.layer_pattern:
+        if kind not in ATTN_KINDS:
+            raise NotImplementedError(
+                f"{cfg.name}: layer kind {kind!r} (RG-LRU / SSD) is not in "
+                f"the port's serving slice {_LATER}")
+    if cfg.num_experts:
+        raise NotImplementedError(f"{cfg.name}: MoE is not in the port's "
+                                  f"serving slice {_LATER}")
+    if cfg.is_enc_dec or cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder and modality front ends are not in "
+            f"the port's serving slice {_LATER}")
+
+
+# --------------------------------------------------------------------------
+# Block init/apply
+# --------------------------------------------------------------------------
+
+def init_block(cfg, kind: str, gen, dtype, device, lead=()) -> dict:
+    """One block's parameters, with a leading ``lead`` shape (the cycle
+    dimension of a stacked pattern position)."""
+    p: Dict[str, Any] = {"norm1": L.init_norm(cfg, dtype, device, lead),
+                         "attn": attn.init_attention(cfg, gen, dtype, device,
+                                                     lead),
+                         "norm2": L.init_norm(cfg, dtype, device, lead),
+                         "mlp": L.init_mlp(cfg, gen, dtype, device, lead)}
+    if cfg.post_norm:
+        p["postnorm1"] = L.init_norm(cfg, dtype, device, lead)
+        p["postnorm2"] = L.init_norm(cfg, dtype, device, lead)
+    return p
+
+
+def apply_block(cfg, kind: str, p: dict, x, *, mode: str, positions,
+                cache=None):
+    """Returns (x, cache)."""
+    h = L.apply_norm(cfg, p["norm1"], x)
+    h, new_cache = attn.apply_attention(cfg, p["attn"], h, kind=kind,
+                                        mode=mode, positions=positions,
+                                        cache=cache)
+    if cfg.post_norm:
+        h = L.apply_norm(cfg, p["postnorm1"], h)
+    x = x + h
+    h = L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["norm2"], x))
+    if cfg.post_norm:
+        h = L.apply_norm(cfg, p["postnorm2"], h)
+    return x + h, new_cache
+
+
+# --------------------------------------------------------------------------
+# Parameters and caches
+# --------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    """Random parameters from ``gen``, in the config's dtype, on the
+    generator's device."""
+    _check_supported(cfg)
+    dtype = getattr(torch, cfg.dtype)
+    device = gen.device
+    pat = cfg.layer_pattern
+    n_cycles = cfg.num_layers // len(pat)
+    rem = cfg.num_layers % len(pat)
+    return {
+        "embed": L.init_embed(cfg, gen, dtype, device),
+        "layers": tuple(init_block(cfg, kind, gen, dtype, device, (n_cycles,))
+                        for kind in pat),
+        "rem_layers": tuple(init_block(cfg, pat[j], gen, dtype, device)
+                            for j in range(rem)),
+        "final_norm": L.init_norm(cfg, dtype, device),
+    }
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                device) -> dict:
+    """Cache tree matching the layer structure (stacked over cycles)."""
+    pat = cfg.layer_pattern
+    n_cycles = cfg.num_layers // len(pat)
+    rem = cfg.num_layers % len(pat)
+    return {"layers": tuple(attn.init_cache(cfg, kind, batch, max_len, dtype,
+                                            device, lead=(n_cycles,))
+                            for kind in pat),
+            "rem_layers": tuple(attn.init_cache(cfg, pat[j], batch, max_len,
+                                                dtype, device)
+                                for j in range(rem))}
+
+
+def params_from_numpy(tree: Any, device) -> Any:
+    """A tree of numpy arrays (the reference's parameters, fetched leaf for
+    leaf) as tensors on ``device``.  bfloat16 leaves (``ml_dtypes``, which
+    ``torch.from_numpy`` refuses) go through a 16-bit view."""
+    def one(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(a.copy())
+        return t.to(device)
+    return tree_map(one, tree)
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """Tensors -> numpy arrays; bfloat16 leaves come back as float32
+    (numpy has no bfloat16 of its own)."""
+    def one(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return tree_map(one, tree)
+
+
+# --------------------------------------------------------------------------
+# Forward pass
+# --------------------------------------------------------------------------
+
+def forward(cfg: ModelConfig, params: dict, batch: dict, *, mode: str,
+            caches: Optional[dict] = None, last_only: bool = False
+            ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """Run the stack.  Returns (logits, caches); the caches are the given
+    ones, written in place (the reference's third value, the MoE aux loss,
+    comes with MoE).  ``batch`` holds "tokens" (B, S) and,
+    in decode, "pos" (the absolute position of the one token).
+    ``last_only`` unembeds just the final position (serving prefill)."""
+    _check_supported(cfg)
+    tokens = batch["tokens"]
+    dev = tokens.device
+    x = L.embed_tokens(cfg, params["embed"], tokens)
+    if mode == "decode":
+        positions = torch.as_tensor(batch["pos"], device=dev).reshape(1)
+    else:
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=dev)
+    positions = positions.to(torch.int32)
+    pat = cfg.layer_pattern
+
+    for c in range(cfg.num_layers // len(pat)):
+        for j, kind in enumerate(pat):
+            lp = tree_map(lambda t: t[c], params["layers"][j])
+            cache = (None if caches is None
+                     else tree_map(lambda t: t[c], caches["layers"][j]))
+            x, _ = apply_block(cfg, kind, lp, x, mode=mode,
+                               positions=positions, cache=cache)
+    for j, lp in enumerate(params["rem_layers"]):
+        cache = None if caches is None else caches["rem_layers"][j]
+        x, _ = apply_block(cfg, pat[j % len(pat)], lp, x, mode=mode,
+                           positions=positions, cache=cache)
+
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    if last_only:
+        x = x[:, -1:]
+    logits = L.unembed(cfg, params["embed"], x)
+    return logits, caches

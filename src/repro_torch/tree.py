@@ -1,7 +1,8 @@
 """Nested-dict parameter trees: the port's stand-in for JAX pytrees.
 
 Parameters are plain dicts of tensors (possibly nested, as LeNet's
-``{"c1": {"w", "b"}, ...}``); leaf order is dict insertion order, which
+``{"c1": {"w", "b"}, ...}``), and tuples of such trees (the transformer's
+per-pattern-position stacks); leaf order is dict insertion order, which
 matches ``jax.tree_util`` order for the trees this package builds.
 """
 from __future__ import annotations
@@ -13,12 +14,17 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(tree_map(fn, v, *(r[i] for r in rest))
+                     for i, v in enumerate(tree))
     return fn(tree, *rest)
 
 
 def tree_leaves(tree: Any) -> List[Any]:
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in tree_leaves(v)]
     return [tree]
 
 

@@ -56,3 +56,79 @@ def test_kmeans_assign_kernel_matches_plain(cuda_device, N, D, K):
     two = dist.topk(2, dim=1, largest=False).values
     clear = (two[:, 1] - two[:, 0]) > 1e-5 * two[:, 1].abs().clamp_min(1.0)
     assert torch.equal(a[clear], ar[clear])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,P", [(2, 64), (16, 1000), (8, 4096), (5, 17),
+                                 (16, 1_000_000)])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_weighted_agg_kernel_matches_plain(cuda_device, C, P, dt):
+    """The K = 1 case of the weighted_agg_multi kernel, at the reference
+    sweep's tolerances."""
+    g = torch.Generator(device=cuda_device).manual_seed(C + P)
+    s = torch.randn((C, P), generator=g, device=cuda_device).to(dt)
+    w = torch.rand((C,), generator=g, device=cuda_device)
+    before = ops.LAUNCHES["weighted_agg"]
+    got = ops.weighted_agg(s, w)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["weighted_agg"] == before + 1
+    assert got.shape == (P,) and got.dtype == dt
+    tol = 1e-5 if dt == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), ref.weighted_agg_ref(s, w).float(),
+                               rtol=tol, atol=tol)
+
+
+FLASH_CASES = [
+    # the reference's sweep (tests/test_kernels.py):
+    # B, Hq, Hkv, Sq, Sk, D, causal, window, softcap
+    (1, 4, 2, 128, 128, 64, True, 0, 0.0),
+    (2, 4, 4, 96, 96, 32, True, 0, 50.0),
+    (1, 8, 2, 256, 256, 64, True, 64, 0.0),
+    (1, 2, 1, 1, 300, 64, True, 0, 0.0),
+    (1, 2, 1, 1, 300, 64, True, 128, 0.0),
+    (1, 2, 2, 128, 128, 64, False, 0, 0.0),
+    (2, 2, 2, 70, 70, 128, True, 0, 0.0),
+    # gemma2-2b's heads (8 over 4, D = 256, soft-cap 50): global and local
+    # layers at a shortened length, with the window cut to match
+    (2, 8, 4, 1500, 1500, 256, True, 0, 50.0),
+    (2, 8, 4, 1500, 1500, 256, True, 512, 50.0),
+    (1, 8, 4, 1, 1500, 256, True, 512, 50.0),
+    (1, 8, 4, 40, 40, 80, True, 0, 0.0),           # h2o-danube's D = 80
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda_device, case, dt):
+    b, hq, hkv, sq, sk, d, causal, window, cap = case
+    g = torch.Generator(device=cuda_device).manual_seed(sq + sk + d)
+    q = torch.randn((b, hq, sq, d), generator=g, device=cuda_device).to(dt)
+    k = torch.randn((b, hkv, sk, d), generator=g, device=cuda_device).to(dt)
+    v = torch.randn((b, hkv, sk, d), generator=g, device=cuda_device).to(dt)
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=cap)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert got.shape == q.shape and got.dtype == dt
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   softcap=cap)
+    tol = 3e-5 if dt == torch.float32 else 4e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_reads_the_models_layout(cuda_device):
+    """(B, S, H, D) activations as transposed views: no copy in, the output
+    in q's layout, equal to the kernel on contiguous copies."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    q = torch.randn((2, 300, 8, 256), generator=g, device=cuda_device)
+    k = torch.randn((2, 300, 4, 256), generator=g, device=cuda_device)
+    views = [t.transpose(1, 2) for t in (q, k, k)]
+    got = ops.flash_attention(*views, window=100, softcap=50.0)
+    assert got.transpose(1, 2).is_contiguous()
+    want = ops.flash_attention(*[t.contiguous() for t in views], window=100,
+                               softcap=50.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)

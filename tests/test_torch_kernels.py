@@ -116,7 +116,7 @@ def test_cpu_tensors_take_the_plain_path_and_count_nothing():
     ops.reset_launches()
     ops.weighted_agg_multi(torch.ones((3, 5)), torch.ones((3, 2)))
     ops.kmeans_assign(torch.ones((3, 3)), torch.ones((2, 3)))
-    assert ops.LAUNCHES == {"weighted_agg_multi": 0, "kmeans_assign": 0}
+    assert set(ops.LAUNCHES.values()) == {0}
 
 
 def test_non_cpu_tensors_never_fall_back_to_the_plain_path():
@@ -129,7 +129,7 @@ def test_non_cpu_tensors_never_fall_back_to_the_plain_path():
     with pytest.raises(ValueError, match="CUDA"):
         ops.kmeans_assign(torch.empty((3, 3), device=meta),
                           torch.empty((2, 3), device=meta))
-    assert ops.LAUNCHES == {"weighted_agg_multi": 0, "kmeans_assign": 0}
+    assert set(ops.LAUNCHES.values()) == {0}
 
 
 def test_build_without_nvcc_raises_a_clear_error(monkeypatch, tmp_path):

@@ -1,0 +1,151 @@
+"""The port's serving path within itself, on the CPU: decode after prefill
+equals the full forward at the next position (the checks of
+``tests/test_decode_consistency.py``, for the layer kinds this slice
+covers), ``serve_batch`` end to end, and the guard that no module of the
+port imports JAX or the JAX package.
+
+Both sides of each consistency check run in float32 through the same
+functions, so they differ only in how attention is split (the flash path
+over S + 1 tokens against the cached decode path): 1e-4 on the logits.
+"""
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.configs import get_config, smoke_variant
+from repro_torch.launch import serve
+from repro_torch.models import decode_step, init_params, prefill
+from repro_torch.models.transformer import forward
+
+torch.set_num_threads(1)        # see test_torch_jaxref.py
+ROOT = Path(__file__).resolve().parents[1]
+CPU = torch.device("cpu")
+TOL = 1e-4
+
+
+def _setup(arch, seed=0, B=2, S=48):
+    cfg = smoke_variant(get_config(arch))
+    gen = torch.Generator().manual_seed(seed)
+    params = init_params(cfg, gen)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
+    return cfg, params, toks
+
+
+@torch.inference_mode()
+@pytest.mark.parametrize("arch", ["gemma2-2b", "h2o-danube-1.8b",
+                                  "qwen2-72b"])
+def test_decode_matches_full_forward(arch):
+    cfg, params, toks = _setup(arch)
+    S = toks.shape[1]
+    logits_pf, caches = prefill(cfg, params, {"tokens": toks}, max_len=S + 4)
+    nxt = logits_pf[:, -1:].argmax(-1)
+    logits_dec, caches = decode_step(cfg, params, caches, nxt, S)
+    full, _ = forward(cfg, params, {"tokens": torch.cat([toks, nxt], 1)},
+                      mode="train")
+    torch.testing.assert_close(logits_dec[:, 0], full[:, -1], rtol=TOL,
+                               atol=TOL)
+    nxt2 = logits_dec[:, -1:].argmax(-1)
+    logits_dec2, _ = decode_step(cfg, params, caches, nxt2, S + 1)
+    full2, _ = forward(cfg, params,
+                       {"tokens": torch.cat([toks, nxt, nxt2], 1)},
+                       mode="train")
+    torch.testing.assert_close(logits_dec2[:, 0], full2[:, -1], rtol=TOL,
+                               atol=TOL)
+
+
+@torch.inference_mode()
+def test_ring_buffer_wraps_beyond_window():
+    """Prefill past the window (S = 100 > 64), then decode: the ring cache
+    must equal full-context attention restricted to the window."""
+    cfg, params, toks = _setup("h2o-danube-1.8b", seed=1, B=1, S=100)
+    assert cfg.window_size == 64
+    S = toks.shape[1]
+    logits_pf, caches = prefill(cfg, params, {"tokens": toks}, max_len=S + 8)
+    assert caches["layers"][0]["k"].shape[2] == 64      # (cycles, B, L, H, D)
+    nxt = logits_pf[:, -1:].argmax(-1)
+    logits_dec, _ = decode_step(cfg, params, caches, nxt, S)
+    full, _ = forward(cfg, params, {"tokens": torch.cat([toks, nxt], 1)},
+                      mode="train")
+    torch.testing.assert_close(logits_dec[:, 0], full[:, -1], rtol=TOL,
+                               atol=TOL)
+
+
+# ------------------------------------------------------------ serve_batch
+
+def test_serve_batch_smoke_is_deterministic():
+    cfg, params, prompts = _setup("gemma2-2b", S=70)
+    a = serve.serve_batch(cfg, params, prompts, 5, device="cpu")
+    b = serve.serve_batch(cfg, params, prompts, 5, device="cpu")
+    assert a.tokens.shape == (2, 5) and a.tokens.dtype == torch.int64
+    assert torch.equal(a.tokens, b.tokens)
+    assert int(a.tokens.min()) >= 0 and int(a.tokens.max()) < cfg.vocab_size
+    assert a.prefill_s > 0 and a.decode_tokens_per_s > 0
+    assert a.peak_device_mem_mb is None                  # no card here
+
+
+def test_serve_cli_runs_on_cpu(capsys):
+    serve.main(["--arch", "gemma2-2b", "--smoke", "--device", "cpu",
+                "--batch", "1", "--prompt-len", "20", "--tokens", "3"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["arch"] == "gemma2-2b-smoke" and out["device"] == "cpu"
+    assert len(out["first_tokens"]) == 1 and len(out["first_tokens"][0]) == 3
+
+
+def test_serving_defaults_to_cuda_and_refuses_to_fall_back(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg, params, prompts = _setup("gemma2-2b", S=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.serve_batch(cfg, params, prompts, 2)
+
+
+def test_unported_model_parts_name_their_slice():
+    from repro_torch.models.attention import init_cache
+    cfg = smoke_variant(get_config("gemma2-2b"))
+    for arch in ("mamba2-1.3b", "recurrentgemma-2b", "mixtral-8x22b",
+                 "whisper-large-v3"):
+        with pytest.raises(NotImplementedError, match="queue 1, item 16"):
+            init_params(smoke_variant(get_config(arch)),
+                        torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="int8"):
+        init_cache(cfg, "global", 1, 8, torch.float32, CPU, quantized=True)
+
+
+# ------------------------------------------------------------------ guards
+
+_BLOCK = r"^\s*(import|from)\s+(jax|repro)\b"
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    """Every module of the port imports with ``jax`` and ``repro`` blocked,
+    and neither the port nor chip_smoke.py names them in an import."""
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    for f in files:
+        for line in f.read_text().splitlines():
+            assert not re.match(_BLOCK, line), f"{f}: {line}"
+    mods = [".".join(f.relative_to(ROOT / "src").with_suffix("").parts)
+            for f in files[:-1]]
+    mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m
+            for m in mods]
+    code = f"""
+import importlib, importlib.abc, sys
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError("blocked: " + name)
+sys.meta_path.insert(0, Block())
+for m in {mods!r}:
+    importlib.import_module(m)
+print(len({mods!r}))
+"""
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip()) == len(mods) > 30
