@@ -1,6 +1,9 @@
-// flash_attention (forward) for Hopper (sm_90a): blockwise online-softmax
-// attention with GQA, a tanh logit soft-cap, and causal and sliding-window
-// masks, for q (B, Hq, Sq, D) and k, v (B, Hkv, Sk, D):
+// flash_attention (forward), the f32 route, on the CUDA cores (sm_90a):
+// blockwise online-softmax attention with GQA, a tanh logit soft-cap, and
+// causal and sliding-window masks, for q (B, Hq, Sq, D) and k, v (B, Hkv, Sk,
+// D).  kernels/flash_attention.py routes by dtype: f32 comes here (the tensor
+// cores' f32 mode is TF32, which cannot hold an f32 result to 3e-5), bf16 to
+// the tensor-core kernel of csrc/flash_attention_sm90.cu.
 //
 //   s[i, j] = softcap(q_i . k_j / sqrt(D)),  masked to NEG_INF off the band
 //   out_i   = sum_j softmax_j(s[i, :]) v_j
@@ -16,10 +19,9 @@
 // q.k dot and the p*v update), and with D = 256 that is ~1000 flops for every
 // ~1 KB of k and v that a q tile reads once from memory; gemma2-2b's prefill
 // (B = 2, S = 8192) needs ~0.55 TFLOP a global layer, 0.56 ms at the bf16
-// tensor-core rate of 989 TFLOP/s.  THIS FIRST VERSION RUNS ON THE CUDA CORES
-// in f32 FMA (67 TFLOP/s peak), with no wgmma, no TMA and no overlap of loads
-// with compute, so it stays far from that bound.  The redesign (wgmma on bf16
-// tiles fed by TMA through an mbarrier ring, warp-specialised) comes later.
+// tensor-core rate of 989 TFLOP/s.  This kernel runs on the CUDA cores in f32
+// FMA (67 TFLOP/s peak, 8.2 ms for that layer), with no wgmma, no TMA and no
+// overlap of loads with compute.
 //
 // Design:
 //  * one block of 256 threads owns (b, h, a tile of BQ = 64 query rows); a loop

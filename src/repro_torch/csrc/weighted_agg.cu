@@ -34,9 +34,22 @@
 //  * f32 and bf16 stacks, always f32 accumulation, output in the stack's dtype;
 //  * the ragged edge of P is masked, not padded (the TPU kernel padded P to
 //    BLOCK_P = 2048 lanes; nothing on this card needs that).
+//
+// weighted_agg (K = 1) with small C (kernels/weighted_agg.py::plan picks it
+// for C <= SMALL_C_MAX) replaces the Pallas TPU kernel
+// repro/kernels/weighted_agg.py::weighted_agg and is bound by bytes too.  At
+// small C the split over warps above leaves each thread two loads in flight
+// and pays four __syncthreads and KMAX = 4 accumulators for one output, so
+// wagg_small_c_kernel streams instead: each thread owns 16 bytes of columns
+// (4 f32 or 8 bf16; 1 element where P or the stack is not 16-byte aligned),
+// issues the loads of all C rows before its first FMA (CMAX, the smallest
+// bucket >= C, unrolled), reads the weights through the read-only cache, sums
+// in row order in f32 with no shared memory and no second pass, and writes its
+// 16 bytes once.  Deterministic.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -130,6 +143,96 @@ __global__ void wagg_sum_splits_kernel(const float* __restrict__ part,
   store(out + i, s);
 }
 
+// 16 bytes as 4 f32 or 8 bf16, and back
+__device__ __forceinline__ void unpack16(const uint4& u, float (&f)[4]) {
+  f[0] = __uint_as_float(u.x); f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z); f[3] = __uint_as_float(u.w);
+}
+
+__device__ __forceinline__ float2 bf2(uint32_t v) {
+  __nv_bfloat162 h;
+  memcpy(&h, &v, 4);
+  return __bfloat1622float2(h);
+}
+
+__device__ __forceinline__ void unpack16(const uint4& u, float (&f)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = bf2(w[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ uint4 pack16(const float (&f)[VEC]) {
+  if constexpr (VEC == 4) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
+  } else {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+      memcpy(&w[i], &h, 4);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+template <typename T, int CMAX, int VEC>
+__global__ void __launch_bounds__(THREADS)
+wagg_small_c_kernel(const T* __restrict__ stack, const float* __restrict__ w,
+                    T* __restrict__ out, int C, long long P) {
+  const long long p0 = ((long long)blockIdx.x * THREADS + threadIdx.x) * VEC;
+  if (p0 >= P) return;
+  float acc[VEC];
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) acc[v] = 0.0f;
+  if constexpr (VEC == 1) {
+    float x[CMAX];
+#pragma unroll
+    for (int c = 0; c < CMAX; ++c)
+      if (c < C) x[c] = to_f32(stack[(long long)c * P + p0]);
+#pragma unroll
+    for (int c = 0; c < CMAX; ++c)
+      if (c < C) acc[0] = fmaf(__ldg(w + c), x[c], acc[0]);
+    store(out + p0, acc[0]);
+  } else {
+    // 16 bytes a row: VEC = 16 / sizeof(T) elements
+    uint4 x[CMAX];
+#pragma unroll
+    for (int c = 0; c < CMAX; ++c)
+      if (c < C) x[c] = __ldg(reinterpret_cast<const uint4*>(stack + (long long)c * P + p0));
+#pragma unroll
+    for (int c = 0; c < CMAX; ++c) {
+      if (c < C) {
+        const float wc = __ldg(w + c);
+        float e[VEC];
+        unpack16(x[c], e);
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) acc[v] = fmaf(wc, e[v], acc[v]);
+      }
+    }
+    *reinterpret_cast<uint4*>(out + p0) = pack16<T>(acc);
+  }
+}
+
+template <typename T, int VEC>
+cudaError_t launch_small_c(const T* stack, const float* w, T* out, int C,
+                           long long P, cudaStream_t stream) {
+  const long long threads = (P + VEC - 1) / VEC;
+  const unsigned grid = (unsigned)((threads + THREADS - 1) / THREADS);
+  if (C <= 8)
+    wagg_small_c_kernel<T, 8, VEC><<<grid, THREADS, 0, stream>>>(stack, w, out, C, P);
+  else if (C <= 16)
+    wagg_small_c_kernel<T, 16, VEC><<<grid, THREADS, 0, stream>>>(stack, w, out, C, P);
+  else
+    wagg_small_c_kernel<T, 32, VEC><<<grid, THREADS, 0, stream>>>(stack, w, out, C, P);
+  return cudaGetLastError();
+}
+
 template <typename T, int VEC>
 cudaError_t launch(const T* stack, const float* w, T* out, float* part,
                    int C, long long P, int K, int splits, cudaStream_t stream) {
@@ -177,6 +280,30 @@ int wagg_multi_bf16(const void* stack, const float* w, void* out, float* part,
   return (int)launch<__nv_bfloat16, 1>(
       (const __nv_bfloat16*)stack, w, (__nv_bfloat16*)out, part, C, P, K,
       splits, (cudaStream_t)stream);
+}
+
+// weighted_agg, K = 1, 1 <= C <= 32: out (P,) = w (C,) . stack (C, P).
+// vec 16 (bytes) needs P * sizeof(T) % 16 == 0 and a 16-byte-aligned stack
+// and out; vec 1 takes any.  Returns cudaGetLastError() after the launch.
+int wagg_small_c(int dtype, const void* stack, const float* w, void* out,
+                 int C, long long P, int vec, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (C < 1 || C > 32 || P < 1) return (int)cudaErrorInvalidValue;
+  const bool v16 = vec == 16;
+  if (v16 && ((uintptr_t)stack % 16 != 0 || (uintptr_t)out % 16 != 0))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    if (v16 && P % 4 != 0) return (int)cudaErrorInvalidValue;
+    return v16 ? (int)launch_small_c<float, 4>((const float*)stack, w, (float*)out, C, P, s)
+               : (int)launch_small_c<float, 1>((const float*)stack, w, (float*)out, C, P, s);
+  }
+  if (dtype == 1) {
+    using bf = __nv_bfloat16;
+    if (v16 && P % 8 != 0) return (int)cudaErrorInvalidValue;
+    return v16 ? (int)launch_small_c<bf, 8>((const bf*)stack, w, (bf*)out, C, P, s)
+               : (int)launch_small_c<bf, 1>((const bf*)stack, w, (bf*)out, C, P, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

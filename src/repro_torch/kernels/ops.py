@@ -21,11 +21,15 @@ from repro_torch.tree import tree_map
 
 LAUNCHES: Dict[str, int] = {"weighted_agg_multi": 0, "kmeans_assign": 0,
                             "weighted_agg": 0, "flash_attention": 0}
+# flash_attention's launches by route (kernels/flash_attention.py): bf16 on
+# the tensor cores, f32 on the CUDA cores; they sum to the total above
+FLASH_ROUTES: Dict[str, int] = {_flash.TENSOR_CORES: 0, _flash.CUDA_CORES: 0}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, FLASH_ROUTES):
+        for name in counts:
+            counts[name] = 0
 
 
 def weighted_agg_multi(stack: torch.Tensor,
@@ -75,7 +79,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D) -> (B, Hq, Sq, D): GQA,
     scale 1/sqrt(D), optional tanh soft-cap, causal and sliding-window masks
     with q tokens at the end of the kv axis (``q_pos = Sk - Sq + i``).
-    Forward only: the kernel's output carries no gradient, so on the card a
+    On the card bf16 runs the tensor-core kernel and f32 the CUDA-core one
+    (``FLASH_ROUTES`` counts each).  Forward only: the kernel's output carries no gradient, so on the card a
     call that autograd would differentiate raises."""
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -85,9 +90,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "flash_attention: the CUDA kernel is forward only; its backward "
             "comes with the transformer training slice (ROADMAP queue 1, "
             "item 16)")
-    out = _flash.launch(q, k, v, causal=causal, window=window,
-                        softcap=softcap)
+    out, route = _flash.launch(q, k, v, causal=causal, window=window,
+                               softcap=softcap)
     LAUNCHES["flash_attention"] += 1
+    FLASH_ROUTES[route] += 1
     return out
 
 

@@ -132,3 +132,93 @@ def test_flash_attention_kernel_reads_the_models_layout(cuda_device):
                                softcap=50.0)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# the bf16 tensor-core route (csrc/flash_attention_sm90.cu) on the reference
+# sweep's features: ragged S, Sq = 1 against a cache, non-causal, GQA groups
+# 1 / 2 / 4, D 32 / 64 / 128 / 256, a window edge inside a kv tile
+# B, Hq, Hkv, Sq, Sk, D, causal, window, softcap
+TC_CASES = [
+    (2, 4, 4, 70, 70, 64, True, 0, 0.0),           # ragged S, group 1
+    (1, 4, 2, 96, 96, 32, True, 0, 50.0),          # group 2, D = 32
+    (1, 8, 2, 300, 300, 128, True, 0, 0.0),        # group 4, 300 = 2 q tiles + 44
+    (1, 8, 4, 1, 300, 256, True, 0, 50.0),         # Sq = 1 against a cache
+    (1, 8, 4, 1, 300, 256, True, 100, 50.0),       # ... and a window
+    (1, 2, 2, 130, 130, 64, False, 0, 0.0),        # non-causal
+    (2, 8, 4, 300, 300, 256, True, 100, 50.0),     # window edge mid-tile
+    (1, 4, 1, 257, 257, 256, True, 37, 0.0),       # window < a tile
+    (1, 2, 1, 200, 520, 128, True, 0, 30.0),       # Sq < Sk (cached prefix)
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TC_CASES)
+def test_flash_attention_tensor_cores_match_plain(cuda_device, case):
+    b, hq, hkv, sq, sk, d, causal, window, cap = case
+    g = torch.Generator(device=cuda_device).manual_seed(sq + sk + d + window)
+    q, k, v = (torch.randn(s, generator=g, device=cuda_device).bfloat16()
+               for s in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+    before = dict(ops.FLASH_ROUTES)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=cap)
+    torch.cuda.synchronize()
+    assert ops.FLASH_ROUTES["tensor_cores"] == before["tensor_cores"] + 1
+    assert ops.FLASH_ROUTES["cuda_cores"] == before["cuda_cores"]
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   softcap=cap)
+    torch.testing.assert_close(got.float(), want.float(), rtol=4e-2,
+                               atol=4e-2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_tensor_cores_read_transposed_views(cuda_device):
+    """(B, S, H, D) activations as transposed views go through TMA's
+    strided maps: equal to contiguous copies, and to the plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    q = torch.randn((2, 333, 8, 256), generator=g, device=cuda_device).bfloat16()
+    k = torch.randn((2, 333, 4, 256), generator=g, device=cuda_device).bfloat16()
+    v = torch.randn((2, 333, 4, 256), generator=g, device=cuda_device).bfloat16()
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    got = ops.flash_attention(*views, window=70, softcap=50.0)
+    assert got.transpose(1, 2).is_contiguous()
+    copies = ops.flash_attention(*[t.contiguous() for t in views], window=70,
+                                 softcap=50.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, copies, rtol=0, atol=0)
+    want = ref.flash_attention_ref(*views, window=70, softcap=50.0)
+    torch.testing.assert_close(got.float(), want.float(), rtol=4e-2,
+                               atol=4e-2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_a_misaligned_bf16_view(cuda_device):
+    """A bf16 view one element past a 16-byte boundary raises ValueError
+    with the reason: no launch, and no other kernel takes it."""
+    flat = torch.randn(2 * 64 * 64 + 1, device=cuda_device).bfloat16()
+    k = flat[1:].view(1, 2, 64, 64)          # 2 bytes past the boundary
+    q = torch.randn((1, 4, 64, 64), device=cuda_device).bfloat16()
+    before = dict(ops.FLASH_ROUTES)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.flash_attention(q, k, k.contiguous())
+    assert ops.FLASH_ROUTES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [2, 5, 16, 32])
+@pytest.mark.parametrize("P", [1_000_000, 4099])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_weighted_agg_small_c_kernel_matches_plain(cuda_device, C, P, dt):
+    """The streaming small-C kernel (16-byte rows; one element a thread
+    where P is ragged), at the reference sweep's tolerances."""
+    from repro_torch.kernels import weighted_agg as wagg
+    pl = wagg.plan(C, P, k=1, vec4=P % 8 == 0, num_sms=132)
+    assert isinstance(pl, wagg.SmallC)
+    g = torch.Generator(device=cuda_device).manual_seed(C * P)
+    s = torch.randn((C, P), generator=g, device=cuda_device).to(dt)
+    w = torch.rand((C,), generator=g, device=cuda_device)
+    got = ops.weighted_agg(s, w)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dt == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), ref.weighted_agg_ref(s, w).float(),
+                               rtol=tol, atol=tol)

@@ -161,8 +161,47 @@ def test_weighted_agg_launch_plan(c, p, vec4, want):
     assert (pl.splits - 1) * rows < c <= pl.splits * rows
 
 
+@pytest.mark.parametrize("c,k,vec4,want", [
+    (16, 1, True, wagg_launcher.SmallC(16)),     # kernel_bench's C = 16
+    (32, 1, True, wagg_launcher.SmallC(16)),
+    (5, 1, False, wagg_launcher.SmallC(1)),      # ragged P: one element
+    (33, 1, True, wagg_launcher.Plan(4, 1)),     # past the small-C threshold
+    (800, 4, True, wagg_launcher.Plan(4, 1)),    # the FL engine's stage-1
+    (16, 4, True, wagg_launcher.Plan(4, 1)),     # K > 1 keeps today's kernel
+])
+def test_weighted_agg_plan_picks_the_small_c_kernel_for_k1(c, k, vec4, want):
+    """K = 1 at C <= SMALL_C_MAX streams (wagg_small_c_kernel); every other
+    shape keeps the weighted_agg_multi plan of the FL engine."""
+    pl = wagg_launcher.plan(c, 30720, k=k, vec4=vec4, num_sms=132)
+    assert type(pl) is type(want) and pl == want
+    assert wagg_launcher.plan(800, 30720, k=4, vec4=True, num_sms=132) == \
+        wagg_launcher.plan(800, 30720, vec4=True, num_sms=132)
+
+
 def test_every_source_is_built_under_a_content_hash():
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").is_file()
         p = build._lib_path(name)
         assert p.parent == build.BUILD_DIR and p.name.startswith(f"lib{name}-")
+    # the hash covers each source's own flags: the -ldl of the tensor-core
+    # flash kernel changes its library's name, not the others'
+    assert "flash_attention_sm90" in build.SOURCES
+    assert "-ldl" in build._flags("flash_attention_sm90")
+    assert "-ldl" not in build._flags("flash_attention")
+
+
+def test_ptxas_info_reads_registers_and_spills(monkeypatch, tmp_path):
+    """The build phase's report: ptxas -v's lines for each kernel."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    build._lib_path("kmeans").with_suffix(".log").write_text(
+        "ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z3fooPf\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, 1024 bytes smem, 392 bytes "
+        "cmem[0]\n"
+        "ptxas warning : (C7508) setmaxnreg ignored\n")
+    rows = build.ptxas_info("kmeans")
+    assert rows[0] == {"kernel": "_Z3fooPf", "registers": 168,
+                       "static_smem": 1024, "spill_stores": 8,
+                       "spill_loads": 4}
+    assert "setmaxnreg ignored" in rows[1]["warnings"][0]
