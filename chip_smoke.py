@@ -6,13 +6,16 @@ Run from the root of a checkout.  It builds the CUDA kernels from the
 sources in the checkout (printing each kernel's registers, shared memory
 and spills from ptxas), holds each against its plain PyTorch version on
 the card (flash_attention on both routes: bf16 on the tensor cores, f32 on
-the CUDA cores), runs the sync FedHC engine through ``repro_torch.api.run`` for
+the CUDA cores), times the kernels beside their bounds, their plain
+versions, one PyTorch call of the same function and the floor of one
+launch, runs the sync FedHC engine through ``repro_torch.api.run`` for
 the five paper methods and for fedhc at the paper's 800 satellites (with
-the kernels and without), serves the full gemma2-2b (26 layers, bf16,
-random weights) through ``repro_torch.launch.serve.serve_batch`` with a
-prompt longer than its 4096-token window, checks prefill + decode against
-a longer prefill, profiles one prefill, and prints one JSON line per
-phase.  The line before the last is ``{"kernels": [...]}``, the last
+the kernels and without, in turns, three times each), serves the full
+gemma2-2b (26 layers, bf16, random weights) through
+``repro_torch.launch.serve.serve_batch`` with a prompt longer than its
+4096-token window, checks prefill + decode against a longer prefill,
+profiles one prefill, and prints one JSON line per phase.  The line
+before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.  Any failure raises: nothing is caught,
 and the exit code is then not 0.  Without CUDA, or outside a checkout, it
 exits with an error before printing any result.  It imports nothing of
@@ -51,6 +54,7 @@ FLASH_LAYER_ATOL_BF16 = 1e-3
 KMEANS_D_TOL = 1e-5           # |d - d_plain| / (|x|^2 + |c|^2)
 KMEANS_TIE = 1e-5             # assignments must agree where the two best
 #                               distances differ by more than this, relative
+KMEANS_TURNS = 7              # kmeans_assign and the launch floors, in turns
 TRAJ_RTOL = 1e-5              # time and energy, kernels on vs off
 LOSS_RTOL = 1e-3
 PAPER_METHODS = ("fedhc", "fedhc-nomaml", "h-base", "fedce", "c-fedavg")
@@ -154,11 +158,15 @@ def engine_weights(c: int, k: int, gen):
 
 
 def check_weighted_agg(gen):
-    """Kernel vs plain at every LeNet leaf (C = 32 and 800, K = 4) and the
-    reference's sweep shapes; returns the error at the main path's shapes
-    and the times of one stage-1 at C = 800."""
+    """Kernel vs plain: one leaf at every LeNet leaf size (C = 32 and 800,
+    K = 4) and the reference's sweep shapes, then the grouped launch over
+    LeNet's 10 leaves (C = 32 and 800, K = 1, 4, 16, f32 and bf16; C =
+    10,000, K = 4, f32): one launch a tree, the same bits from two calls.
+    Times one stage-1 (the 10 leaves, K = 4, f32) at C = 800 and 10,000,
+    beside 10 ``torch.matmul``s."""
     import torch
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import weighted_agg as _wagg
     leaves = lenet_leaf_sizes()
     cases = [(c, p, 4, torch.float32, "engine") for c in (32, 800)
              for p in leaves]
@@ -182,43 +190,100 @@ def check_weighted_agg(gen):
         if c == 800:
             main_err = max(main_err, err)
 
+    def tree_check(c, k, dt):
+        """One grouped launch over LeNet's leaves vs plain, leaf by leaf;
+        returns the largest error."""
+        stacks = tuple(torch.randn((c, p), generator=gen, device=DEV).to(dt)
+                       for p in leaves)
+        w = engine_weights(c, k, gen)
+        before = ops.LAUNCHES["weighted_agg_multi"]
+        got = ops.weighted_agg_multi_tree(stacks, w)
+        again = ops.weighted_agg_multi_tree(stacks, w)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["weighted_agg_multi"] == before + 2
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+            "two calls differ"
+        tol = WAGG_TOL if dt == torch.float32 else WAGG_TOL_BF16
+        err = 0.0
+        for g, x in zip(got, stacks):
+            want = ref.weighted_agg_multi_ref(x, w)
+            assert g.shape == want.shape and g.dtype == dt
+            torch.testing.assert_close(g.float(), want.float(), rtol=tol,
+                                       atol=tol)
+            err = max(err, float((g.float() - want.float()).abs().max()))
+        return err
+    trees = {f"C={c},K={k},{str(dt)[6:]}": tree_check(c, k, dt)
+             for c in (32, 800) for k in (1, 4, 16)
+             for dt in (torch.float32, torch.bfloat16)}
+    main_err = max(main_err, trees["C=800,K=4,float32"])
+
+    def stage1(c, k=4):
+        """The main path's stage-1 at C clients: times and bound."""
+        stacks = tuple(torch.randn((c, p), generator=gen, device=DEV)
+                       for p in leaves)
+        w = engine_weights(c, k, gen)
+        wt = w.T
+        got = ops.weighted_agg_multi_tree(stacks, w)
+        torch.cuda.synchronize()
+        err = max(float((g - ref.weighted_agg_multi_ref(x, w)).abs().max())
+                  for g, x in zip(got, stacks))
+        assert err <= WAGG_TOL, err
+
+        def kernel():
+            return ops.weighted_agg_multi_tree(stacks, w)
+        n_bytes = sum(4 * (c * p + c * k + k * p) for p in leaves)
+        n_ops = sum(2 * c * k * p for p in leaves)
+        pl = _wagg.plan_grouped(leaves, c, k, torch.float32,
+                                [_wagg._aligned(x) for x in stacks])
+        row = {"C": c, "K": k, "max_abs_err": err, "ms": device_ms(kernel),
+               "library_ms": device_ms(
+                   lambda: [torch.matmul(wt, s) for s in stacks]),
+               "bound_ms": max(n_bytes / HBM_BYTES_PER_S,
+                               n_ops / F32_FLOPS) * 1e3,
+               "bound_by": ("bytes" if n_bytes / HBM_BYTES_PER_S
+                            >= n_ops / F32_FLOPS else "operations"),
+               "blocks": pl.blocks}
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        assert row["ms"] < row["library_ms"], row
+        return row, stacks, w
+
     # one stage-1 of the main path: the 10 LeNet leaves at C = 800, K = 4
-    c, k = 800, 4
-    stacks = [torch.randn((c, p), generator=gen, device=DEV)
-              for p in leaves]
-    w = engine_weights(c, k, gen)
+    main, stacks, w = stage1(800)
     wt = w.T
-    def kernel():
-        return [ops.weighted_agg_multi(s, w) for s in stacks]
-    kernel_ms = device_ms(kernel)
     plain_ms = device_ms(lambda: [ref.weighted_agg_multi_ref(s, w)
                                   for s in stacks])
-    library_ms = device_ms(lambda: [torch.matmul(wt, s) for s in stacks])
     big = stacks[leaves.index(max(leaves))]
-    big_ms = device_ms(lambda: ops.weighted_agg_multi(big, w))
-    big_library_ms = device_ms(lambda: torch.matmul(wt, big))
-    n_bytes = sum(4 * (c * p + c * k + k * p) for p in leaves)
-    n_ops = sum(2 * c * k * p for p in leaves)
-    bound_s = max(n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOPS)
-    return {
+    c, k = w.shape
+    res = {
         "max_abs_err": main_err, "max_abs_err_all_shapes": max(worst),
-        "cases": len(cases), "ms": kernel_ms, "plain_ms": plain_ms,
-        "library_ms": library_ms, "bound_ms": bound_s * 1e3,
-        "bound_by": ("bytes" if n_bytes / HBM_BYTES_PER_S
-                     >= n_ops / F32_FLOPS else "operations"),
-        "call_ms": call_ms(kernel),
-        "largest_leaf_ms": big_ms, "largest_leaf_library_ms": big_library_ms,
+        "cases": len(cases), "trees": trees, **main, "plain_ms": plain_ms,
+        "call_ms": call_ms(lambda: ops.weighted_agg_multi_tree(stacks, w)),
+        "per_leaf_ms": device_ms(lambda: [ops.weighted_agg_multi(s, w)
+                                          for s in stacks]),
+        "per_leaf_call_ms": call_ms(lambda: [ops.weighted_agg_multi(s, w)
+                                             for s in stacks]),
+        "largest_leaf_ms": device_ms(lambda: ops.weighted_agg_multi(big, w)),
+        "largest_leaf_library_ms": device_ms(lambda: torch.matmul(wt, big)),
         "largest_leaf_bound_ms": 4 * (c * max(leaves) + c * k
                                       + k * max(leaves))
         / HBM_BYTES_PER_S * 1e3,
         "shape": f"one stage-1: {len(leaves)} LeNet leaves, C={c}, K={k}, "
                  f"P={sum(leaves)} in all, f32",
     }
+    del stacks, big
+    # the scale of 10,000 clients: one stage-1 reads 1.78 GB
+    res["c10000"], stacks, w = stage1(10_000)
+    del stacks, w
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 def check_kmeans(gen):
     """Kernel vs plain on constellation positions (N = 32, 800, 10000;
-    D = 3, K = 4) and on (1000, 10, 7) normals; times at N = 800."""
+    D = 3, K = 4) and on (1000, 10, 7) normals; times at N = 800, beside
+    the floor of one launch (``t.zero_()`` on a one-element tensor) and of
+    one launch that reads (``t.copy_(u)``), timed in turns with it."""
     import torch
     from repro_torch.core.engine import _constellation_for
     from repro_torch.kernels import ops, ref
@@ -250,12 +315,29 @@ def check_kmeans(gen):
     x, cent = cases[1]
     n, dd = x.shape
     k = cent.shape[0]
-    kernel_ms = device_ms(lambda: ops.kmeans_assign(x, cent))
+    # the floor of one launch: the smallest kernel PyTorch makes (zero_ of
+    # one element), and the smallest that reads before it writes (copy_ of
+    # one element), timed by the same harness in turns with the kernel,
+    # KMEANS_TURNS times, so that a change of clocks enters no one ratio
+    one, src = torch.zeros((1,), device=DEV), torch.ones((1,), device=DEV)
+    floor_runs, read_runs, kernel_runs = [], [], []
+    for _ in range(KMEANS_TURNS):
+        floor_runs.append(device_ms(one.zero_))
+        kernel_runs.append(device_ms(lambda: ops.kmeans_assign(x, cent)))
+        read_runs.append(device_ms(lambda: one.copy_(src)))
+    kernel_ms = statistics.median(kernel_runs)
+    floor_ms = statistics.median(floor_runs)
     plain_ms = device_ms(lambda: ref.kmeans_assign_ref(x, cent))
     n_bytes = 4 * (n * dd + k * dd + 2 * n)
     n_ops = n * k * (2 * dd + 3)
     return {
         "max_abs_err": main_err, "cases": len(cases), "ms": kernel_ms,
+        "launch_floor_ms": floor_ms, "ms_over_floor": kernel_ms / floor_ms,
+        "ms_runs": kernel_runs, "launch_floor_runs": floor_runs,
+        "ms_over_floor_runs": [a / b for a, b in zip(kernel_runs,
+                                                     floor_runs)],
+        "read_floor_ms": statistics.median(read_runs),
+        "read_floor_runs": read_runs,
         "call_ms": call_ms(lambda: ops.kmeans_assign(x, cent)),
         "plain_ms": plain_ms, "library_ms": None,
         "bound_ms": max(n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOPS) * 1e3,
@@ -310,7 +392,7 @@ def check_weighted_agg_single(gen):
     n_ops = 2 * c * p
     return {
         "max_abs_err": err, "max_abs_err_sweep": worst, "cases": len(cases),
-        "kernel": type(_wagg.plan(c, p, k=1, vec4=True, num_sms=132)).__name__,
+        "kernel": type(_wagg.plan(c, p, k=1, vec4=True)).__name__,
         "ms": device_ms(lambda: ops.weighted_agg(s, w)),
         "plain_ms": device_ms(lambda: ref.weighted_agg_ref(s, w)),
         "library_ms": device_ms(lambda: torch.matmul(w, s)),
@@ -622,6 +704,7 @@ def profile_round_loop(sc) -> dict:
     busy_ms = sum(k[0] for k in kernels)
     return {"phase": "profile", "method": cfg.method,
             "num_clients": cfg.num_clients, "rounds": cfg.rounds,
+            "use_pallas_kernels": cfg.use_pallas_kernels,
             "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": (1.0 - busy_ms / wall_ms) if wall_ms else None,
             "kernel_launches": sum(k[2] for k in kernels),
@@ -690,7 +773,7 @@ def main() -> int:
     flash = check_flash(gen)
     emit({"phase": "kernels_vs_plain", "weighted_agg_multi": wagg,
           "kmeans_assign": km, "weighted_agg": wagg1,
-          "flash_attention": flash})
+          "flash_attention": flash, "launch_floor_ms": km["launch_floor_ms"]})
     gc.collect()            # the checks' tensors and graphs: out of the
     torch.cuda.empty_cache()  # main path's peak-memory readings
 
@@ -715,33 +798,44 @@ def main() -> int:
     fed = [m for m in PAPER_METHODS if m != "c-fedavg"]
     n_recl = sum(paper[m]["reclusters"] for m in fed)
     assert ops.LAUNCHES["kmeans_assign"] == 10 * len(fed), ops.LAUNCHES
-    assert ops.LAUNCHES["weighted_agg_multi"] == 10 * (10 * len(fed)
-                                                        + n_recl), ops.LAUNCHES
+    # one grouped launch a stage-1: one a round, and one a re-cluster
+    assert ops.LAUNCHES["weighted_agg_multi"] == 10 * len(fed) + n_recl, \
+        ops.LAUNCHES
     emit({"phase": "paper_methods", "num_clients": 32, "num_clusters": 4,
           "rounds": 10, "launches": dict(ops.LAUNCHES), "runs": paper})
 
-    # fedhc at the paper's 800 satellites, with the kernels and without;
-    # 4-minute rounds and Z = 0.2 (the reference's own kernel-flag parity
-    # setting) so the re-cluster branch and its MAML hand-off run too
+    # fedhc at the paper's 800 satellites, with the kernels and without,
+    # in turns, three times each; 4-minute rounds and Z = 0.2 (the
+    # reference's own kernel-flag parity setting) so the re-cluster branch
+    # and its MAML hand-off run too
     drift = dict(round_minutes=4.0, dropout_threshold=0.2)
-    ops.reset_launches()
-    on = api.run(scenario("fedhc", 800, True, **drift), device=DEV)
-    launches = dict(ops.LAUNCHES)
-    ops.reset_launches()
-    off = api.run(scenario("fedhc", 800, False, **drift), device=DEV)
-    assert set(ops.LAUNCHES.values()) == {0}, ops.LAUNCHES
-    for res in (on, off):
-        check_result(res, 10, 5)
-    assert on.reclusters == off.reclusters >= 1, (on.reclusters,
-                                                  off.reclusters)
-    assert launches["kmeans_assign"] == 10, launches
-    assert launches["weighted_agg_multi"] == 10 * (10 + on.reclusters), \
-        launches
-    for key, rtol in (("time_s", TRAJ_RTOL), ("energy_j", TRAJ_RTOL),
-                      ("loss", LOSS_RTOL)):
-        a, b = getattr(on, key), getattr(off, key)
-        assert all(abs(x - y) <= rtol * abs(y) for x, y in zip(a, b)), \
-            (key, a, b)
+    runs = {True: [], False: []}
+    for _ in range(3):
+        for use in (True, False):
+            ops.reset_launches()
+            res = api.run(scenario("fedhc", 800, use, **drift), device=DEV)
+            check_result(res, 10, 5)
+            runs[use].append((res, dict(ops.LAUNCHES)))
+    on, launches = runs[True][0]
+    assert on.reclusters >= 1, on.reclusters
+    for (a, counts), (b, off_counts) in zip(runs[True], runs[False]):
+        assert set(off_counts.values()) == {0}, off_counts
+        assert counts["kmeans_assign"] == 10, counts
+        # one grouped launch a stage-1: one a round, and one a re-cluster
+        assert counts["weighted_agg_multi"] == 10 + a.reclusters, counts
+        assert a.reclusters == b.reclusters == on.reclusters, \
+            (a.reclusters, b.reclusters)
+        for key, rtol in (("time_s", TRAJ_RTOL), ("energy_j", TRAJ_RTOL),
+                          ("loss", LOSS_RTOL)):
+            x, y = getattr(a, key), getattr(b, key)
+            assert all(abs(u - v) <= rtol * abs(v) for u, v in zip(x, y)), \
+                (key, x, y)
+    off = runs[False][0][0]
+
+    def per_round(use):
+        s = [r.run_s / 10 for r, _ in runs[use]]
+        return {"run_s_per_round": s, "median": statistics.median(s),
+                "spread": max(s) - min(s)}
     emit({"phase": "paper_scale", "method": "fedhc", "num_clients": 800,
           "num_clusters": 4, "rounds": 10, **drift,
           "launches": launches, "reclusters": on.reclusters,
@@ -749,19 +843,22 @@ def main() -> int:
                          "time_s": on.time_s.tolist(),
                          "energy_j": on.energy_j.tolist(),
                          "setup_s": on.setup_s, "compile_s": on.compile_s,
-                         "run_s_per_round": on.run_s / 10,
+                         **per_round(True),
                          "peak_device_mem_mb": on.peak_device_mem_mb},
           "kernels_off": {"acc": off.acc.tolist(), "loss": off.loss.tolist(),
                           "time_s": off.time_s.tolist(),
                           "energy_j": off.energy_j.tolist(),
-                          "run_s_per_round": off.run_s / 10,
-                          "peak_device_mem_mb": off.peak_device_mem_mb}})
+                          **per_round(False),
+                          "peak_device_mem_mb": off.peak_device_mem_mb},
+          "order": "on, off, on, off, on, off"})
 
-    # ---- 5. where the time goes: fedhc at N = 800 under torch.profiler ----
-    emit(profile_round_loop(scenario("fedhc", 800, True, **drift)))
+    # ---- 5. where the time goes: fedhc at N = 800 under torch.profiler,
+    # with the kernels and without
+    for use in (True, False):
+        emit(profile_round_loop(scenario("fedhc", 800, use, **drift)))
 
     # ---- 6. serving: full gemma2-2b, prefill + greedy decode -------------
-    del on, off
+    del on, off, runs
     gc.collect()
     torch.cuda.empty_cache()
     cfg = get_config("gemma2-2b")

@@ -1,51 +1,72 @@
-// weighted_agg_multi for Hopper (sm_90a): out[k, p] = sum_c w[c, k] * stack[c, p].
+// weighted_agg_multi for Hopper (sm_90a): for every leaf i of a parameter tree,
+// out_i[k, p] = sum_c w[c, k] * stack_i[c, p], all leaves in one launch.
 //
 // Replaces the Pallas TPU kernel repro/kernels/weighted_agg.py::weighted_agg_multi
 // (FedHC stage-1 per-cluster aggregation: one pass over the (C, P) client stack
-// for all K clusters).
+// for all K clusters), which the reference calls once per leaf
+// (weighted_agg_multi_tree).
 //
-// Bound on the card: device-memory bytes.  The stack is read once and the
-// (K, P) output written once; the kernel does 2K flops per stack element, K/2
+// Bound on the card: device-memory bytes, C * sum(P_i) + C * K + K * sum(P_i)
+// elements, each moved once.  The kernel does 2K flops per stack element, K/2
 // flop per byte in f32, far under the ~20 flop/byte where the H100's f32 units
-// would become the limit, so tensor cores buy nothing here.  To reach the
-// memory rate the card needs a few MB of loads in flight, i.e. many warps, each
-// with independent loads outstanding.
+// would become the limit, so tensor cores buy nothing.  One FedHC stage-1 at
+// C = 800 (10 LeNet leaves, 44,426 columns, K = 4) reads 142 MB: 0.0427 ms at
+// 3.35 TB/s.
 //
-// Design against that bound:
-//  * a block owns a tile of 32 * VEC contiguous columns: lane l of every warp
-//    owns columns l*VEC .. l*VEC+VEC-1 of the tile (VEC = 4, one float4 load,
-//    when P % 4 == 0 and the stack is 16-byte aligned), so a warp reads one
-//    row's tile as one contiguous, coalesced segment;
-//  * the clients are split twice: across the WARPS warps of a block (warp w
-//    takes rows w, w + WARPS, ...) and, when the column tiles alone give too
-//    few blocks (LeNet's small leaves at C = 800 give one), across blocks
-//    (gridDim.y "splits" of rows_per_split rows each).  A first version that
-//    had one thread walk all C rows of its column was latency-bound: 1.5 ms
-//    for one stage-1 at C = 800, 36x the bound (PERF.md);
-//  * each thread keeps its K x VEC accumulators in registers (KMAX = 4, 8 or 16,
-//    the smallest bucket >= K; the wrapper raises above 16);
-//  * the (C, K) weights are staged through shared memory in chunks of CHUNK rows
-//    (C = 10k would not fit at once), padded to KMAX with zeros so the inner
-//    loop has no branch on K;
-//  * the warps' partial sums are reduced in shared memory in a fixed order, one
-//    k at a time; with splits > 1 each block writes its f32 partial to a
-//    (splits, K, P) scratch the wrapper allocates, and a second kernel sums the
-//    splits in order.  No atomics: the result does not change from run to run;
+// The old design and its numbers (PERF.md): one thread per column walking all
+// C rows took 1.540 ms for that stage-1; splitting C over the 8 warps of a
+// block and over blocks took 0.1146 ms, 37% of the bound, in ~19 dependent
+// kernels: one launch per leaf (10 ctypes calls), plus a second kernel that
+// summed the row splits of 9 of the 10 leaves, most of them moving a few KB;
+// f1.w (69% of the bytes) kept ~30 KB of loads in flight per SM, and bf16
+// stacks loaded one element a lane.
+//
+// This design:
+//  * one launch per stage-1.  The wrapper (kernels/weighted_agg.py::
+//    plan_grouped) cuts every leaf into column tiles of 32 * VEC columns; a
+//    block takes one tile and finds its leaf in a descriptor table (input,
+//    output, P, first tile, VEC) passed by value as a kernel parameter
+//    (nothing is copied to the device, so the launch can be captured in a
+//    CUDA graph).  LeNet's stage-1 is 355 blocks, 2.7 an SM of an H100;
+//  * 16-byte loads wherever a leaf allows them (P * sizeof(T) % 16 == 0 and a
+//    16-byte-aligned base): 4 f32 or 8 bf16 a lane.  Narrow or unaligned leaves
+//    (LeNet's c1.w, c1.b, f3.b) take one element a lane;
+//  * within a block the 8 warps share the rows: warp w takes rows w, w + 8,
+//    ..., so no warp walks all of C.  Each thread issues the loads of ROWS
+//    rows (8; 4 where K * VEC accumulators are many) before its first FMA:
+//    32 KB of loads in flight a block, and three blocks an SM for the f32
+//    stage-1 (launch bounds cap it at 80 registers);
+//  * the (C, K) weights are staged in shared memory a chunk of rows at a
+//    time, padded to KMAX = 4, 8 or 16 (the smallest bucket >= K; the wrapper
+//    raises above 16) with zeros so the inner loop has no branch on K;
+//  * the block sums its warps' partials in warp order in shared memory and
+//    writes the tile's outputs once.  No atomics and no second kernel: two
+//    calls on the same inputs give the same bits;
+//  * no row splits across blocks.  A version that split a tile's rows over
+//    the blocks of a thread-block cluster and summed them through
+//    distributed shared memory was slower at every split count for the
+//    stage-1 at C = 800 (0.0525 ms with one split, 0.0724 with eight) and no
+//    faster at C = 10,000 (0.590-0.599 ms with one to three), on an H100 SXM
+//    at 700 W (PERF.md): once the tiles fill the card a split only adds a
+//    block's set-up and reduction;
 //  * f32 and bf16 stacks, always f32 accumulation, output in the stack's dtype;
-//  * the ragged edge of P is masked, not padded (the TPU kernel padded P to
-//    BLOCK_P = 2048 lanes; nothing on this card needs that).
+//    the ragged edge of P is masked, not padded (the TPU kernel padded P to
+//    BLOCK_P = 2048 lanes).
+// Plain 16-byte loads are kept, with no TMA producer warp: on the H100 they
+// reach 82% of the byte bound at C = 800 and ~90% at C = 10,000 (PERF.md), so
+// a bulk-copy ring would buy at most the remaining tenth or two.
 //
 // weighted_agg (K = 1) with small C (kernels/weighted_agg.py::plan picks it
 // for C <= SMALL_C_MAX) replaces the Pallas TPU kernel
 // repro/kernels/weighted_agg.py::weighted_agg and is bound by bytes too.  At
-// small C the split over warps above leaves each thread two loads in flight
-// and pays four __syncthreads and KMAX = 4 accumulators for one output, so
-// wagg_small_c_kernel streams instead: each thread owns 16 bytes of columns
-// (4 f32 or 8 bf16; 1 element where P or the stack is not 16-byte aligned),
-// issues the loads of all C rows before its first FMA (CMAX, the smallest
-// bucket >= C, unrolled), reads the weights through the read-only cache, sums
-// in row order in f32 with no shared memory and no second pass, and writes its
-// 16 bytes once.  Deterministic.
+// small C a split over warps leaves each thread few loads in flight and pays
+// the reduction through shared memory for one output, so wagg_small_c_kernel
+// streams instead: each thread owns 16 bytes of columns (4 f32 or 8 bf16; 1
+// element where P or the stack is not 16-byte aligned), issues the loads of
+// all C rows before its first FMA (CMAX, the smallest bucket >= C, unrolled),
+// reads the weights through the read-only cache, sums in row order in f32 with
+// no shared memory and no second pass, and writes its 16 bytes once.
+// Deterministic.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -55,93 +76,28 @@ namespace {
 
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
-constexpr int CHUNK = 256;      // weight rows per shared-memory chunk
+constexpr int MAX_LEAVES = 64;     // descriptor table entries (kernel parameter)
+constexpr int CHUNK_FLOATS = 4096; // weights staged at once: 4096 / KMAX rows
+
+struct Leaf {
+  const void* in;   // (C, P) stack of the leaf
+  void* out;        // (K, P) output of the leaf
+  long long P;
+  int first;        // first column tile of the leaf in the grid
+  int vec;          // elements a lane loads from a row: 16 / sizeof(T), or 1
+};
+
+struct Table {      // leaves in work order
+  Leaf leaf[MAX_LEAVES];
+  int n;
+};
+
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-template <typename T, int KMAX, int VEC>
-__global__ void __launch_bounds__(THREADS)
-wagg_multi_kernel(const T* __restrict__ stack, const float* __restrict__ w,
-                  T* __restrict__ out, float* __restrict__ part, int C,
-                  long long P, int K, int rows_per_split) {
-  __shared__ float sw[CHUNK * KMAX];
-  __shared__ float red[WARPS][32 * VEC];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long p0 = ((long long)blockIdx.x * 32 + lane) * VEC;
-  const bool active = p0 < P;
-  const int c_lo = blockIdx.y * rows_per_split;
-  const int c_hi = min(C, c_lo + rows_per_split);
-
-  float acc[KMAX][VEC];
-#pragma unroll
-  for (int k = 0; k < KMAX; ++k)
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) acc[k][v] = 0.0f;
-
-  for (int c0 = c_lo; c0 < c_hi; c0 += CHUNK) {
-    const int cn = min(CHUNK, c_hi - c0);
-    __syncthreads();                       // previous chunk fully consumed
-    for (int i = threadIdx.x; i < cn * KMAX; i += THREADS) {
-      const int c = i / KMAX, k = i - c * KMAX;
-      sw[i] = k < K ? w[(long long)(c0 + c) * K + k] : 0.0f;
-    }
-    __syncthreads();
-    if (active) {
-#pragma unroll 4
-      for (int c = warp; c < cn; c += WARPS) {
-        const T* row = stack + (long long)(c0 + c) * P + p0;
-        float x[VEC];
-        if constexpr (VEC == 4) {
-          const float4 q = __ldg(reinterpret_cast<const float4*>(row));
-          x[0] = q.x; x[1] = q.y; x[2] = q.z; x[3] = q.w;
-        } else {
-#pragma unroll
-          for (int v = 0; v < VEC; ++v) x[v] = to_f32(row[v]);
-        }
-        const float* wc = sw + c * KMAX;
-#pragma unroll
-        for (int k = 0; k < KMAX; ++k)
-#pragma unroll
-          for (int v = 0; v < VEC; ++v) acc[k][v] = fmaf(wc[k], x[v], acc[k][v]);
-      }
-    }
-  }
-
-  // reduce the WARPS partial sums of each column, one k at a time
-#pragma unroll
-  for (int k = 0; k < KMAX; ++k) {
-    if (k >= K) break;
-    __syncthreads();                       // red is free again
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) red[warp][lane * VEC + v] = acc[k][v];
-    __syncthreads();
-    if (warp == 0 && active) {
-#pragma unroll
-      for (int v = 0; v < VEC; ++v) {
-        float s = 0.0f;
-#pragma unroll
-        for (int i = 0; i < WARPS; ++i) s += red[i][lane * VEC + v];
-        const long long idx = (long long)k * P + p0 + v;
-        if (part != nullptr) part[(long long)blockIdx.y * K * P + idx] = s;
-        else store(out + idx, s);
-      }
-    }
-  }
-}
-
-template <typename T>
-__global__ void wagg_sum_splits_kernel(const float* __restrict__ part,
-                                       T* __restrict__ out, int splits,
-                                       long long KP) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= KP) return;
-  float s = 0.0f;
-  for (int j = 0; j < splits; ++j) s += part[(long long)j * KP + i];
-  store(out + i, s);
-}
 
 // 16 bytes as 4 f32 or 8 bf16, and back
 __device__ __forceinline__ void unpack16(const uint4& u, float (&f)[4]) {
@@ -179,6 +135,141 @@ __device__ __forceinline__ uint4 pack16(const float (&f)[VEC]) {
     }
     return make_uint4(w[0], w[1], w[2], w[3]);
   }
+}
+
+// one row of a lane's columns: 16 bytes, or one element
+template <typename T, int VEC> struct Row { using type = uint4; };
+template <typename T> struct Row<T, 1> { using type = T; };
+
+template <typename T, int VEC>
+__device__ __forceinline__ typename Row<T, VEC>::type load_row(const T* p) {
+  if constexpr (VEC == 1) return __ldg(p);
+  else return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+template <typename T, int KMAX, int VEC>
+__device__ __forceinline__ void fma_row(float (&acc)[KMAX][VEC],
+                                        const typename Row<T, VEC>::type& x,
+                                        const float* wr) {
+  float e[VEC];
+  if constexpr (VEC == 1) e[0] = to_f32(x);
+  else unpack16(x, e);
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    const float wk = wr[k];
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) acc[k][v] = fmaf(wk, e[v], acc[k][v]);
+  }
+}
+
+// One block: column tile `tile` of leaf `lf`, all C rows.
+template <typename T, int KMAX, int VEC>
+__device__ __forceinline__ void grouped_tile(
+    const Leaf& lf, int tile, int C, const float* __restrict__ w, int K,
+    float* smem) {
+  constexpr int TILE = 32 * VEC;
+  constexpr int ROWS = KMAX * VEC >= 128 ? 4 : 8;  // loads before the first FMA
+  constexpr int CHUNK_ROWS = CHUNK_FLOATS / KMAX;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long P = lf.P;
+  const long long t0 = (long long)tile * TILE;     // the tile's first column
+  const long long col = t0 + lane * VEC;           // this lane's first column
+  const bool active = col < P;
+  const T* in = static_cast<const T*>(lf.in) + col;
+
+  float acc[KMAX][VEC];
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k)
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) acc[k][v] = 0.0f;
+
+  for (int c0 = 0; c0 < C; c0 += CHUNK_ROWS) {
+    const int cn = min(CHUNK_ROWS, C - c0);
+    __syncthreads();                       // previous chunk fully consumed
+    for (int i = threadIdx.x; i < cn * KMAX; i += THREADS) {
+      const int c = i / KMAX, k = i - c * KMAX;
+      smem[i] = k < K ? __ldg(w + (long long)(c0 + c) * K + k) : 0.0f;
+    }
+    __syncthreads();
+    if (!active) continue;
+    const T* base = in + (long long)c0 * P;
+    int c = warp;
+    for (; c + (ROWS - 1) * WARPS < cn; c += ROWS * WARPS) {
+      typename Row<T, VEC>::type x[ROWS];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r)
+        x[r] = load_row<T, VEC>(base + (long long)(c + r * WARPS) * P);
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r)
+        fma_row<T, KMAX, VEC>(acc, x[r], smem + (c + r * WARPS) * KMAX);
+    }
+    if (c < cn) {                          // the last, partial batch of rows
+      typename Row<T, VEC>::type x[ROWS];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r)
+        if (c + r * WARPS < cn)
+          x[r] = load_row<T, VEC>(base + (long long)(c + r * WARPS) * P);
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r)
+        if (c + r * WARPS < cn)
+          fma_row<T, KMAX, VEC>(acc, x[r], smem + (c + r * WARPS) * KMAX);
+    }
+  }
+
+  // the tile's outputs, summed over warps in warp order
+  T* out = static_cast<T*>(lf.out);
+  float* red = smem;                       // (WARPS, TILE)
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    if (k >= K) break;
+    __syncthreads();                       // weights / red consumed
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) red[warp * TILE + lane * VEC + v] = acc[k][v];
+    __syncthreads();
+    for (int j = threadIdx.x; j < TILE; j += THREADS) {
+      const long long p = t0 + j;
+      if (p >= P) continue;
+      float s = 0.0f;
+#pragma unroll
+      for (int i = 0; i < WARPS; ++i) s += red[i * TILE + j];
+      store(out + k * P + p, s);
+    }
+  }
+}
+
+// blocks an SM should hold: 3 (at most 85 registers a thread) where a
+// thread's accumulators and loads in flight fit (f32, K <= 4: the FL
+// stage-1); wider accumulators keep the compiler's choice
+template <typename T, int KMAX>
+__host__ __device__ constexpr int min_blocks() { return KMAX * (16 / (int)sizeof(T)) <= 16 ? 3 : 1; }
+
+template <typename T, int KMAX>
+__global__ void __launch_bounds__(THREADS, (min_blocks<T, KMAX>()))
+wagg_grouped_kernel(const __grid_constant__ Table tab,
+                    const float* __restrict__ w, int C, int K) {
+  constexpr int VW = 16 / sizeof(T);       // a lane's 16 bytes: 4 f32, 8 bf16
+  __shared__ __align__(16) float smem[cmax(CHUNK_FLOATS, WARPS * 32 * VW)];
+  const int tile = blockIdx.x;
+  int li = 0;
+  for (int i = 1; i < tab.n; ++i)
+    if (tab.leaf[i].first <= tile) li = i;
+  const Leaf& lf = tab.leaf[li];
+  if (lf.vec == 1)
+    grouped_tile<T, KMAX, 1>(lf, tile - lf.first, C, w, K, smem);
+  else
+    grouped_tile<T, KMAX, VW>(lf, tile - lf.first, C, w, K, smem);
+}
+
+template <typename T>
+cudaError_t launch_grouped(const Table& tab, const float* w, int C, int K,
+                           int tiles, cudaStream_t s) {
+  if (K <= 4)
+    wagg_grouped_kernel<T, 4><<<tiles, THREADS, 0, s>>>(tab, w, C, K);
+  else if (K <= 8)
+    wagg_grouped_kernel<T, 8><<<tiles, THREADS, 0, s>>>(tab, w, C, K);
+  else
+    wagg_grouped_kernel<T, 16><<<tiles, THREADS, 0, s>>>(tab, w, C, K);
+  return cudaGetLastError();
 }
 
 template <typename T, int CMAX, int VEC>
@@ -233,53 +324,46 @@ cudaError_t launch_small_c(const T* stack, const float* w, T* out, int C,
   return cudaGetLastError();
 }
 
-template <typename T, int VEC>
-cudaError_t launch(const T* stack, const float* w, T* out, float* part,
-                   int C, long long P, int K, int splits, cudaStream_t stream) {
-  const long long tiles = (P + 32 * VEC - 1) / (32 * VEC);
-  const int rows = (C + splits - 1) / splits;
-  const dim3 grid((unsigned)tiles, (unsigned)splits);
-  float* p = splits > 1 ? part : nullptr;
-  if (K <= 4)
-    wagg_multi_kernel<T, 4, VEC><<<grid, THREADS, 0, stream>>>(stack, w, out, p, C, P, K, rows);
-  else if (K <= 8)
-    wagg_multi_kernel<T, 8, VEC><<<grid, THREADS, 0, stream>>>(stack, w, out, p, C, P, K, rows);
-  else
-    wagg_multi_kernel<T, 16, VEC><<<grid, THREADS, 0, stream>>>(stack, w, out, p, C, P, K, rows);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  const long long kp = (long long)K * P;
-  wagg_sum_splits_kernel<T><<<(unsigned)((kp + 255) / 256), 256, 0, stream>>>(
-      part, out, splits, kp);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launches (0 = cudaSuccess).  The caller
-// checks 1 <= K <= 16, C >= 1, P >= 1, contiguity and placement, and picks
-// vec (4 needs P % 4 == 0 and a 16-byte-aligned stack) and splits (part must
-// then hold splits * K * P floats; it is unused when splits == 1).
-int wagg_multi_f32(const float* stack, const float* w, float* out, float* part,
-                   int C, long long P, int K, int vec, int splits,
-                   void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (vec == 4) {
-    if (P % 4 != 0 || (uintptr_t)stack % 16 != 0) return (int)cudaErrorInvalidValue;
-    return (int)launch<float, 4>(stack, w, out, part, C, P, K, splits, s);
+// weighted_agg_multi over n leaves in one launch.  dtype 0 = f32, 1 = bf16
+// (every leaf).  The arrays hold the leaves in work order: input (C, P_i)
+// and output (K, P_i) pointers, P_i, the first column tile of each leaf and
+// its elements a lane (16 / sizeof(T) or 1; 16 needs P_i * sizeof(T) % 16 == 0
+// and a 16-byte-aligned input).  Leaf i has ceil(P_i / (32 * vec_i)) column
+// tiles; the tiles of the leaves are consecutive and number `tiles`, one
+// block each.  Returns cudaGetLastError() after the launch (0 =
+// cudaSuccess), or cudaErrorInvalidValue for arguments the kernel does not
+// take; the caller checks contiguity, placement and that the weights are
+// (C, K) f32.
+int wagg_grouped(int dtype, int n, const void* const* ins, void* const* outs,
+                 const long long* ps, const int* firsts, const int* vecs,
+                 int tiles, const float* w, int C, int K, void* stream) {
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (n < 1 || n > MAX_LEAVES || K < 1 || K > 16 || C < 1 || tiles < 1)
+    return (int)cudaErrorInvalidValue;
+  const int esize = dtype == 0 ? 4 : 2;
+  const int vw = 16 / esize;
+  Table tab;
+  memset(&tab, 0, sizeof(tab));
+  tab.n = n;
+  long long next = 0;
+  for (int i = 0; i < n; ++i) {
+    const long long P = ps[i];
+    const int vec = vecs[i];
+    if (P < 1 || (vec != 1 && vec != vw) || firsts[i] != next)
+      return (int)cudaErrorInvalidValue;
+    if (vec == vw && ((P * esize) % 16 != 0 || (uintptr_t)ins[i] % 16 != 0))
+      return (int)cudaErrorInvalidValue;
+    tab.leaf[i] = Leaf{ins[i], outs[i], P, firsts[i], vec};
+    next += (P + 32LL * vec - 1) / (32LL * vec);
   }
-  return (int)launch<float, 1>(stack, w, out, part, C, P, K, splits, s);
-}
-
-int wagg_multi_bf16(const void* stack, const float* w, void* out, float* part,
-                    int C, long long P, int K, int vec, int splits,
-                    void* stream) {
-  if (vec != 1) return (int)cudaErrorInvalidValue;
-  return (int)launch<__nv_bfloat16, 1>(
-      (const __nv_bfloat16*)stack, w, (__nv_bfloat16*)out, part, C, P, K,
-      splits, (cudaStream_t)stream);
+  if (next != tiles) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0) return (int)launch_grouped<float>(tab, w, C, K, tiles, s);
+  return (int)launch_grouped<__nv_bfloat16>(tab, w, C, K, tiles, s);
 }
 
 // weighted_agg, K = 1, 1 <= C <= 32: out (P,) = w (C,) . stack (C, P).

@@ -15,8 +15,6 @@ import torch
 
 from repro_torch.kernels import build
 
-SMEM_FLOATS = 48 * 1024 // 4     # static shared-memory budget of a block
-
 
 def _check(x: torch.Tensor, centroids: torch.Tensor) -> None:
     if x.device.type != "cuda" or centroids.device != x.device:
@@ -31,13 +29,9 @@ def _check(x: torch.Tensor, centroids: torch.Tensor) -> None:
                          f"got {tuple(x.shape)} and {tuple(centroids.shape)}")
     n, d = x.shape
     k = centroids.shape[0]
-    if min(n, d, k) < 1 or n >= 2**31:
+    if min(n, d, k) < 1 or n >= 2**31 or k * d >= 2**31:
         raise ValueError(f"kmeans_assign: empty or oversized input "
                          f"(N={n}, D={d}, K={k})")
-    if k * (d + 1) > SMEM_FLOATS:
-        raise ValueError(f"kmeans_assign: K*(D+1)={k * (d + 1)} floats of "
-                         f"centroids exceed the {SMEM_FLOATS}-float shared "
-                         f"memory budget")
     if not (x.is_contiguous() and centroids.is_contiguous()):
         raise ValueError("kmeans_assign: x and centroids must be contiguous")
 

@@ -17,7 +17,7 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import kmeans as _kmeans
 from repro_torch.kernels import ref
 from repro_torch.kernels import weighted_agg as _wagg
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 LAUNCHES: Dict[str, int] = {"weighted_agg_multi": 0, "kmeans_assign": 0,
                             "weighted_agg": 0, "flash_attention": 0}
@@ -35,7 +35,7 @@ def reset_launches() -> None:
 def weighted_agg_multi(stack: torch.Tensor,
                        weights: torch.Tensor) -> torch.Tensor:
     """stack (C, P), weights (C, K) -> (K, P): all K weighted reductions
-    in one pass over the stack."""
+    in one pass over the stack (the one-leaf case of the grouped kernel)."""
     if stack.device.type == "cpu":
         return ref.weighted_agg_multi_ref(stack, weights)
     out = _wagg.launch(stack, weights)
@@ -44,14 +44,20 @@ def weighted_agg_multi(stack: torch.Tensor,
 
 
 def weighted_agg_multi_tree(tree: Any, weights: torch.Tensor) -> Any:
-    """Leaf-wise: (C, ...) tree + (C, K) weights -> (K, ...) tree, one
-    launch per leaf (10 for LeNet), as the reference's tree form."""
-    k = weights.shape[1]
-
-    def one(x):
-        flat = x.reshape(x.shape[0], -1)
-        return weighted_agg_multi(flat, weights).reshape((k,) + x.shape[1:])
-    return tree_map(one, tree)
+    """(C, ...) tree + (C, K) weights -> (K, ...) tree, leaf by leaf as
+    the reference's tree form; on the card every leaf goes into one
+    grouped launch (one for LeNet's 10 leaves: one a stage-1)."""
+    leaves = tree_leaves(tree)
+    if not leaves or leaves[0].device.type == "cpu":
+        k = weights.shape[1]
+        outs = [ref.weighted_agg_multi_ref(x.reshape(x.shape[0], -1),
+                                           weights).reshape((k,) + x.shape[1:])
+                for x in leaves]
+    else:                         # (C, ...) leaves go in as they are
+        outs = _wagg.launch_grouped([x.contiguous() for x in leaves],
+                                    weights)
+        LAUNCHES["weighted_agg_multi"] += 1
+    return tree_unflatten(tree, outs)
 
 
 def weighted_agg(stack: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:

@@ -2,36 +2,46 @@
 
 Counterpart of ``repro/kernels/weighted_agg.py::weighted_agg_multi``:
 stack (C, P) f32 or bf16, weights (C, K) f32 -> (K, P) in the stack's
-dtype, accumulated in f32, one pass over the stack for all K.  K = 1 with
-small C (``weighted_agg``, the counterpart of
+dtype, accumulated in f32, one pass over the stack for all K.
+:func:`launch_grouped` takes every leaf of a tree at once (one launch for
+a FedHC stage-1); :func:`launch` is its one-leaf case, except that K = 1
+with small C (``weighted_agg``, the counterpart of
 ``repro/kernels/weighted_agg.py::weighted_agg``) takes the streaming
 small-C kernel of the same source.  The launcher checks its inputs, plans
-the launch (:func:`plan`), allocates the output and any scratch, and
+the launch (:func:`plan_grouped`, pure Python), allocates the outputs and
 launches on the current stream; `kernels/ops.py` is the public,
 dispatching wrapper.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Union
+import math
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
 from repro_torch.kernels import build
 
 K_MAX = 16
-MIN_ROWS_PER_SPLIT = 64   # rows a block walks at least: 8 for each of the
-#                           8 warps of a block (csrc/weighted_agg.cu)
-_SYMBOLS = {torch.float32: "wagg_multi_f32", torch.bfloat16: "wagg_multi_bf16"}
-
-
+WARPS = 8                 # warps of a block; warp w takes rows w, w + 8, ...
+MAX_LEAVES = 64           # entries of the kernel's descriptor table
 SMALL_C_MAX = 32          # K = 1 at C <= this streams (wagg_small_c_kernel)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # codes of the C interface
+_SIZES = {torch.float32: 4, torch.bfloat16: 2}
 
 
-class Plan(NamedTuple):
-    vec: int              # columns per lane: 4 (one float4 load) or 1
-    splits: int           # blocks along C; > 1 adds a summing pass
+class GroupedPlan(NamedTuple):
+    """One launch over every leaf: one block for each column tile (32 lanes
+    x ``vec`` columns) of each leaf, all C rows, shared by the block's 8
+    warps (warp w takes rows w, w + 8, ...)."""
+    order: Tuple[int, ...]    # leaves in work order (the narrowest first)
+    vec: Tuple[int, ...]      # per leaf, in leaf order: elements a lane
+    #                           loads from a row (16 bytes, or 1)
+    tiles: Tuple[int, ...]    # per leaf: column tiles
+    first: Tuple[int, ...]    # per leaf: its first tile in the grid
+    blocks: int
 
 
 class SmallC(NamedTuple):
@@ -39,28 +49,59 @@ class SmallC(NamedTuple):
     #                       one element
 
 
-def plan(c: int, p: int, *, vec4: bool, num_sms: int, k: Optional[int] = None,
-         small_c_max: int = SMALL_C_MAX) -> Union[Plan, SmallC]:
-    """Launch shape.  K = 1 at C <= ``small_c_max``: the streaming small-C
-    kernel, 16-byte loads where ``vec4`` allows them.  Otherwise the
-    weighted_agg_multi kernel: float4 lanes where allowed, and enough
-    splits of the C rows that the grid holds about two blocks per SM (a
-    block walks at least ``MIN_ROWS_PER_SPLIT`` rows, so small C stays one
-    split)."""
-    if k == 1 and c <= small_c_max:
+def plan_grouped(ps: Sequence[int], c: int, k: int, dtype: torch.dtype,
+                 aligned: Sequence[bool]) -> GroupedPlan:
+    """Launch shape for leaves of ``ps`` columns over ``c`` rows.  A leaf
+    whose rows are 16-byte aligned (``aligned``) loads 16 bytes a lane.
+    The rows are not split over blocks: LeNet's leaves already make 355
+    tiles, 2.7 blocks an SM of an H100, and the card measured every split
+    slower or no faster (``csrc/weighted_agg.cu``, PERF.md)."""
+    if not ps or len(ps) != len(aligned):
+        raise ValueError(f"weighted_agg_multi: {len(ps)} leaves and "
+                         f"{len(aligned)} alignment flags")
+    if len(ps) > MAX_LEAVES:
+        raise ValueError(f"weighted_agg_multi: {len(ps)} leaves, more than "
+                         f"the kernel's table of {MAX_LEAVES}")
+    if not 1 <= k <= K_MAX:
+        raise ValueError(f"weighted_agg_multi: K={k} outside [1, {K_MAX}] "
+                         f"(K accumulators live in registers)")
+    if dtype not in _DTYPES:
+        raise TypeError(f"weighted_agg_multi: stack dtype {dtype} not in "
+                        f"{tuple(_DTYPES)}")
+    if c < 1 or min(ps) < 1:
+        raise ValueError(f"weighted_agg_multi: empty stack (C={c}, P={ps})")
+    wide = 16 // _SIZES[dtype]
+    vec = tuple(wide if a else 1 for a in aligned)
+    tiles = tuple(-(-p // (32 * v)) for p, v in zip(ps, vec))
+    order = tuple(sorted(range(len(ps)), key=lambda i: (ps[i], i)))
+    first = [0] * len(ps)
+    blocks = 0
+    for i in order:
+        first[i] = blocks
+        blocks += tiles[i]
+    if blocks >= 2**31:
+        raise ValueError(f"weighted_agg_multi: {blocks} blocks do not fit a "
+                         f"grid")
+    return GroupedPlan(order, vec, tiles, tuple(first), blocks)
+
+
+def plan(c: int, p: int, *, vec4: bool, k: Optional[int] = None,
+         small_c_max: int = SMALL_C_MAX, dtype: torch.dtype = torch.float32
+         ) -> Union[GroupedPlan, SmallC]:
+    """One leaf.  K = 1 at C <= ``small_c_max`` (at most ``SMALL_C_MAX``):
+    the streaming small-C kernel; otherwise the grouped kernel's plan for
+    the one leaf.  ``vec4`` says the rows may be read 16 bytes at a time."""
+    if k == 1 and c <= min(small_c_max, SMALL_C_MAX):
         return SmallC(16 if vec4 else 1)
-    vec = 4 if vec4 else 1
-    tiles = -(-p // (32 * vec))
-    splits = max(1, min(c // MIN_ROWS_PER_SPLIT, (2 * num_sms) // tiles))
-    rows = -(-c // splits)
-    return Plan(vec, -(-c // rows))
+    return plan_grouped([p], c, k or 1, dtype, [vec4])
 
 
 @functools.lru_cache(maxsize=None)
-def _fn(symbol: str):
-    fn = getattr(build.load("weighted_agg"), symbol)
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong] \
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+def _fn_grouped():
+    fn = build.load("weighted_agg").wagg_grouped
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5 + [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -74,74 +115,135 @@ def _fn_small_c():
     return fn
 
 
-@functools.lru_cache(maxsize=None)
-def _num_sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _check(stack: torch.Tensor, weights: torch.Tensor) -> None:
+    """A (C, ...) stack and (C, K) weights the kernel takes."""
     if stack.device.type != "cuda" or weights.device != stack.device:
         raise ValueError(f"weighted_agg_multi: stack on {stack.device} and "
                          f"weights on {weights.device}; both must be on one "
                          f"CUDA device")
-    if stack.dtype not in _SYMBOLS:
+    if stack.dtype not in _DTYPES:
         raise TypeError(f"weighted_agg_multi: stack dtype {stack.dtype} not "
-                        f"in {tuple(_SYMBOLS)}")
+                        f"in {tuple(_DTYPES)}")
     if weights.dtype != torch.float32:
         raise TypeError(f"weighted_agg_multi: weights must be float32, got "
                         f"{weights.dtype}")
-    if stack.dim() != 2 or weights.dim() != 2:
-        raise ValueError(f"weighted_agg_multi: want stack (C, P) and weights "
-                         f"(C, K), got {tuple(stack.shape)} and "
-                         f"{tuple(weights.shape)}")
-    c, p = stack.shape
-    if weights.shape[0] != c or c < 1 or p < 1:
+    if (weights.dim() != 2 or stack.dim() < 1 or stack.numel() == 0
+            or stack.shape[0] != weights.shape[0]):
         raise ValueError(f"weighted_agg_multi: stack {tuple(stack.shape)} and "
-                         f"weights {tuple(weights.shape)} do not agree")
+                         f"weights {tuple(weights.shape)} do not agree (want "
+                         f"(C, ...) and (C, K))")
     if not 1 <= weights.shape[1] <= K_MAX:
         raise ValueError(f"weighted_agg_multi: K={weights.shape[1]} outside "
                          f"[1, {K_MAX}] (K accumulators live in registers)")
-    if c >= 2**31:
-        raise ValueError(f"weighted_agg_multi: C={c} does not fit an int32")
+    if stack.shape[0] >= 2**31:
+        raise ValueError(f"weighted_agg_multi: C={stack.shape[0]} does not "
+                         f"fit an int32")
     if not (stack.is_contiguous() and weights.is_contiguous()):
         raise ValueError("weighted_agg_multi: stack and weights must be "
                          "contiguous")
 
 
+def _aligned(x: torch.Tensor) -> bool:
+    """Rows of ``x`` (C, ...) start on 16-byte boundaries."""
+    return (x.numel() // x.shape[0] * x.element_size()) % 16 == 0 \
+        and x.data_ptr() % 16 == 0
+
+
+def _on(dev: torch.device):
+    """Make the tensors' device the current one for the launch."""
+    if dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+@functools.lru_cache(maxsize=256)
+def _planned(shapes: Tuple[torch.Size, ...], k: int, dtype: torch.dtype,
+             based: Tuple[bool, ...]):
+    """For leaves of ``shapes`` (C, ...) whose data start on a 16-byte
+    boundary where ``based`` says so: the plan, the buffer's length, each
+    leaf's output view (shape, strides, offset) and the plan's per-leaf
+    arrays in work order for the C interface."""
+    c = shapes[0][0]
+    ps = tuple(math.prod(s[1:]) for s in shapes)
+    aligned = [b and (p * _SIZES[dtype]) % 16 == 0 for b, p in zip(based, ps)]
+    pl = plan_grouped(ps, c, k, dtype, aligned)
+    views, off = [], 0
+    for s, p in zip(shapes, ps):
+        shape = (k,) + tuple(s[1:])
+        strides = [1] * len(shape)
+        for d in range(len(shape) - 2, -1, -1):
+            strides[d] = strides[d + 1] * shape[d + 1]
+        views.append((shape, tuple(strides), off))
+        off += k * p
+    n, order = len(ps), pl.order
+    arrays = ((ctypes.c_longlong * n)(*[ps[i] for i in order]),
+              (ctypes.c_int * n)(*[pl.first[i] for i in order]),
+              (ctypes.c_int * n)(*[pl.vec[i] for i in order]))
+    return pl, off, tuple(views), arrays
+
+
+def launch_grouped(leaves: Sequence[torch.Tensor],
+                   weights: torch.Tensor) -> List[torch.Tensor]:
+    """One launch for every (C, ...) leaf: returns the (K, ...) outputs,
+    contiguous views of one buffer of K * sum(P_i) elements, leaf-major
+    (P_i a leaf's elements per client).  Raises on what the kernel does not
+    take and on a refused launch."""
+    if not leaves:
+        raise ValueError("weighted_agg_multi: no leaves")
+    x0 = leaves[0]
+    _check(x0, weights)
+    dt, dev, c = x0.dtype, x0.device, x0.shape[0]
+    for x in leaves[1:]:          # the full check only where one fails
+        if (x.device != dev or x.dtype != dt or x.dim() < 1
+                or x.shape[0] != c or x.numel() == 0
+                or not x.is_contiguous()):
+            _check(x, weights)
+            raise TypeError(f"weighted_agg_multi: leaves of several dtypes "
+                            f"({dt} and {x.dtype})")
+    k = weights.shape[1]
+    pl, total, views, (ps_arr, first_arr, vec_arr) = _planned(
+        tuple(x.shape for x in leaves), k, dt,
+        tuple(x.data_ptr() % 16 == 0 for x in leaves))
+    out = torch.empty((total,), dtype=dt, device=dev)
+    base, size = out.data_ptr(), out.element_size()
+    n, order = len(leaves), pl.order
+    with _on(dev):
+        err = _fn_grouped()(
+            _DTYPES[dt], n,
+            (ctypes.c_void_p * n)(*[leaves[i].data_ptr() for i in order]),
+            (ctypes.c_void_p * n)(*[base + size * views[i][2]
+                                    for i in order]),
+            ps_arr, first_arr, vec_arr, pl.blocks, weights.data_ptr(), c, k,
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        shapes = [tuple(x.shape) for x in leaves]
+        raise RuntimeError(f"weighted_agg_multi launch failed: CUDA error "
+                           f"{err} (leaves {shapes}, K={k}, {dt}, "
+                           f"{pl.blocks} blocks)")
+    return [torch.as_strided(out, *v) for v in views]
+
+
 def launch(stack: torch.Tensor, weights: torch.Tensor, *,
            small_c_max: int = SMALL_C_MAX) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors; raises on a refused launch.
-    ``small_c_max`` moves the small-C threshold (chip_smoke.py times both
-    kernels across it)."""
+    """Launch on one (C, P) stack of CUDA tensors; raises on a refused
+    launch.  ``small_c_max`` moves the small-C threshold (chip_smoke.py
+    times both kernels across it)."""
     _check(stack, weights)
+    if stack.dim() != 2:
+        raise ValueError(f"weighted_agg_multi: want stack (C, P), got "
+                         f"{tuple(stack.shape)}")
     c, p = stack.shape
     k = weights.shape[1]
-    dev = stack.device
-    aligned = (p * stack.element_size()) % 16 == 0 \
-        and stack.data_ptr() % 16 == 0
-    small_c_max = min(small_c_max, SMALL_C_MAX)
-    # 16-byte loads: float4 lanes of the multi kernel (f32 only), or the
-    # small-C kernel's 16-byte rows (f32 or bf16)
-    wide = stack.dtype == torch.float32 or (k == 1 and c <= small_c_max)
-    pl = plan(c, p, k=k, small_c_max=small_c_max, vec4=aligned and wide,
-              num_sms=_num_sms(dev.index if dev.index is not None
-                               else torch.cuda.current_device()))
-    out = torch.empty((k, p), dtype=stack.dtype, device=dev)
-    part = (torch.empty((pl.splits, k, p), dtype=torch.float32, device=dev)
-            if isinstance(pl, Plan) and pl.splits > 1 else None)
-    with torch.cuda.device(dev):          # launch on the tensors' device
-        stream = torch.cuda.current_stream().cuda_stream
-        if isinstance(pl, SmallC):
-            err = _fn_small_c()(int(stack.dtype == torch.bfloat16),
-                                stack.data_ptr(), weights.data_ptr(),
-                                out.data_ptr(), c, p, pl.vec, stream)
-        else:
-            err = _fn(_SYMBOLS[stack.dtype])(
-                stack.data_ptr(), weights.data_ptr(), out.data_ptr(),
-                part.data_ptr() if part is not None else None, c, p, k,
-                pl.vec, pl.splits, stream)
+    pl = plan(c, p, vec4=_aligned(stack), k=k, small_c_max=small_c_max,
+              dtype=stack.dtype)
+    if isinstance(pl, GroupedPlan):
+        return launch_grouped([stack], weights)[0]
+    out = torch.empty((k, p), dtype=stack.dtype, device=stack.device)
+    with _on(stack.device):
+        err = _fn_small_c()(_DTYPES[stack.dtype], stack.data_ptr(),
+                            weights.data_ptr(), out.data_ptr(), c, p, pl.vec,
+                            torch.cuda.current_stream().cuda_stream)
     if err:
-        raise RuntimeError(f"weighted_agg_multi launch failed: CUDA error "
-                           f"{err} (C={c}, P={p}, K={k}, {stack.dtype}, "
-                           f"{pl})")
+        raise RuntimeError(f"weighted_agg launch failed: CUDA error {err} "
+                           f"(C={c}, P={p}, {stack.dtype}, {pl})")
     return out

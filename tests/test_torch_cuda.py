@@ -40,10 +40,107 @@ def test_weighted_agg_multi_kernel_matches_plain(cuda_device, C, P, K, dt):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+# LeNet's leaves, per client: c1.w c1.b c2.w c2.b f1.w f1.b f2.w f2.b f3.w f3.b
+LENET_P = [150, 6, 2400, 16, 30720, 120, 10080, 84, 840, 10]
+
+
+def _tree(ps, c, k, dt, device, seed):
+    """(C, P) leaves and (C, K) weights normalized per cluster, as the
+    engine's stage-1 weights are (so outputs are weighted averages)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    leaves = tuple(torch.randn((c, p), generator=g, device=device).to(dt)
+                   for p in ps)
+    w = torch.rand((c, k), generator=g, device=device)
+    return leaves, (w / w.sum(0, keepdim=True)).contiguous()
+
+
+def _assert_tree_close(got, leaves, w, dt):
+    tol = 2e-5 if dt == torch.float32 else 3e-2
+    for out, x in zip(got, leaves):
+        assert out.shape == (w.shape[1], x.shape[1]) and out.dtype == dt
+        torch.testing.assert_close(
+            out.float(), ref.weighted_agg_multi_ref(x, w).float(), rtol=tol,
+            atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [32, 800])
+@pytest.mark.parametrize("K", [1, 4, 16])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_grouped_kernel_matches_plain_on_lenet(cuda_device, C, K, dt):
+    """One launch for LeNet's 10 leaves, equal to the plain version leaf by
+    leaf, and the same bits from a second call."""
+    leaves, w = _tree(LENET_P, C, K, dt, cuda_device, C + K)
+    before = ops.LAUNCHES["weighted_agg_multi"]
+    got = ops.weighted_agg_multi_tree(leaves, w)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["weighted_agg_multi"] == before + 1
+    _assert_tree_close(got, leaves, w, dt)
+    again = ops.weighted_agg_multi_tree(leaves, w)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [32, 800])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_grouped_kernel_takes_unaligned_leaves(cuda_device, C, dt):
+    """Unaligned leaves (P = 150, 6, 10: one element a lane), P = 4097
+    (P = 1 mod 4), and a leaf that starts 8 bytes past a 16-byte boundary,
+    beside aligned ones, in one launch."""
+    leaves, w = _tree([150, 6, 10, 4097, 1024], C, 4, dt, cuda_device, C)
+    offset = torch.empty((C * 1024 + 8,), dtype=dt, device=cuda_device)
+    shifted = offset[8 // offset.element_size():][:C * 1024].view(C, 1024)
+    shifted.copy_(leaves[-1])
+    leaves = leaves[:-1] + (shifted,)
+    from repro_torch.kernels import weighted_agg as wagg
+    assert not wagg._aligned(shifted)
+    got = ops.weighted_agg_multi_tree(leaves, w)
+    torch.cuda.synchronize()
+    _assert_tree_close(got, leaves, w, dt)
+
+
+@pytest.mark.cuda
+def test_grouped_kernel_refuses_more_leaves_than_its_table(cuda_device):
+    from repro_torch.kernels import weighted_agg as wagg
+    leaves, w = _tree([64] * (wagg.MAX_LEAVES + 1), 16, 4, torch.float32,
+                      cuda_device, 1)
+    before = ops.LAUNCHES["weighted_agg_multi"]
+    with pytest.raises(ValueError, match="table"):
+        ops.weighted_agg_multi_tree(leaves, w)
+    assert ops.LAUNCHES["weighted_agg_multi"] == before
+    got = ops.weighted_agg_multi_tree(leaves[:wagg.MAX_LEAVES], w)
+    torch.cuda.synchronize()
+    _assert_tree_close(got, leaves, w, torch.float32)
+
+
+@pytest.mark.cuda
+def test_grouped_kernel_replays_in_a_cuda_graph(cuda_device):
+    """The descriptor table is a kernel parameter: a captured launch
+    replays to the eager call's bits."""
+    leaves, w = _tree(LENET_P, 800, 4, torch.float32, cuda_device, 9)
+    eager = ops.weighted_agg_multi_tree(leaves, w)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.weighted_agg_multi_tree(leaves, w)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = ops.weighted_agg_multi_tree(leaves, w)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(eager, captured))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,D,K", [(800, 3, 4), (10000, 3, 4), (1000, 10, 7),
-                                   (64, 128, 16)])
+                                   (64, 128, 16), (300, 3, 1), (257, 3, 2),
+                                   (100, 3, 8), (50, 3, 9), (500, 4, 8),
+                                   (300, 1, 2)])
 def test_kmeans_assign_kernel_matches_plain(cuda_device, N, D, K):
+    """3-D points with K <= 8 take the fixed-shape kernel, the rest the
+    loop kernel."""
     g = torch.Generator(device=cuda_device).manual_seed(N + D + K)
     x = torch.randn((N, D), generator=g, device=cuda_device)
     c = torch.randn((K, D), generator=g, device=cuda_device)
@@ -51,6 +148,9 @@ def test_kmeans_assign_kernel_matches_plain(cuda_device, N, D, K):
     torch.cuda.synchronize()
     ar, dr = ref.kmeans_assign_ref(x, c)
     torch.testing.assert_close(d, dr, rtol=1e-4, atol=1e-4)
+    if K == 1:
+        assert (a == 0).all()
+        return
     # exact wherever the two best distances differ by more than rounding
     dist = ((x * x).sum(-1)[:, None] - 2.0 * x @ c.T + (c * c).sum(-1))
     two = dist.topk(2, dim=1, largest=False).values
@@ -212,7 +312,7 @@ def test_weighted_agg_small_c_kernel_matches_plain(cuda_device, C, P, dt):
     """The streaming small-C kernel (16-byte rows; one element a thread
     where P is ragged), at the reference sweep's tolerances."""
     from repro_torch.kernels import weighted_agg as wagg
-    pl = wagg.plan(C, P, k=1, vec4=P % 8 == 0, num_sms=132)
+    pl = wagg.plan(C, P, k=1, vec4=P % 8 == 0)
     assert isinstance(pl, wagg.SmallC)
     g = torch.Generator(device=cuda_device).manual_seed(C * P)
     s = torch.randn((C, P), generator=g, device=cuda_device).to(dt)

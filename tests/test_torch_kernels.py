@@ -15,6 +15,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import build, ops
+from repro_torch.kernels import ref as ref_torch
 from repro_torch.kernels import weighted_agg as wagg_launcher
 
 
@@ -146,36 +147,200 @@ def test_build_without_nvcc_raises_a_clear_error(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("c,p,vec4,want", [
-    (800, 30720, True, (4, 1)),      # LeNet f1.w: 240 column tiles
-    (800, 10080, True, (4, 3)),      # f2.w: 79 tiles, split C in three
-    (800, 6, False, (1, 12)),        # a bias: one tile, 12 splits of 67 rows
-    (32, 150, False, (1, 1)),        # small C is never split
-    (16, 3000, False, (1, 1)),
+    (800, 30720, True, (4, 240)),    # LeNet f1.w: 240 column tiles
+    (800, 10080, True, (4, 79)),     # f2.w: 79 tiles
+    (800, 6, False, (1, 1)),         # a bias: one tile of one element a lane
+    (32, 150, False, (1, 5)),        # c1.w: unaligned, 5 tiles
+    (16, 3000, False, (1, 94)),
 ])
 def test_weighted_agg_launch_plan(c, p, vec4, want):
-    """About two blocks per SM of an H100 (132 SMs), at least 64 rows a
-    block, every row covered once."""
-    pl = wagg_launcher.plan(c, p, vec4=vec4, num_sms=132)
-    assert tuple(pl) == want
-    rows = -(-c // pl.splits)
-    assert (pl.splits - 1) * rows < c <= pl.splits * rows
+    """One leaf: (elements a lane, blocks), a block for every column tile
+    of 32 lanes, whatever C (a block's 8 warps share the rows)."""
+    pl = wagg_launcher.plan(c, p, vec4=vec4)
+    assert (pl.vec[0], pl.blocks) == want
+    assert pl.tiles == (pl.blocks,) and pl.first == (0,)
+    assert (pl.blocks - 1) * 32 * pl.vec[0] < p <= pl.blocks * 32 * pl.vec[0]
 
 
 @pytest.mark.parametrize("c,k,vec4,want", [
     (16, 1, True, wagg_launcher.SmallC(16)),     # kernel_bench's C = 16
     (32, 1, True, wagg_launcher.SmallC(16)),
     (5, 1, False, wagg_launcher.SmallC(1)),      # ragged P: one element
-    (33, 1, True, wagg_launcher.Plan(4, 1)),     # past the small-C threshold
-    (800, 4, True, wagg_launcher.Plan(4, 1)),    # the FL engine's stage-1
-    (16, 4, True, wagg_launcher.Plan(4, 1)),     # K > 1 keeps today's kernel
+    (33, 1, True, (4, 240)),                     # past the small-C threshold
+    (800, 4, True, (4, 240)),                    # f1.w of a stage-1
+    (16, 4, True, (4, 240)),                     # K > 1: the grouped kernel
 ])
 def test_weighted_agg_plan_picks_the_small_c_kernel_for_k1(c, k, vec4, want):
     """K = 1 at C <= SMALL_C_MAX streams (wagg_small_c_kernel); every other
-    shape keeps the weighted_agg_multi plan of the FL engine."""
-    pl = wagg_launcher.plan(c, 30720, k=k, vec4=vec4, num_sms=132)
-    assert type(pl) is type(want) and pl == want
-    assert wagg_launcher.plan(800, 30720, k=4, vec4=True, num_sms=132) == \
-        wagg_launcher.plan(800, 30720, vec4=True, num_sms=132)
+    shape takes the grouped kernel of the FL engine (elements a lane,
+    blocks).  ``small_c_max`` only lowers the threshold: the small-C kernel
+    takes at most SMALL_C_MAX rows."""
+    pl = wagg_launcher.plan(c, 30720, k=k, vec4=vec4)
+    if isinstance(want, wagg_launcher.SmallC):
+        assert type(pl) is type(want) and pl == want
+        assert isinstance(wagg_launcher.plan(c, 30720, k=k, vec4=vec4,
+                                             small_c_max=0),
+                          wagg_launcher.GroupedPlan)
+    else:
+        assert isinstance(pl, wagg_launcher.GroupedPlan)
+        assert (pl.vec[0], pl.blocks) == want
+    assert wagg_launcher.plan(800, 30720, k=4, vec4=True) == \
+        wagg_launcher.plan(800, 30720, vec4=True)
+    assert isinstance(wagg_launcher.plan(64, 30720, k=1, vec4=True,
+                                         small_c_max=1000),
+                      wagg_launcher.GroupedPlan)
+
+
+# LeNet's leaves, per client: c1.w c1.b c2.w c2.b f1.w f1.b f2.w f2.b f3.w f3.b
+LENET_P = [150, 6, 2400, 16, 30720, 120, 10080, 84, 840, 10]
+
+
+def _blocks(pl, ps):
+    """The plan's blocks in launch order, as csrc/weighted_agg.cu maps
+    them: block b takes column tile b - first of the last leaf (in work
+    order) whose first tile is <= b.  Yields (leaf, column lo, column hi),
+    half-open and cut to the leaf."""
+    firsts = [pl.first[i] for i in pl.order]
+    for b in range(pl.blocks):
+        leaf = pl.order[max(j for j, f in enumerate(firsts) if f <= b)]
+        width = 32 * pl.vec[leaf]
+        t = b - pl.first[leaf]
+        yield leaf, t * width, min(ps[leaf], (t + 1) * width)
+
+
+def _warp_rows(c):
+    """Rows of each warp of a block, in the order it sums them: warp w
+    takes rows w, w + 8, ... (the kernel stages the weights in chunks of a
+    multiple of 8 rows, which keeps that order)."""
+    return [range(w, c, wagg_launcher.WARPS)
+            for w in range(wagg_launcher.WARPS)]
+
+
+def _lenet_aligned(dtype):
+    """16-byte rows for separately allocated leaves: P * size % 16 == 0."""
+    size = torch.empty((), dtype=dtype).element_size()
+    return [(p * size) % 16 == 0 for p in LENET_P]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [1, 4, 16])
+@pytest.mark.parametrize("C", [32, 800, 10_000])
+def test_plan_grouped_covers_every_column_and_row_once(C, K, dtype):
+    """Every column of every leaf in exactly one block, every row of a
+    block in exactly one of its warps (so no warp walks all of C), and at C
+    = 800 in f32 (the stage-1) at least two blocks for every SM of an H100
+    (132)."""
+    pl = wagg_launcher.plan_grouped(LENET_P, C, K, dtype,
+                                    _lenet_aligned(dtype))
+    assert sorted(pl.order) == list(range(len(LENET_P)))
+    assert sum(pl.tiles) == pl.blocks
+    cols = [np.zeros(p, np.int64) for p in LENET_P]
+    for leaf, lo, hi in _blocks(pl, LENET_P):
+        assert 0 <= lo < hi <= LENET_P[leaf]
+        assert hi - lo <= 32 * pl.vec[leaf]
+        cols[leaf][lo:hi] += 1
+    for leaf, c in enumerate(cols):
+        assert (c == 1).all(), leaf
+    rows = np.zeros(C, np.int64)
+    for r in _warp_rows(C):
+        assert len(r) < C
+        rows[list(r)] += 1
+    assert (rows == 1).all()
+    # narrow or unaligned leaves take one element a lane, the rest 16 bytes
+    wide = 16 // torch.empty((), dtype=dtype).element_size()
+    assert pl.vec == tuple(wide if a else 1 for a in _lenet_aligned(dtype))
+    if dtype == torch.float32:                   # the FL stage-1
+        assert pl.blocks >= 2 * 132
+
+
+def test_plan_grouped_refuses_what_the_kernel_does_not_take():
+    aligned = [True] * (wagg_launcher.MAX_LEAVES + 1)
+    with pytest.raises(ValueError, match="table"):
+        wagg_launcher.plan_grouped([64] * len(aligned), 32, 4,
+                                   torch.float32, aligned)
+    with pytest.raises(ValueError, match="K=17"):
+        wagg_launcher.plan_grouped([64], 32, 17, torch.float32, [True])
+    with pytest.raises(ValueError, match="empty"):
+        wagg_launcher.plan_grouped([64, 0], 32, 4, torch.float32,
+                                   [True, True])
+    with pytest.raises(ValueError, match="alignment"):
+        wagg_launcher.plan_grouped([64], 32, 4, torch.float32, [True, True])
+    with pytest.raises(TypeError, match="dtype"):
+        wagg_launcher.plan_grouped([64], 32, 4, torch.float16, [True])
+
+
+def _emulate_grouped(stacks, w, pl):
+    """The grouped kernel's arithmetic on the CPU: walk the plan's blocks;
+    in a block, warp i accumulates its rows (i, i + 8, ...) in row order
+    and the block sums its warps in warp order.  f32 throughout, output in
+    the stack's dtype."""
+    c, k = w.shape
+    ps = [x.shape[1] for x in stacks]
+    outs = [torch.zeros((k, p)) for p in ps]
+    warps = wagg_launcher.WARPS
+    for leaf, lo, hi in _blocks(pl, ps):
+        x = stacks[leaf][:, lo:hi].float()
+        acc = torch.zeros((warps, k, hi - lo))
+        for j in range(0, c, warps):            # row j + i to warp i
+            n = min(warps, c - j)
+            acc[:n] = acc[:n] + w[j:j + n, :, None] * x[j:j + n, None, :]
+        block = torch.zeros((k, hi - lo))
+        for i in range(warps):
+            block = block + acc[i]
+        outs[leaf][:, lo:hi] = block
+    return [o.to(x.dtype) for o, x in zip(outs, stacks)]
+
+
+@pytest.mark.parametrize("C,K,dt", [
+    (40, 4, "float32"),
+    (300, 4, "float32"),
+    (100, 1, "float32"),
+    (130, 16, "float32"),
+    (200, 4, "bfloat16"),
+])
+def test_grouped_kernel_order_matches_plain(C, K, dt):
+    """The CPU emulation of the kernel's summation order equals the plain
+    version on random LeNet-shaped leaves (2e-5 f32, 3e-2 bf16, the
+    tolerances of tests/test_kernels.py), with weights normalized per
+    cluster as the engine's are."""
+    g = _rng(C, K, 3)
+    dtype = getattr(torch, dt)
+    stacks = [torch.from_numpy(g.standard_normal((C, p)).astype(np.float32)
+                               ).to(dtype) for p in LENET_P]
+    w = g.uniform(size=(C, K)).astype(np.float32)
+    w = torch.from_numpy(w / w.sum(0, keepdims=True))
+    pl = wagg_launcher.plan_grouped(LENET_P, C, K, dtype,
+                                    _lenet_aligned(dtype))
+    got = _emulate_grouped(stacks, w, pl)
+    tol = 2e-5 if dt == "float32" else 3e-2
+    for out, x in zip(got, stacks):
+        want = ref_torch.weighted_agg_multi_ref(x, w)
+        assert out.dtype == want.dtype and out.shape == want.shape
+        np.testing.assert_allclose(out.float().numpy(), want.float().numpy(),
+                                   rtol=tol, atol=tol)
+
+
+def test_weighted_agg_multi_tree_matches_the_reference_tree():
+    """The port's tree form against the reference's (interpreted Pallas,
+    one call per leaf) on LeNet-shaped leaves at C = 16, K = 4 (2e-5)."""
+    from repro_torch.models.lenet import init_lenet
+    from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+    like = init_lenet(torch.Generator().manual_seed(0), device="cpu")
+    g = _rng(16, 4)
+    arrays = [g.standard_normal((16,) + tuple(x.shape)).astype(np.float32)
+              for x in tree_leaves(like)]
+    w = g.uniform(size=(16, 4)).astype(np.float32)
+    got = ops.weighted_agg_multi_tree(
+        tree_unflatten(like, [torch.from_numpy(a) for a in arrays]),
+        torch.from_numpy(w))
+    want = jops.weighted_agg_multi_tree(
+        tree_unflatten(like, [jnp.asarray(a) for a in arrays]),
+        jnp.asarray(w), interpret=True)
+    def same(a, b, x):              # leaf by key: jax orders keys sorted
+        assert a.shape == (4,) + x.shape
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-5,
+                                   atol=2e-5)
+    tree_map(same, got, want, like)
 
 
 def test_every_source_is_built_under_a_content_hash():
