@@ -10,7 +10,10 @@ the CUDA cores), times the kernels beside their bounds, their plain
 versions, one PyTorch call of the same function and the floor of one
 launch, runs the sync FedHC engine through ``repro_torch.api.run`` for
 the five paper methods and for fedhc at the paper's 800 satellites (with
-the kernels and without, in turns, three times each), serves the full
+the kernels and without, in turns, three times each), builds the contact
+plan of those 800 satellites and runs the visibility-gated methods
+fedspace and isl-onboard on it (kernels on and off; fedspace also on the
+sliced and factorized plans), serves the full
 gemma2-2b (26 layers, bf16, random weights) through
 ``repro_torch.launch.serve.serve_batch`` with a prompt longer than its
 4096-token window, checks prefill + decode against a longer prefill,
@@ -23,6 +26,7 @@ JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import re
@@ -30,6 +34,8 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -58,6 +64,7 @@ KMEANS_TURNS = 7              # kmeans_assign and the launch floors, in turns
 TRAJ_RTOL = 1e-5              # time and energy, kernels on vs off
 LOSS_RTOL = 1e-3
 PAPER_METHODS = ("fedhc", "fedhc-nomaml", "h-base", "fedce", "c-fedavg")
+CONTACT_N = 800               # the paper's constellation: 25 planes of 32
 # the reference's flash sweep (tests/test_kernels.py):
 # B, Hq, Hkv, Sq, Sk, D, causal, window, softcap
 FLASH_CASES = [
@@ -87,6 +94,9 @@ CONSIST_TOL_BF16 = 0.25
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase line also says when it ended (script s)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -442,8 +452,9 @@ def check_flash(gen):
     S = 8192, D = 256, soft-cap 50, window 0 / 4096; f32 and bf16), timed
     there on both routes (bf16 on the tensor cores, f32 on the CUDA cores)
     beside the plain version, the bound, ``flex_attention`` (the same
-    function) and SDPA (causal, GQA; it applies neither the soft-cap nor
-    the window, so it is a different function)."""
+    function, in each route's dtype) and SDPA (causal, GQA; it applies
+    neither the soft-cap nor the window, so it is a different
+    function)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
@@ -487,6 +498,12 @@ def check_flash(gen):
         f32_plain_ms = device_ms(
             lambda: ref.flash_attention_ref(q, k, v, window=window,
                                             softcap=cap), reps=1, samples=3)
+        # the same function in one PyTorch call, in f32 with TF32 off (as
+        # repro_torch.device sets it for the whole process)
+        assert not torch.backends.cuda.matmul.allow_tf32
+        flex = flex_attention_call(s, window, cap)
+        f32_lib_err = float((flex(q, k, v) - want).abs().max())
+        f32_lib_ms = device_ms(lambda: flex(q, k, v), reps=1, samples=3)
         q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
         del got, want
         ops.reset_launches()
@@ -501,7 +518,6 @@ def check_flash(gen):
         err = float(diff.abs().max())
         rel_rms = float(diff.square().mean().sqrt()
                         / want.float().square().mean().sqrt())
-        flex = flex_attention_call(s, window, cap)
         lib_err = float((flex(q, k, v).float() - want.float()).abs().max())
         del got, want, diff
         pairs = b * hq * flash_pairs(s, s, True, window)
@@ -536,6 +552,9 @@ def check_flash(gen):
             "tflop_per_s": n_ops / kernel_ms / 1e9,
             "f32": {"route": "cuda_cores", "max_abs_err": err_f32,
                     "ms": f32_ms, "plain_ms": f32_plain_ms,
+                    "library_ms": f32_lib_ms,
+                    "library_max_abs_err": f32_lib_err,
+                    "library": "flex_attention in f32, TF32 off",
                     "tflop_per_s": n_ops / f32_ms / 1e9,
                     "bound_ms": n_ops / F32_FLOPS * 1e3},
         }
@@ -548,7 +567,7 @@ def check_flash(gen):
                                "bound_ms")}
     f32 = {key: 13 * (layers["global"]["f32"][key]
                       + layers["local"]["f32"][key])
-           for key in ("ms", "plain_ms", "bound_ms")}
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     return {
         "max_abs_err": max(layers[x]["max_abs_err"] for x in layers),
         "max_abs_err_sweep": max(sweep.values()), "cases": len(sweep),
@@ -712,6 +731,200 @@ def profile_round_loop(sc) -> dict:
                     for k in kernels[:15]]}
 
 
+def plan_nbytes(plan) -> int:
+    """Device bytes a contact plan holds (its tensors)."""
+    import torch
+    fields = (plan._asdict().values() if hasattr(plan, "_asdict")
+              else vars(plan).values())
+    return sum(t.numel() * t.element_size() for t in fields
+               if isinstance(t, torch.Tensor))
+
+
+@contextlib.contextmanager
+def recording_runs():
+    """Keeps what each ``engine.simulate`` call of ``api.run`` saw and
+    returned, ``(data, final state, outputs)``: ``RunResult`` has the
+    reference's fields, which carry no per-round ``did_global``."""
+    from repro_torch.core import engine
+    seen, simulate = [], engine.simulate
+
+    def recorded(*args, **kwargs):
+        state, outs = simulate(*args, **kwargs)
+        seen.append((kwargs["data"], state, outs))
+        return state, outs
+    engine.simulate = recorded
+    try:
+        yield seen
+    finally:
+        engine.simulate = simulate
+
+
+def due_rounds(did_global, rounds: int, every: int) -> int:
+    """Rounds on which a gated stage-2 is due: on cadence, and every
+    round while one is pending (the engine's host reads)."""
+    pending, due = False, 0
+    for rnd in range(rounds):
+        if (rnd + 1) % every == 0 or pending:
+            due += 1
+            pending = not did_global[rnd]
+    return due
+
+
+def check_contact_plan() -> dict:
+    """The full contact plan at N = 800 (25 planes of 32 at 1300 km, one
+    orbital period at dt = 60 s): build seconds and peak memory, table
+    bytes, visibility and reachability; two samples' PS-like rows held
+    against the K-source relaxation (another algorithm: Bellman-Ford rows
+    instead of (min,+) squaring), and one sample's closure timed beside
+    one (min,+) product and that product's bound."""
+    import torch
+    from repro_torch.core.engine import _constellation_for
+    from repro_torch.orbits import contact, topology
+    from repro_torch.orbits.links import LinkParams, time_per_bit
+    c, lp = _constellation_for(CONTACT_N), LinkParams()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    plan = contact.build_contact_plan(c, lp, device=DEV)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    peak_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
+    t_n, n = plan.gs_visible.shape
+    finite = int(torch.isfinite(plan.isl_tpb).sum())
+    src = torch.tensor([0, n // 4 + 11, n // 2 + 3, n - 1], device=DEV)
+    worst = 0.0
+    for i in (0, t_n // 2):
+        pos = c.positions(plan.times[i])
+        rows = topology.route_rows_time_per_bit(pos, src, lp, 8000.0, 8)
+        want = plan.isl_tpb[i][src]
+        assert torch.equal(torch.isfinite(rows), torch.isfinite(want))
+        fin = torch.isfinite(want)
+        err = float(((rows - want).abs() / want.clamp_min(1e-30))[fin].max())
+        assert err <= TRAJ_RTOL, err
+        worst = max(worst, err)
+    pos = c.positions(plan.times[1])
+    d = topology.pairwise_dist_km(pos)
+    w = topology._reflexive(topology.isl_adjacency(pos, 8000.0),
+                            time_per_bit(d, lp))
+    n_ops, n_bytes = 2 * n ** 3, 3 * 4 * n * n
+    bound_ms = max(n_ops / F32_FLOPS, n_bytes / HBM_BYTES_PER_S) * 1e3
+    out = {
+        "phase": "contact_plan", "num_sats": n, "samples": t_n,
+        "dt_s": float(plan.times[1] - plan.times[0]),
+        "build_s": build_s, "build_peak_device_mem_mb": peak_mb,
+        "table_bytes": plan_nbytes(plan),
+        "mean_gs_visible": float(plan.gs_visible.sum(1).float().mean()),
+        "reachable_pair_share": (finite - t_n * n) / (t_n * n * (n - 1)),
+        "rows_vs_closure_max_rel_err": worst,
+        "sample_closure_ms": call_ms(
+            lambda: topology.route_time_per_bit(pos, lp, 8000.0, 8),
+            samples=5, warmup=1),
+        "min_plus_product_ms": call_ms(
+            lambda: topology._min_plus_mul(w, w), samples=5, warmup=1),
+        "min_plus_product_bound_ms": bound_ms,
+        "min_plus_chunk_bytes": topology.MIN_PLUS_CHUNK_BYTES,
+    }
+    del plan, w, d
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def contact_phase(scenario) -> dict:
+    """fedspace and isl-onboard through ``api.run`` at N = 800, K = 4, 10
+    rounds of 4 minutes on the full plan, kernels on and off in turns; then
+    fedspace on the sliced and the factorized plan.  Each run: 10 launches
+    of each kernel with the kernels on and none off, one host read per
+    due round; on equals off, and sliced and factorized equal full."""
+    import torch
+    from repro_torch import api
+    from repro_torch.core import engine
+    from repro_torch.kernels import ops
+    runs = {}
+
+    def one(key, method, use, **comms):
+        ops.reset_launches()
+        engine.reset_host_reads()
+        with recording_runs() as seen:
+            res = api.run(scenario(method, CONTACT_N, use, comms=comms,
+                                   round_minutes=4.0), device=DEV)
+        data, state, outs = seen[-1]
+        launches, reads = dict(ops.LAUNCHES), dict(engine.HOST_READS)
+        check_result(res, 10, 5)
+        assert res.global_rounds >= 1, res.global_rounds
+        want = 10 if use else 0
+        assert launches["kmeans_assign"] == want, launches
+        assert launches["weighted_agg_multi"] == want, launches
+        assert reads == {"window": due_rounds(outs.did_global, 10, 5),
+                         "recluster": 0}, reads
+        runs[key] = (res, outs.did_global.tolist(), state.pending_global)
+        line = {"method": method, "kernels": use, **comms,
+                "plan": type(data.plan).__name__,
+                "plan_bytes": plan_nbytes(data.plan),
+                "run_s_per_round": res.run_s / 10, "setup_s": res.setup_s,
+                "peak_device_mem_mb": res.peak_device_mem_mb,
+                "did_global": outs.did_global.tolist(),
+                "global_rounds": res.global_rounds,
+                "pending_global_at_end": state.pending_global,
+                "host_reads": reads, "launches": launches,
+                "acc": res.acc.tolist(), "loss": res.loss.tolist(),
+                "time_s": res.time_s.tolist(),
+                "energy_j": res.energy_j.tolist()}
+        # the next run's peak memory must not count this run's tensors
+        del data, state, outs, seen
+        gc.collect()
+        torch.cuda.empty_cache()
+        return line
+
+    def same(a, b):
+        (ra, da, pa), (rb, db, pb) = runs[a], runs[b]
+        assert da == db and pa == pb, (a, b, da, db, pa, pb)
+        for key, rtol in (("time_s", TRAJ_RTOL), ("energy_j", TRAJ_RTOL),
+                          ("loss", LOSS_RTOL)):
+            x, y = getattr(ra, key), getattr(rb, key)
+            assert all(abs(u - v) <= rtol * abs(v) for u, v in zip(x, y)), \
+                (a, b, key, x, y)
+
+    lines = [one(f"{m}/{use}", m, use) for m in ("fedspace", "isl-onboard")
+             for use in (True, False)]
+    for m in ("fedspace", "isl-onboard"):
+        same(f"{m}/True", f"{m}/False")
+    for layout in ("contact_slices", "contact_factorized"):
+        lines.append(one(layout, "fedspace", True, **{layout: True}))
+        same(layout, "fedspace/True")
+    # the engine's host reads against what the CUDA runtime reports as
+    # synchronizing (with the Python line that asked), over the round loop
+    # of one fedspace run
+    cfg = runs["fedspace/True"][0].scenario.to_flat()
+    state0, data = engine.setup(cfg, device=DEV)
+    engine.reset_host_reads()
+    syncs = []
+
+    def seen(message, category, filename, lineno, *_):
+        if "synchroniz" in str(message):      # the innermost port frame
+            port = [f for f in traceback.extract_stack()
+                    if "repro_torch" in f.filename]
+            f = port[-1] if port else None
+            syncs.append(f"{Path(f.filename).name}:{f.lineno}" if f
+                         else f"{Path(filename).name}:{lineno}")
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = seen
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            engine.simulate(cfg, device=DEV, state0=state0, data=data)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return {"phase": "contact", "num_clients": CONTACT_N, "num_clusters": 4,
+            "rounds": 10, "round_minutes": 4.0, "runs": lines,
+            "sync_check": {"host_reads": dict(engine.HOST_READS),
+                           "synchronizing_calls": syncs},
+            "order": "fedspace on, off; isl-onboard on, off; fedspace "
+                     "sliced, factorized (kernels on)"}
+
+
+
 def check_result(res, rounds: int, eval_every: int) -> None:
     import numpy as np
     want = sorted({r for r in range(eval_every, rounds + 1, eval_every)}
@@ -736,7 +949,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import api, device as device_lib
-    from repro_torch.api import ExecSpec, FleetSpec, Scenario, TrainSpec
+    from repro_torch.api import (CommsSpec, ExecSpec, FleetSpec, Scenario,
+                                 TrainSpec)
     from repro_torch.configs import get_config, replace
     from repro_torch.kernels import build, ops
     from repro_torch.launch.serve import serve_batch
@@ -778,11 +992,12 @@ def main() -> int:
     torch.cuda.empty_cache()  # main path's peak-memory readings
 
     # ---- 4. main path --------------------------------------------------
-    def scenario(method, n, use_kernels, **fleet):
+    def scenario(method, n, use_kernels, comms=None, **fleet):
         return Scenario(method=method,
                         fleet=FleetSpec(num_clients=n, num_clusters=4,
                                         **fleet),
                         train=TrainSpec(rounds=10, eval_every=5),
+                        comms=CommsSpec(**(comms or {})),
                         exec=ExecSpec(use_pallas_kernels=use_kernels))
 
     ops.reset_launches()
@@ -856,6 +1071,14 @@ def main() -> int:
     # with the kernels and without
     for use in (True, False):
         emit(profile_round_loop(scenario("fedhc", 800, use, **drift)))
+
+    # ---- 5b. contact plans and the visibility-gated engine at N = 800:
+    # the plan alone, fedspace and isl-onboard through api.run, and one
+    # fedspace run under torch.profiler
+    emit(check_contact_plan())
+    emit(contact_phase(scenario))
+    emit(profile_round_loop(scenario("fedspace", CONTACT_N, True,
+                                     round_minutes=4.0)))
 
     # ---- 6. serving: full gemma2-2b, prefill + greedy decode -------------
     del on, off, runs
@@ -943,8 +1166,7 @@ def main() -> int:
             ("flash_attention", "src/repro_torch/csrc/flash_attention_sm90.cu",
              "src/repro/kernels/flash_attention.py:88", flash),
             ("flash_attention_f32", "src/repro_torch/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:88",
-             {**flash["f32_route"], "library_ms": None})):
+             "src/repro/kernels/flash_attention.py:88", flash["f32_route"])):
         rows.append({"name": kname, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[kname],
                      "max_abs_err": m["max_abs_err"], "ms": m["ms"],

@@ -1,7 +1,8 @@
 """One-call experiment API: ``run(scenario) -> RunResult``.
 
-Counterpart of ``repro/api.py`` for this slice: synchronous, always-up
-strategies on one device (``cuda`` unless ``device="cpu"`` is passed).
+Counterpart of ``repro/api.py`` for the sync strategies, always-up and
+visibility-gated (fedspace, isl-onboard), on one device (``cuda`` unless
+``device="cpu"`` is passed).
 :class:`RunResult` has the reference's fields.  ``compile_s`` is the time
 spent building the CUDA kernels at first use (~0 afterwards, and 0 on the
 CPU); the reference's AOT compile cache has no counterpart, since PyTorch
@@ -45,7 +46,7 @@ class RunResult:
     global_rounds: int         # stage-2 aggregations that fired
     strategy: Dict[str, str]   # resolved Strategy axes (registry entry)
     mesh_shape: Optional[Dict[str, int]]   # None: one device
-    setup_s: float             # host: one-time setup
+    setup_s: float             # host: one-time setup (contact plan included)
     compile_s: float           # host: CUDA kernel build at first use
     run_s: float               # host: the rounds + the history fetch
     flushes: Optional[int] = None          # async engines only

@@ -1,21 +1,36 @@
-"""Sync FedHC round engine for always-up links, on one device.
+"""Sync FedHC round engine on one device.
 
-Counterpart of the single-device, ``connectivity="always"`` path of
-``repro/core/engine.py``.  The reference compiles the whole run into one
-``lax.scan``; here a round is eager PyTorch and the run is a Python loop
-over :func:`fed_step` (or :func:`central_step` for c-fedavg).
+Counterpart of the single-device path of ``repro/core/engine.py``.  The
+reference compiles the whole run into one ``lax.scan``; here a round is
+eager PyTorch and the run is a Python loop over :func:`fed_step` (or
+:func:`central_step` for c-fedavg).
+
+Time-varying connectivity (``Strategy.connectivity != "always"``:
+fedspace, isl-onboard) rides on a contact plan (`orbits/contact.py`)
+that :func:`setup` builds once on the run's device.  Each round gathers
+from it by the simulated clock: a member takes part when an ISL route to
+its PS exists, uploads cost the route's seconds-per-bit, and a due
+stage-2 that finds no window (no GS-visible gateway every PS can reach,
+or for isl-onboard a PS pair with no route) sets ``pending_global`` and
+is retried every round until one opens.
 
 Host synchronisation.  Everything a round computes stays on the device,
-with exactly one exception: on a stage-2 round of a re-clustering method
-(fedhc, fedhc-nomaml) the re-cluster decision ``max(dropout rate) > Z`` is
-read on the host (one ``.item()``-style read), because the branch it
-guards runs k-means and the MAML hand-off (the reference's
-``lax.cond``).  ``do_global`` and ``evaluated`` depend only on the round
-index for always-up methods, so they are Python values.  The history is
-fetched once, after the last round.  So a run makes
-``rounds // rounds_per_global`` syncs for fedhc/fedhc-nomaml and none for
-h-base, fedce and c-fedavg, plus the final fetch.  (CUDA graphs, which
-would also remove the per-kernel launch cost, come later.)
+except these reads (each counted in :data:`HOST_READS`):
+
+* ``"window"``: on a round where a visibility-gated method's stage-2 is
+  due (on cadence, or while ``pending_global`` is set), whether the
+  window is open: ``do_global`` then decides which aggregation runs.
+  ``pending_global`` is a Python bool derived from these reads.
+* ``"recluster"``: on a stage-2 round of a re-clustering method (fedhc,
+  fedhc-nomaml), ``max(dropout rate) > Z``, which guards k-means and the
+  MAML hand-off (the reference's ``lax.cond``).
+
+Otherwise ``do_global`` and ``evaluated`` depend only on the round
+index, so they are Python values, and the history is fetched once after
+the last round.  So a run makes one read per due round of a gated
+method, ``rounds // rounds_per_global`` for fedhc/fedhc-nomaml and none
+for h-base, fedce and c-fedavg, plus the final fetch.  (CUDA graphs,
+which would also remove the per-kernel launch cost, come later.)
 
 Randomness goes through a *draws* object with three methods:
 ``batch_picks(rnd) -> (C, B)``, ``kmeans_init(rnd) -> (K,)`` and
@@ -26,8 +41,8 @@ came before it (the reference's ``fold_in``).  :class:`ArrayDraws`
 replays given arrays: the parity tests hand it the reference's draws.
 
 Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
-slice): visibility-gated strategies, the async engine, a client mesh,
-telemetry and multi-seed sweeps.
+slice): the async engine, a client mesh, telemetry and multi-seed
+sweeps.
 """
 from __future__ import annotations
 
@@ -51,6 +66,7 @@ from repro_torch.data.synthetic import (client_batches, dirichlet_partition,
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.lenet import (from_numpy, init_lenet, lenet_accuracy,
                                       lenet_loss)
+from repro_torch.orbits import contact as contact_lib
 from repro_torch.orbits import cost as cost_lib
 from repro_torch.orbits.constellation import (Constellation,
                                               ground_station_position)
@@ -67,6 +83,8 @@ class RoundState(NamedTuple):
     t_sim: torch.Tensor        # () f32 cumulative simulated time (s)
     e_sim: torch.Tensor        # () f32 cumulative energy (J)
     reclusters: int            # re-cluster events so far
+    pending_global: bool = False  # a due stage-2 waits for a contact
+    #                               window (always False when always-up)
 
 
 class RoundOutput(NamedTuple):
@@ -90,6 +108,16 @@ class SimData(NamedTuple):
     client_idx: torch.Tensor   # (C, samples_per_client) int64
     data_sizes: torch.Tensor   # (C,) f32
     freqs: torch.Tensor        # (C,) heterogeneous CPU frequencies
+    plan: Any = None           # contact plan (None when always-up)
+
+
+# host reads the round loop makes, by reason (see the module docstring)
+HOST_READS: Dict[str, int] = {"window": 0, "recluster": 0}
+
+
+def reset_host_reads() -> None:
+    for key in HOST_READS:
+        HOST_READS[key] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -189,11 +217,6 @@ def _strategy_for(cfg: FLRunConfig) -> strat_lib.Strategy:
             f"{cfg.method!r} runs on the async event engine: not ported yet "
             f"(ROADMAP queue 1, slice 11: core/staleness.py and "
             f"core/async_engine.py)")
-    if strategy.visibility_gated:
-        raise NotImplementedError(
-            f"{cfg.method!r} is visibility-gated: contact plans are not "
-            f"ported yet (ROADMAP queue 1, slice 10: orbits/topology.py and "
-            f"orbits/contact.py)")
     if cfg.telemetry:
         raise NotImplementedError(
             "telemetry is not ported yet (ROADMAP queue 1, slice 13: obs/)")
@@ -206,6 +229,49 @@ def _constellation_for(num_clients: int) -> Constellation:
         planes -= 1
     return Constellation(num_planes=planes,
                          sats_per_plane=num_clients // planes)
+
+
+def _plan_for(cfg: FLRunConfig, strategy: strat_lib.Strategy,
+              cluster_slices=None, *, device=None):
+    """The contact plan a config needs, on ``device``; None for always-up
+    strategies.  ``cluster_slices=(assignment, ps_index)`` builds the
+    sliced (``contact_slices``) or factorized (``contact_factorized``)
+    form on that static layout."""
+    if not strategy.visibility_gated:
+        return None
+    if cluster_slices is not None and strategy.reclusters:
+        raise ValueError("contact_slices/contact_factorized require a "
+                         "static cluster layout (recluster='never'): the "
+                         "plan only covers the build-time PS set")
+    geometry = dict(dt_s=cfg.contact_dt_s,
+                    min_elevation_deg=cfg.gs_min_elevation_deg,
+                    max_range_km=cfg.isl_max_range_km,
+                    max_hops=cfg.isl_max_hops,
+                    cluster_slices=cluster_slices, device=device)
+    constellation = _constellation_for(cfg.num_clients)
+    if cfg.contact_factorized:
+        if strategy.is_async:
+            raise ValueError(
+                "contact_factorized=True is sync-engine-only: the async "
+                "engine looks routes up at per-client clocks, which would "
+                "recompute the relaxation once per client (store the plan "
+                "instead: contact_slices=True)")
+        if cfg.contact_slices:
+            raise ValueError("contact_slices and contact_factorized are "
+                             "mutually exclusive storage layouts")
+        return contact_lib.build_factorized_plan(constellation, LinkParams(),
+                                                 **geometry)
+    return contact_lib.build_contact_plan(
+        constellation, LinkParams(),
+        storage_dtype=getattr(torch, cfg.contact_dtype), **geometry)
+
+
+def _initial_plan(cfg, strategy, assignment0, ps_index0, device):
+    """The plan :func:`setup` builds: sliced or factorized on the initial
+    layout when the config asks for it."""
+    slices = ((assignment0, ps_index0)
+              if (cfg.contact_slices or cfg.contact_factorized) else None)
+    return _plan_for(cfg, strategy, cluster_slices=slices, device=device)
 
 
 def _num_clusters(cfg: FLRunConfig, strategy: strat_lib.Strategy) -> int:
@@ -223,10 +289,12 @@ def _initial_state(cfg, strategy, w0, assignment0, centroids0, ps_index0,
 
 
 def setup(cfg: FLRunConfig, seed: Optional[int] = None, *,
-          device=None) -> Tuple[RoundState, SimData]:
+          contact_plan=None, device=None) -> Tuple[RoundState, SimData]:
     """One-time experiment setup on ``device`` (default ``cuda``):
     synthetic data, model init, the strategy's initial clustering and PS
-    selection, all drawn from generators on the device."""
+    selection, all drawn from generators on the device, and the contact
+    plan of a visibility-gated strategy (``contact_plan`` passes a
+    prebuilt one instead)."""
     dev = device_lib.resolve(device)
     strategy = _strategy_for(cfg)
     ds = cfg.dataset
@@ -254,10 +322,12 @@ def setup(cfg: FLRunConfig, seed: Optional[int] = None, *,
 
     data_sizes = torch.full((cfg.num_clients,),
                             float(cfg.samples_per_client), device=dev)
-    return (_initial_state(cfg, strategy, w0, assignment0, centroids0,
-                           ps_index0, dev),
-            SimData(images, labels, test_x, test_y, client_idx, data_sizes,
-                    freqs))
+    state0 = _initial_state(cfg, strategy, w0, assignment0, centroids0,
+                            ps_index0, dev)
+    plan = (contact_plan if contact_plan is not None else _initial_plan(
+        cfg, strategy, state0.assignment, state0.ps_index, dev))
+    return state0, SimData(images, labels, test_x, test_y, client_idx,
+                           data_sizes, freqs, plan)
 
 
 def state_from_numpy(cfg: FLRunConfig, arrays: Dict[str, Any], *,
@@ -265,23 +335,28 @@ def state_from_numpy(cfg: FLRunConfig, arrays: Dict[str, Any], *,
     """Setup from given arrays instead of draws: ``images``, ``labels``,
     ``test_x``, ``test_y``, ``client_idx``, ``w0`` (the LeNet param tree),
     ``freqs``, ``assignment0``, ``centroids0`` and ``ps_index0``, as numpy
-    (e.g. fetched from the JAX package's ``engine.setup``)."""
+    (e.g. fetched from the JAX package's ``engine.setup``), and optionally
+    ``plan`` (`orbits/contact.plan_from_numpy`'s input).  Without a
+    ``plan`` a visibility-gated strategy builds its own."""
     dev = device_lib.resolve(device)
     strategy = _strategy_for(cfg)
 
     def t(name, dtype):
         return torch.as_tensor(np.asarray(arrays[name]), device=dev).to(dtype)
 
+    state = _initial_state(cfg, strategy, from_numpy(arrays["w0"], dev),
+                           t("assignment0", torch.int32),
+                           t("centroids0", torch.float32),
+                           t("ps_index0", torch.int32), dev)
+    plan = (contact_lib.plan_from_numpy(arrays["plan"], device=dev)
+            if arrays.get("plan") is not None else _initial_plan(
+                cfg, strategy, state.assignment, state.ps_index, dev))
     data = SimData(t("images", torch.float32), t("labels", torch.int64),
                    t("test_x", torch.float32), t("test_y", torch.int64),
                    t("client_idx", torch.int64),
                    torch.full((cfg.num_clients,),
                               float(cfg.samples_per_client), device=dev),
-                   t("freqs", torch.float32))
-    state = _initial_state(cfg, strategy, from_numpy(arrays["w0"], dev),
-                           t("assignment0", torch.int32),
-                           t("centroids0", torch.float32),
-                           t("ps_index0", torch.int32), dev)
+                   t("freqs", torch.float32), plan)
     return state, data
 
 
@@ -307,7 +382,8 @@ class _Ctx:
 
 def _finish(ctx: _Ctx, state: RoundState, rnd: int, params, assignment,
             centroids, ps_index, reclustered: int, loss_val, t_r, e_r,
-            did_global: int, global_model) -> Tuple[RoundState, tuple]:
+            did_global: int, global_model,
+            pending_global: bool = False) -> Tuple[RoundState, tuple]:
     cfg = ctx.cfg
     t_new = state.t_sim + t_r + cfg.round_minutes * 60.0
     e_new = state.e_sim + e_r
@@ -318,16 +394,67 @@ def _finish(ctx: _Ctx, state: RoundState, rnd: int, params, assignment,
     else:
         acc = torch.full((), math.nan, device=t_new.device)
     new_state = RoundState(params, assignment, centroids, ps_index, t_new,
-                           e_new, state.reclusters + reclustered)
+                           e_new, state.reclusters + reclustered,
+                           pending_global)
     return new_state, (acc, loss_val, t_new, e_new, reclustered, evaluated,
                        did_global)
 
 
+class _Links(NamedTuple):
+    """One round's contact-plan gathers, and its stage-2 (None unless a
+    stage-2 is due)."""
+    participating: torch.Tensor   # (C,) bool: a route to the PS exists
+    tpb_to_ps: torch.Tensor       # (C,) member -> PS route s/bit
+    stage2: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+    #                               (window open, t_g, e_g) on the device
+
+
+def _gated_links(ctx: _Ctx, state: RoundState, due: bool) -> _Links:
+    """Who can route to whom at ``state.t_sim``, and, on a due round, the
+    stage-2 window and cost: the relay gateway for fedspace (the
+    GS-visible satellite minimizing the worst PS route; ``argmin`` takes
+    the first minimum, as the reference's does, all-inf rows included),
+    all-pairs PS consensus for isl-onboard.  A sliced or factorized plan
+    was built on the initial layout; a full one gathers with the current
+    ``ps_index``."""
+    plan, cfg = ctx.data.plan, ctx.cfg
+    if isinstance(plan, (contact_lib.ClusterContactPlan,
+                         contact_lib.FactorizedContactPlan)):
+        gs_vis, gs_dist, tpb_to_ps, ps_rows = contact_lib.lookup_sliced(
+            plan, state.t_sim)
+    else:
+        gs_vis, gs_dist, tpb = contact_lib.lookup(plan, state.t_sim)
+        ps_of_member = state.ps_index.long()[state.assignment.long()]
+        members = torch.arange(cfg.num_clients, device=tpb.device)
+        tpb_to_ps = tpb[members, ps_of_member]
+        ps_rows = tpb[state.ps_index.long()]                        # (K,C)
+    # the PS itself always takes part: the route table's diagonal is 0
+    participating = torch.isfinite(tpb_to_ps)
+    if not due:
+        return _Links(participating, tpb_to_ps, None)
+    if ctx.strategy.isl_global:
+        # on-board consensus: needs every PS pair connected
+        ps_tpb = ps_rows[:, state.ps_index.long()]                  # (K,K)
+        window = torch.isfinite(ps_tpb).all()
+        t_g, e_g = cost_lib.isl_consensus_costs(
+            ps_tpb, model_bits=ctx.model_bits, lp=ctx.lp)
+    else:
+        score = torch.where(gs_vis, ps_rows.amax(0), torch.inf)    # (C,)
+        gateway = score.argmin().reshape(1)
+        window = torch.isfinite(score.index_select(0, gateway))[0]
+        t_g, e_g = cost_lib.routed_ground_round_costs(
+            ps_rows.index_select(1, gateway)[:, 0],
+            gs_dist.index_select(0, gateway)[0],
+            model_bits=ctx.model_bits, lp=ctx.lp)
+    return _Links(participating, tpb_to_ps, (window, t_g, e_g))
+
+
 def fed_step(ctx: _Ctx, state: RoundState, rnd: int):
-    """One federated round (fedhc / fedhc-nomaml / h-base / fedce)."""
+    """One federated round (fedhc / fedhc-nomaml / h-base / fedce /
+    fedspace / isl-onboard)."""
     cfg, data, strategy, k = ctx.cfg, ctx.data, ctx.strategy, ctx.k
     positions = ctx.constellation.positions(state.t_sim)
-    do_global = (rnd + 1) % cfg.rounds_per_global == 0
+    cadence_due = (rnd + 1) % cfg.rounds_per_global == 0
 
     imgs, labs = client_batches(data.images, data.labels, data.client_idx,
                                 ctx.draws.batch_picks(rnd))
@@ -339,11 +466,27 @@ def fed_step(ctx: _Ctx, state: RoundState, rnd: int):
     else:
         nearest = cl.assign(positions, state.centroids)
     in_region = nearest == state.assignment
-    participating = torch.ones_like(in_region)
+    links = None
+    if strategy.visibility_gated:
+        links = _gated_links(ctx, state, cadence_due or state.pending_global)
+        participating = links.participating
+    else:
+        participating = torch.ones_like(in_region)
 
     params, losses = _local_train(state.params, imgs, labs, lr=cfg.lr,
                                   steps=cfg.local_steps,
                                   microbatch=cfg.client_microbatch)
+    pending_global = False
+    if links is None:
+        do_global = cadence_due
+    elif links.stage2 is None:
+        do_global = False
+    else:
+        # the round's one host read, after training was queued so the
+        # device has work while the host waits
+        HOST_READS["window"] += 1
+        do_global = bool(links.stage2[0])
+        pending_global = not do_global
     params = agg.hierarchical_round(
         params, losses, data.data_sizes, state.assignment, k, participating,
         do_global=do_global, loss_weighted=strategy.loss_weighted,
@@ -351,23 +494,32 @@ def fed_step(ctx: _Ctx, state: RoundState, rnd: int):
     loss_val = losses.mean()
 
     ps_index_l = state.ps_index.long()
-    ps_positions = positions[ps_index_l][state.assignment.long()]
-    t_r, e_r = cost_lib.cluster_round_costs(
-        positions, ps_positions, state.assignment, participating,
-        data.data_sizes, data.freqs, model_bits=ctx.model_bits, lp=ctx.lp,
-        cp=ctx.cp)
-    if do_global:
-        gs = ground_station_position(t_s=state.t_sim)
-        t_g, e_g = cost_lib.ground_round_costs(
-            positions[ps_index_l], gs, model_bits=ctx.model_bits, lp=ctx.lp)
-        t_r, e_r = t_r + t_g, e_r + e_g
+    if links is not None:
+        t_r, e_r = cost_lib.routed_cluster_round_costs(
+            links.tpb_to_ps, participating, data.data_sizes, data.freqs,
+            model_bits=ctx.model_bits, lp=ctx.lp, cp=ctx.cp)
+        if do_global:
+            t_r, e_r = t_r + links.stage2[1], e_r + links.stage2[2]
+    else:
+        ps_positions = positions[ps_index_l][state.assignment.long()]
+        t_r, e_r = cost_lib.cluster_round_costs(
+            positions, ps_positions, state.assignment, participating,
+            data.data_sizes, data.freqs, model_bits=ctx.model_bits,
+            lp=ctx.lp, cp=ctx.cp)
+        if do_global:
+            gs = ground_station_position(t_s=state.t_sim)
+            t_g, e_g = cost_lib.ground_round_costs(
+                positions[ps_index_l], gs, model_bits=ctx.model_bits,
+                lp=ctx.lp)
+            t_r, e_r = t_r + t_g, e_r + e_g
 
     assignment, centroids, ps_index = (state.assignment, state.centroids,
                                        state.ps_index)
     reclustered = 0
     if strategy.reclusters and do_global:
-        # re-cluster check (Alg. 1 lines 14-18): the engine's one host read
+        # re-cluster check (Alg. 1 lines 14-18): a host read
         d_r = cl.dropout_rate(in_region, state.assignment, k)
+        HOST_READS["recluster"] += 1
         if bool(d_r.max() > cfg.dropout_threshold):
             params, assignment, centroids, ps_index = _recluster(
                 ctx, rnd, positions, params, losses, imgs, labs, assignment)
@@ -378,7 +530,7 @@ def fed_step(ctx: _Ctx, state: RoundState, rnd: int):
 
     return _finish(ctx, state, rnd, params, assignment, centroids, ps_index,
                    reclustered, loss_val, t_r, e_r, int(do_global),
-                   global_model)
+                   global_model, pending_global)
 
 
 def _recluster(ctx: _Ctx, rnd: int, positions, params, losses, imgs, labs,

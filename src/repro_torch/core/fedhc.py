@@ -40,8 +40,7 @@ class FLRunConfig:
     eval_size: int = 1024
     seed: int = 0
     round_minutes: float = 1.0            # orbital time advanced per round
-    # time-varying connectivity (visibility-gated strategies; not run by
-    # this slice's engine, kept so configs carry across)
+    # time-varying connectivity (visibility-gated strategies)
     contact_dt_s: float = 60.0
     gs_min_elevation_deg: float = 10.0
     isl_max_range_km: float = 8000.0

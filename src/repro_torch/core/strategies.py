@@ -3,9 +3,9 @@
 Counterpart of ``repro/core/strategies.py``, as data: the same
 :class:`Strategy` fields and validation and the same ten registered
 strategies, so ``Scenario`` validation and content hashes agree with the
-JAX package.  This slice's engine runs the five always-up paper methods;
-the others raise ``NotImplementedError`` in `core/engine.py` naming their
-ROADMAP slice.
+JAX package.  The port's engine runs the sync strategies (the five
+always-up paper methods, fedspace and isl-onboard); the async ones raise
+``NotImplementedError`` in `core/engine.py` naming their ROADMAP slice.
 
 ``CLUSTER_INITS`` maps an init name to ``fn(gen, positions, label_hists,
 k) -> (assignment, centroids)``, drawing from the ``torch.Generator``
@@ -136,6 +136,11 @@ class Strategy:
         return not self.centralized
 
     @property
+    def isl_global(self) -> bool:
+        """Stage 2 is the on-board inter-PS ISL consensus (no GS)."""
+        return self.connectivity == "isl"
+
+    @property
     def is_async(self) -> bool:
         return self.aggregation == "async-buffered"
 
@@ -213,5 +218,5 @@ _ENTRIES = (
 for _e in _ENTRIES:
     register(Strategy(*_e))
 
-# the five always-up paper methods (§IV-A), the ones this slice runs
+# the five always-up paper methods (§IV-A)
 PAPER_METHODS = names()[:5]

@@ -80,3 +80,26 @@ def ground_station_position(lat_deg: float = 30.0, lon_deg: float = 114.0,
         math.cos(lat) * torch.sin(lon),
         torch.full_like(lon, math.sin(lat)),
     ]).reshape(3)
+
+
+def norm(x: torch.Tensor) -> torch.Tensor:
+    """Euclidean norm over the last axis, summed as the reference's
+    ``jnp.linalg.norm`` sums it."""
+    return torch.sqrt((x * x).sum(-1))
+
+
+def elevation_deg(sat_pos: torch.Tensor, gs_pos: torch.Tensor) -> torch.Tensor:
+    """Elevation of satellites (N,3) above a ground station's horizon."""
+    rel = sat_pos - gs_pos[None, :]
+    up = gs_pos / norm(gs_pos)
+    sin_el = (rel @ up) / norm(rel).clamp_min(1e-9)
+    return torch.rad2deg(torch.arcsin(sin_el.clamp(-1.0, 1.0)))
+
+
+def visible(sat_pos: torch.Tensor, gs_pos: torch.Tensor,
+            min_elevation_deg: float = 10.0) -> torch.Tensor:
+    return elevation_deg(sat_pos, gs_pos) >= min_elevation_deg
+
+
+def inter_sat_distance_km(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return norm(a - b)

@@ -45,6 +45,13 @@ def comm_time_s(bits: float, dist_km: torch.Tensor, p: LinkParams,
     return _rdiv(bits, rate_bps(dist_km, p, to_ground).clamp_min(1.0))
 
 
+def time_per_bit(dist_km: torch.Tensor, p: LinkParams,
+                 to_ground: bool = False) -> torch.Tensor:
+    """Seconds per bit over one hop (1 / r_i): the edge weight the ISL
+    router (`orbits/topology.py`) minimizes over multi-hop routes."""
+    return _rdiv(1.0, rate_bps(dist_km, p, to_ground).clamp_min(1.0))
+
+
 def tx_energy_j(bits: float, dist_km: torch.Tensor, p: LinkParams,
                 to_ground: bool = False) -> torch.Tensor:
     """Eq. 8 summand: P0 * |w| / r_i."""

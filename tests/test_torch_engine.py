@@ -129,8 +129,7 @@ def test_scenario_json_and_hash_equal_the_reference(method):
         dataset=tsc.data.dataset)
 
 
-@pytest.mark.parametrize("method,match", [("fedspace", "slice 10"),
-                                          ("isl-onboard", "slice 10"),
+@pytest.mark.parametrize("method,match", [("fedspace-async", "slice 11"),
                                           ("fedbuff", "slice 11"),
                                           ("fedhc-async", "slice 11")])
 def test_other_engines_name_their_roadmap_slice(method, match):

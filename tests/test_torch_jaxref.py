@@ -9,6 +9,8 @@ test files import it by basename.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,9 +30,27 @@ from repro_torch.core.fedhc import FLRunConfig as TorchConfig
 torch.set_num_threads(1)
 
 
+def reference_plan_to_numpy(plan):
+    """A reference contact plan in the layout the port's
+    ``orbits.contact.plan_from_numpy`` takes: ``{"kind": class name,
+    field: numpy array or plain value}``, a factorized plan's
+    constellation and link parameters as field dicts."""
+    if dataclasses.is_dataclass(plan):              # FactorizedContactPlan
+        fields = {f.name: getattr(plan, f.name)
+                  for f in dataclasses.fields(plan)}
+        fields["constellation"] = dataclasses.asdict(plan.constellation)
+        fields["link_params"] = dataclasses.asdict(plan.link_params)
+    else:
+        fields = plan._asdict()
+    return {"kind": type(plan).__name__,
+            **{k: (np.asarray(v) if isinstance(v, jax.Array) else v)
+               for k, v in fields.items()}}
+
+
 def reference_setup(cfg: JaxConfig):
     """``(arrays, state0, data)``: the reference's setup, with the arrays
-    the port's ``state_from_numpy`` takes."""
+    the port's ``state_from_numpy`` takes (its contact plan under
+    ``"plan"`` when the strategy is visibility-gated)."""
     state0, data = jengine.setup(cfg)
     strategy = jstrat.get(cfg.method)
     w0 = (state0.params if strategy.centralized
@@ -45,6 +65,8 @@ def reference_setup(cfg: JaxConfig):
     }
     arrays = {k: (v if k == "w0" else np.asarray(v))
               for k, v in arrays.items()}
+    if data.plan is not None:
+        arrays["plan"] = reference_plan_to_numpy(data.plan)
     return arrays, state0, data
 
 
@@ -72,7 +94,8 @@ def reference_draws(cfg: JaxConfig, state0, data):
 
 def bridged(device="cpu", golden_streams=False, **cfg_kwargs):
     """``(torch_cfg, state0, data, draws, jax_cfg)`` for one config: the
-    port's run inputs taken from the reference's setup and draws.
+    port's run inputs taken from the reference's setup, draws and contact
+    plan.
 
     ``golden_streams`` draws with JAX's non-partitionable threefry, the
     random streams ``tests/golden/engine_always.json`` was captured under
