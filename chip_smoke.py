@@ -13,7 +13,12 @@ the five paper methods and for fedhc at the paper's 800 satellites (with
 the kernels and without, in turns, three times each), builds the contact
 plan of those 800 satellites and runs the visibility-gated methods
 fedspace and isl-onboard on it (kernels on and off; fedspace also on the
-sliced and factorized plans), serves the full
+sliced and factorized plans), holds weighted_agg_multi at K = 17 and 32
+and over 65 leaves and runs fedhc at K = 17 and 32, runs
+seed sweeps (fedhc, and fedspace on one plan) against single runs and
+the five paper methods on the MNIST_K4 preset, runs the async event
+engine (fedbuff, fedhc-async, fedspace-async at N = 800, kernels on and
+off, and the full cohort against the sync engine), serves the full
 gemma2-2b (26 layers, bf16, random weights) through
 ``repro_torch.launch.serve.serve_batch`` with a prompt longer than its
 4096-token window, checks prefill + decode against a longer prefill,
@@ -63,8 +68,13 @@ KMEANS_TIE = 1e-5             # assignments must agree where the two best
 KMEANS_TURNS = 7              # kmeans_assign and the launch floors, in turns
 TRAJ_RTOL = 1e-5              # time and energy, kernels on vs off
 LOSS_RTOL = 1e-3
+ACC_ATOL = 5e-3               # accuracy, the golden bar
 PAPER_METHODS = ("fedhc", "fedhc-nomaml", "h-base", "fedce", "c-fedavg")
 CONTACT_N = 800               # the paper's constellation: 25 planes of 32
+SWEEP_SEEDS = (17, 18, 19)    # the reference's benchmarks/fl_common.py
+PRESET_ROUNDS = 100           # MNIST_K4's 300 rounds, cut to fit the script
+ASYNC_EVENTS = 40
+ASYNC_METHODS = ("fedbuff", "fedhc-async", "fedspace-async")
 # the reference's flash sweep (tests/test_kernels.py):
 # B, Hq, Hkv, Sq, Sk, D, causal, window, softcap
 FLASH_CASES = [
@@ -173,7 +183,7 @@ def check_weighted_agg(gen):
     LeNet's 10 leaves (C = 32 and 800, K = 1, 4, 16, f32 and bf16; C =
     10,000, K = 4, f32): one launch a tree, the same bits from two calls.
     Times one stage-1 (the 10 leaves, K = 4, f32) at C = 800 and 10,000,
-    beside 10 ``torch.matmul``s."""
+    beside the plain version and 10 ``torch.matmul``s."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import weighted_agg as _wagg
@@ -246,6 +256,9 @@ def check_weighted_agg(gen):
         pl = _wagg.plan_grouped(leaves, c, k, torch.float32,
                                 [_wagg._aligned(x) for x in stacks])
         row = {"C": c, "K": k, "max_abs_err": err, "ms": device_ms(kernel),
+               "plain_ms": device_ms(
+                   lambda: [ref.weighted_agg_multi_ref(s, w)
+                            for s in stacks]),
                "library_ms": device_ms(
                    lambda: [torch.matmul(wt, s) for s in stacks]),
                "bound_ms": max(n_bytes / HBM_BYTES_PER_S,
@@ -260,13 +273,11 @@ def check_weighted_agg(gen):
     # one stage-1 of the main path: the 10 LeNet leaves at C = 800, K = 4
     main, stacks, w = stage1(800)
     wt = w.T
-    plain_ms = device_ms(lambda: [ref.weighted_agg_multi_ref(s, w)
-                                  for s in stacks])
     big = stacks[leaves.index(max(leaves))]
     c, k = w.shape
     res = {
         "max_abs_err": main_err, "max_abs_err_all_shapes": max(worst),
-        "cases": len(cases), "trees": trees, **main, "plain_ms": plain_ms,
+        "cases": len(cases), "trees": trees, **main,
         "call_ms": call_ms(lambda: ops.weighted_agg_multi_tree(stacks, w)),
         "per_leaf_ms": device_ms(lambda: [ops.weighted_agg_multi(s, w)
                                           for s in stacks]),
@@ -700,17 +711,18 @@ def profile_round_loop(sc) -> dict:
     the profiler (whose host overhead would swell it)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import engine
+    from repro_torch.core import async_engine, engine
     cfg = sc.to_flat()
-    state0, data = engine.setup(cfg, device=DEV)
+    eng = async_engine if sc.strategy.is_async else engine
+    state0, data = eng.setup(cfg, device=DEV)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    engine.simulate(cfg, device=DEV, state0=state0, data=data)
+    eng.simulate(cfg, device=DEV, state0=state0, data=data)
     wall_ms = (time.perf_counter() - t0) * 1e3   # ends in the history fetch
     on_card = DEV == "cuda"
     with profile(activities=[ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if on_card else [])) as prof:
-        engine.simulate(cfg, device=DEV, state0=state0, data=data)
+        eng.simulate(cfg, device=DEV, state0=state0, data=data)
     kind = (torch.autograd.DeviceType.CUDA if on_card
             else torch.autograd.DeviceType.CPU)
     kernels = []
@@ -741,22 +753,24 @@ def plan_nbytes(plan) -> int:
 
 
 @contextlib.contextmanager
-def recording_runs():
-    """Keeps what each ``engine.simulate`` call of ``api.run`` saw and
-    returned, ``(data, final state, outputs)``: ``RunResult`` has the
-    reference's fields, which carry no per-round ``did_global``."""
+def recording_runs(module=None):
+    """Keeps what each ``simulate`` call of ``api.run`` on the engine
+    ``module`` (default the sync engine) saw and returned, ``(data, final
+    state, outputs)``: ``RunResult`` has the reference's fields, which
+    carry no per-round ``did_global``."""
     from repro_torch.core import engine
-    seen, simulate = [], engine.simulate
+    module = module or engine
+    seen, simulate = [], module.simulate
 
     def recorded(*args, **kwargs):
         state, outs = simulate(*args, **kwargs)
         seen.append((kwargs["data"], state, outs))
         return state, outs
-    engine.simulate = recorded
+    module.simulate = recorded
     try:
         yield seen
     finally:
-        engine.simulate = simulate
+        module.simulate = simulate
 
 
 def due_rounds(did_global, rounds: int, every: int) -> int:
@@ -857,7 +871,7 @@ def contact_phase(scenario) -> dict:
         assert launches["kmeans_assign"] == want, launches
         assert launches["weighted_agg_multi"] == want, launches
         assert reads == {"window": due_rounds(outs.did_global, 10, 5),
-                         "recluster": 0}, reads
+                         "recluster": 0, "stage2": 0}, reads
         runs[key] = (res, outs.did_global.tolist(), state.pending_global)
         line = {"method": method, "kernels": use, **comms,
                 "plan": type(data.plan).__name__,
@@ -925,6 +939,351 @@ def contact_phase(scenario) -> dict:
 
 
 
+def hold(a, b, what) -> None:
+    """The golden bar between two runs' eval points: re-clusters, global
+    rounds and eval rounds exact, time and energy rtol 1e-5, loss rtol
+    1e-3, accuracy atol 5e-3.  ``a`` and ``b`` are dicts of arrays."""
+    import numpy as np
+    for key in ("round", "reclusters", "global_rounds"):
+        assert np.array_equal(a[key], b[key]), (what, key, a[key], b[key])
+    for key, rtol in (("time_s", TRAJ_RTOL), ("energy_j", TRAJ_RTOL),
+                      ("loss", LOSS_RTOL)):
+        x, y = np.asarray(a[key], float), np.asarray(b[key], float)
+        assert np.all(np.abs(x - y) <= rtol * np.abs(y)), (what, key, x, y)
+    x, y = np.asarray(a["acc"], float), np.asarray(b["acc"], float)
+    assert np.all(np.abs(x - y) <= ACC_ATOL), (what, "acc", x, y)
+
+
+def run_points(res) -> dict:
+    """A ``RunResult``'s eval points for :func:`hold`."""
+    return {"round": res.round, "acc": res.acc, "loss": res.loss,
+            "time_s": res.time_s, "energy_j": res.energy_j,
+            "reclusters": res.reclusters,
+            "global_rounds": res.global_rounds}
+
+
+def sweep_points(sweep, i: int) -> dict:
+    """Seed ``i`` of a ``SweepResult`` as :func:`run_points` gives a run."""
+    return {"round": sweep.eval_rounds,
+            **{k: sweep.eval_curves(k)[i]
+               for k in ("acc", "loss", "time_s", "energy_j")},
+            "reclusters": int(sweep.reclusters[i]),
+            "global_rounds": int(sweep.global_rounds[i])}
+
+
+def stage1_bytes(c: int, k: int, leaves, esize: int) -> int:
+    """A stage-1's bytes, each moved once: the stack and the outputs in
+    the stack's dtype, the (C, K) weights in f32."""
+    return sum(esize * (c * p + k * p) for p in leaves) + 4 * c * k
+
+
+def wagg_k_phase(gen) -> dict:
+    """``weighted_agg_multi`` past its old limits, at the main path's C =
+    800 over LeNet's 10 leaves: K = 4 (the main path, again), 17 and 32
+    (passes of 16 clusters) in f32 and bf16, each against plain and the
+    same bits from two calls, timed beside its byte bound, the plain
+    version and 10 ``torch.matmul``s; a tree of 65
+    leaves (two launches); then fedhc through ``api.run`` at N = 800 with
+    K = 17 and 32, kernels on against off at the golden bar."""
+    import torch
+    from repro_torch import api
+    from repro_torch.api import ExecSpec, FleetSpec, Scenario, TrainSpec
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import weighted_agg as _wagg
+    leaves, c = lenet_leaf_sizes(), CONTACT_N
+    rows = []
+
+    def check(got, stacks, w, tol):
+        err = 0.0
+        for g, x in zip(got, stacks):
+            want = ref.weighted_agg_multi_ref(x, w)
+            assert g.shape == want.shape and g.dtype == x.dtype
+            torch.testing.assert_close(g.float(), want.float(), rtol=tol,
+                                       atol=tol)
+            err = max(err, float((g.float() - want.float()).abs().max()))
+        return err
+
+    for k in (4, 17, 32):
+        for dt in (torch.float32, torch.bfloat16):
+            stacks = tuple(torch.randn((c, p), generator=gen,
+                                       device=DEV).to(dt) for p in leaves)
+            w = engine_weights(c, k, gen)
+            wt = w.T.contiguous().to(dt)
+            tol = WAGG_TOL if dt == torch.float32 else WAGG_TOL_BF16
+            esize = stacks[0].element_size()
+            n_bytes = stage1_bytes(c, k, leaves, esize)
+            n_ops = sum(2 * c * k * p for p in leaves)
+            row = {"C": c, "K": k, "dtype": str(dt)[6:],
+                   "bound_ms": max(n_bytes / HBM_BYTES_PER_S,
+                                   n_ops / F32_FLOPS) * 1e3,
+                   "bound_by": ("bytes" if n_bytes / HBM_BYTES_PER_S
+                                >= n_ops / F32_FLOPS else "operations"),
+                   "plain_ms": device_ms(
+                       lambda: [ref.weighted_agg_multi_ref(x, w)
+                                for x in stacks]),
+                   "library_ms": device_ms(
+                       lambda: [torch.matmul(wt, x) for x in stacks])}
+            before = ops.LAUNCHES["weighted_agg_multi"]
+            got = ops.weighted_agg_multi_tree(stacks, w)
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES["weighted_agg_multi"] == before + 1
+            row["max_abs_err"] = check(got, stacks, w, tol)
+            row["ms"] = device_ms(lambda: ops.weighted_agg_multi_tree(
+                stacks, w))
+            again = ops.weighted_agg_multi_tree(stacks, w)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
+            pl = _wagg.plan_grouped(leaves, c, k, dt,
+                                    [_wagg._aligned(x) for x in stacks])
+            row.update(kmax=pl.kmax, passes=pl.passes, blocks=pl.blocks)
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            rows.append(row)
+            del stacks, got
+    out = {"phase": "wagg_k", "stage1": rows}
+
+    # 65 leaves: LeNet's 10 six times and 5 more, C = 800 (0.93 GB in f32)
+    ps = (leaves * 7)[:_wagg.MAX_LEAVES + 1]
+    for dt in (torch.float32, torch.bfloat16):
+        stacks = tuple(torch.randn((c, p), generator=gen, device=DEV).to(dt)
+                       for p in ps)
+        w = engine_weights(c, 4, gen)
+        before = ops.LAUNCHES["weighted_agg_multi"]
+        got = ops.weighted_agg_multi_tree(stacks, w)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["weighted_agg_multi"] == before + 2
+        tol = WAGG_TOL if dt == torch.float32 else WAGG_TOL_BF16
+        n_bytes = stage1_bytes(c, 4, ps, stacks[0].element_size())
+        wt = w.T.contiguous().to(dt)
+        out[f"leaves_65_{str(dt)[6:]}"] = {
+            "leaves": len(ps), "launches": 2,
+            "max_abs_err": check(got, stacks, w, tol),
+            "ms": device_ms(lambda: ops.weighted_agg_multi_tree(stacks, w),
+                            reps=5),
+            "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+            "library_ms": device_ms(
+                lambda: [torch.matmul(wt, x) for x in stacks], reps=5)}
+        del stacks, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the engine at K = 17 and 32: fedhc at N = 800, kernels on and off
+    runs = {}
+    for k in (17, 32):
+        for use in (True, False):
+            sc = Scenario(method="fedhc",
+                          fleet=FleetSpec(num_clients=CONTACT_N,
+                                          num_clusters=k,
+                                          round_minutes=4.0,
+                                          dropout_threshold=0.2),
+                          train=TrainSpec(rounds=10, eval_every=5),
+                          exec=ExecSpec(use_pallas_kernels=use))
+            ops.reset_launches()
+            res = api.run(sc, device=DEV)
+            launches = dict(ops.LAUNCHES)
+            check_result(res, 10, 5)
+            want = 10 + res.reclusters if use else 0
+            assert launches["weighted_agg_multi"] == want, launches
+            assert launches["kmeans_assign"] == (10 if use else 0), launches
+            runs[(k, use)] = res
+            out[f"fedhc_K{k}_{'on' if use else 'off'}"] = {
+                "launches": launches, "reclusters": res.reclusters,
+                "run_s_per_round": res.run_s / 10, "acc": res.acc.tolist(),
+                "loss": res.loss.tolist(), "time_s": res.time_s.tolist(),
+                "peak_device_mem_mb": res.peak_device_mem_mb}
+        hold(run_points(runs[(k, True)]), run_points(runs[(k, False)]),
+             f"fedhc K={k} on vs off")
+    return out
+
+
+def sweep_phase(tmp: Path) -> dict:
+    """``run_sweep`` at the paper's 800 satellites: fedhc over seeds 17-19
+    (the re-cluster branch on), each seed held against ``api.run`` on it;
+    fedspace over the same seeds on one full contact plan, its build
+    counted and timed beside three ``api.run`` setups (each builds one);
+    the five paper methods on the ``MNIST_K4`` preset with their time to
+    ``TARGETS["mnist-like"]``; a ``RunResult`` and a ``SweepResult`` saved
+    and loaded."""
+    import dataclasses
+    import numpy as np
+    from repro_torch import api
+    from repro_torch.api import ExecSpec, FleetSpec, Scenario, TrainSpec
+    from repro_torch.configs.fedhc_paper import MNIST_K4, TARGETS
+    from repro_torch.kernels import ops
+    from repro_torch.orbits import contact
+    out = {"phase": "sweep", "seeds": list(SWEEP_SEEDS)}
+
+    def scenario(method):
+        return Scenario(method=method,
+                        fleet=FleetSpec(num_clients=CONTACT_N, num_clusters=4,
+                                        round_minutes=4.0,
+                                        dropout_threshold=0.2),
+                        train=TrainSpec(rounds=10, eval_every=5),
+                        exec=ExecSpec(use_pallas_kernels=True))
+
+    builds, build = [], contact.build_contact_plan
+
+    def timed_build(*args, **kwargs):
+        t0 = time.perf_counter()
+        plan = build(*args, **kwargs)
+        builds.append(time.perf_counter() - t0)
+        return plan
+    contact.build_contact_plan = timed_build
+    try:
+        for method in ("fedhc", "fedspace"):
+            sc = scenario(method)
+            builds.clear()
+            ops.reset_launches()
+            sweep = api.run_sweep(sc, SWEEP_SEEDS, device=DEV)
+            launches = dict(ops.LAUNCHES)
+            sweep_builds = list(builds)
+            n = len(SWEEP_SEEDS)
+            assert launches["kmeans_assign"] == 10 * n, launches
+            assert launches["weighted_agg_multi"] == 10 * n + int(
+                sweep.reclusters.sum()), launches
+            assert len(sweep_builds) == (method == "fedspace"), sweep_builds
+            singles = []
+            for i, seed in enumerate(SWEEP_SEEDS):
+                res = api.run(sc.replace(seed=seed), device=DEV)
+                hold(sweep_points(sweep, i), run_points(res),
+                     f"{method} sweep seed {seed} vs api.run")
+                singles.append(res)
+            out[method] = {
+                "wall_s": sweep.wall_s, "launches": launches,
+                "plan_builds": len(sweep_builds),
+                "plan_build_s": sweep_builds,
+                "api_run_setup_s": [r.setup_s for r in singles],
+                "api_run_s": [r.run_s for r in singles],
+                "reclusters": sweep.reclusters.tolist(),
+                "global_rounds": sweep.global_rounds.tolist(),
+                "final_acc": sweep.final_acc.tolist()}
+    finally:
+        contact.build_contact_plan = build
+
+    # the paper preset (N = 32, K = 4), rounds cut, one seed
+    presets = {}
+    t0 = time.perf_counter()
+    for method in PAPER_METHODS:
+        cfg = dataclasses.replace(MNIST_K4, method=method,
+                                  rounds=PRESET_ROUNDS,
+                                  use_pallas_kernels=True)
+        res = api.run(cfg.to_scenario(), device=DEV)
+        check_result(res, PRESET_ROUNDS, cfg.eval_every)
+        tta = res.time_to_accuracy(TARGETS["mnist-like"])
+        presets[method] = {
+            "final_acc": res.final_acc, "run_s": res.run_s,
+            "time_to_accuracy": tta._asdict() if tta else "never"}
+    out["mnist_k4"] = {"rounds": PRESET_ROUNDS,
+                       "target": TARGETS["mnist-like"],
+                       "seconds": time.perf_counter() - t0,
+                       "methods": presets}
+
+    # results saved on the card and loaded back
+    res.save(str(tmp / "run.json"))
+    back = api.RunResult.load(str(tmp / "run.json"))
+    assert back.to_history() == res.to_history()
+    assert back.scenario == res.scenario
+    sweep.save(str(tmp / "sweep.json"))
+    sback = api.SweepResult.load(str(tmp / "sweep.json"))
+    for key in ("acc", "loss", "time_s", "energy_j", "evaluated"):
+        assert np.array_equal(getattr(sback, key),
+                              np.asarray(getattr(sweep, key), float
+                                         if key != "evaluated" else bool),
+                              equal_nan=key != "evaluated"), key
+    out["save_load"] = "ok"
+    return out
+
+
+def async_phase() -> dict:
+    """The async event engine at N = 800, K = 4, cohorts of 200 and
+    buffers of 50 (fedbuff: 200), the polynomial schedule, 40 events,
+    kernels on and off in turns (fedspace-async on the full contact
+    plan): one stage-1 launch an event on, none off, on equal to off at
+    the golden bar with the per-event stage-2 firings and flushes exact;
+    then the full cohort (800, constant) against the sync engine."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.api import (AsyncSpec, ExecSpec, FleetSpec, Scenario,
+                                 TrainSpec)
+    from repro_torch.core import async_engine, engine
+    from repro_torch.core import strategies as strat_lib
+    from repro_torch.kernels import ops
+
+    cohort = CONTACT_N // 4
+
+    def scenario(method, use, cohort=cohort, buffer=cohort // 4,
+                 staleness="polynomial", events=ASYNC_EVENTS):
+        return Scenario(method=method,
+                        fleet=FleetSpec(num_clients=CONTACT_N, num_clusters=4,
+                                        round_minutes=4.0),
+                        train=TrainSpec(rounds=events, eval_every=10,
+                                        rounds_per_global=5),
+                        async_=AsyncSpec(cohort=cohort, buffer=buffer,
+                                         staleness=staleness),
+                        exec=ExecSpec(use_pallas_kernels=use))
+    lines, runs = [], {}
+    for method in ASYNC_METHODS:
+        cache = {}
+        for use in (True, False):
+            buffer = cohort if method == "fedbuff" else cohort // 4
+            ops.reset_launches()
+            engine.reset_host_reads()
+            with recording_runs(async_engine) as seen:
+                res = api.run(scenario(method, use, buffer=buffer),
+                              device=DEV, setup_cache=cache)
+            launches, reads = dict(ops.LAUNCHES), dict(engine.HOST_READS)
+            _, state, outs = seen[-1]
+            check_result(res, ASYNC_EVENTS, 10)
+            assert launches["weighted_agg_multi"] == (
+                ASYNC_EVENTS if use else 0), launches
+            assert launches["kmeans_assign"] == 0, launches
+            assert reads["window"] == reads["recluster"] == 0, reads
+            if method == "fedbuff":
+                assert reads["stage2"] == 0, reads
+            runs[(method, use)] = (res, outs.did_global.tolist(),
+                                   outs.flushes.tolist())
+            lines.append({
+                "method": method, "kernels": use, "cohort": cohort,
+                "buffer": buffer, "events": ASYNC_EVENTS,
+                "s_per_event": res.run_s / ASYNC_EVENTS,
+                "setup_s": res.setup_s, "flushes": res.flushes,
+                "mean_staleness": res.mean_staleness,
+                "global_rounds": res.global_rounds,
+                "pending_global_at_end": state.pending_global,
+                "host_reads": reads, "launches": launches,
+                "peak_device_mem_mb": res.peak_device_mem_mb,
+                "acc": res.acc.tolist(), "time_s": res.time_s.tolist(),
+                "energy_j": res.energy_j.tolist()})
+            del seen, state, outs
+        (a, da, fa), (b, db, fb) = runs[(method, True)], runs[(method, False)]
+        assert da == db and fa == fb, (method, da, db, fa, fb)
+        hold(run_points(a), run_points(b), f"{method} on vs off")
+        del cache
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the full cohort and the constant schedule: the sync engine's run
+    twin = "fedhc-async-synctwin"
+    if twin not in strat_lib.names():
+        strat_lib.register(dataclasses.replace(
+            strat_lib.get("fedhc-async"), name=twin, aggregation="sync"))
+    full = api.run(scenario("fedhc-async", True, cohort=CONTACT_N,
+                            buffer=CONTACT_N,
+                            staleness="constant", events=10),
+                   device=DEV)
+    sync = api.run(scenario(twin, True, events=10), device=DEV)
+    hold(run_points(full), run_points(sync), "full cohort vs sync")
+    assert full.flushes == 40 and full.mean_staleness == 0.0, full.flushes
+    return {"phase": "async", "num_clients": CONTACT_N, "num_clusters": 4,
+            "runs": lines,
+            "full_cohort_vs_sync": {
+                "events": 10, "global_rounds": full.global_rounds,
+                "time_s": full.time_s.tolist(),
+                "sync_time_s": sync.time_s.tolist(),
+                "acc": full.acc.tolist(), "sync_acc": sync.acc.tolist()},
+            "order": "per method: on, off (one setup)"}
+
+
 def check_result(res, rounds: int, eval_every: int) -> None:
     import numpy as np
     want = sorted({r for r in range(eval_every, rounds + 1, eval_every)}
@@ -949,8 +1308,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import api, device as device_lib
-    from repro_torch.api import (CommsSpec, ExecSpec, FleetSpec, Scenario,
-                                 TrainSpec)
+    from repro_torch.api import (AsyncSpec, CommsSpec, ExecSpec, FleetSpec,
+                                 Scenario, TrainSpec)
     from repro_torch.configs import get_config, replace
     from repro_torch.kernels import build, ops
     from repro_torch.launch.serve import serve_batch
@@ -1080,6 +1439,25 @@ def main() -> int:
     emit(profile_round_loop(scenario("fedspace", CONTACT_N, True,
                                      round_minutes=4.0)))
 
+    # ---- 5c. weighted_agg_multi at any K and beyond 64 leaves; seed
+    # sweeps, the paper preset and result files; the async event engine,
+    # and one fedhc-async run under torch.profiler
+    wagg_k = wagg_k_phase(gen)
+    emit(wagg_k)
+    tmp = ROOT / "build" / "chip_smoke"
+    tmp.mkdir(parents=True, exist_ok=True)
+    emit(sweep_phase(tmp))
+    emit(async_phase())
+    emit(profile_round_loop(Scenario(
+        method="fedhc-async",
+        fleet=FleetSpec(num_clients=CONTACT_N, num_clusters=4,
+                        round_minutes=4.0),
+        train=TrainSpec(rounds=ASYNC_EVENTS, eval_every=10),
+        async_=AsyncSpec(cohort=CONTACT_N // 4, buffer=CONTACT_N // 16),
+        exec=ExecSpec(use_pallas_kernels=True))))
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ---- 6. serving: full gemma2-2b, prefill + greedy decode -------------
     del on, off, runs
     gc.collect()
@@ -1173,6 +1551,20 @@ def main() -> int:
                      "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                      "bound_by": m["bound_by"],
                      "library_ms": m["library_ms"], "shape": m["shape"]})
+    # K > 16: the K = 32 stage-1 on the default route, launched by fedhc
+    # at N = 800 with K = 32 (one a round and one a re-cluster)
+    k32 = next(r for r in wagg_k["stage1"]
+               if r["K"] == 32 and r["dtype"] == "float32")
+    rows.append({"name": "weighted_agg_multi_k32", "route": "cuda",
+                 "source": "src/repro_torch/csrc/weighted_agg.cu",
+                 "replaces": "src/repro/kernels/weighted_agg.py:76",
+                 "launches": wagg_k["fedhc_K32_on"]["launches"][
+                     "weighted_agg_multi"],
+                 **{key: k32[key] for key in (
+                     "max_abs_err", "ms", "plain_ms", "bound_ms",
+                     "bound_by", "library_ms")},
+                 "shape": "one stage-1: 10 LeNet leaves, C=800, K=32, f32, "
+                          "two passes of 16 clusters"})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

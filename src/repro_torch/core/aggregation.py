@@ -10,8 +10,10 @@ otherwise it is a plain matmul per leaf.
 :func:`hierarchical_round` has stage 1 hoisted out of the stage-2 choice,
 as ``repro/core/aggregation_spmd.py::hierarchical_round_sharded`` does;
 ``do_global`` is a Python bool (for always-up methods it depends only on
-the round index).  The client-axis sharding of that module waits for the
-multi-GPU slice.
+the round index).  :func:`buffered_flush` is the async engine's flush,
+the math of ``aggregation_spmd.py::buffered_flush_sharded`` on one
+device.  The client-axis sharding of that module waits for the multi-GPU
+slice.
 """
 from __future__ import annotations
 
@@ -143,3 +145,29 @@ def hierarchical_round(stack, losses, data_sizes, assignment, k: int,
         return global_round(cluster_models, data_sizes, assignment, k,
                             num_clients, one_hot=one_hot)
     return broadcast_clusters(cluster_models, assignment)
+
+
+def buffered_flush(contrib_stack, losses, data_sizes, assignment, k: int,
+                   contrib_w, flush, cluster_params, *,
+                   loss_weighted: bool = True, server_lr: float = 1.0,
+                   use_kernels: bool = False) -> Any:
+    """FedBuff-style flush with the stage-1 math: ``contrib_w`` (C,) are
+    the staleness-decayed buffer weights (0 = empty slot), entering the
+    cluster weights as the participation multiplier, so each member
+    counts ``base_weight * s(tau)``, cluster-normalized.  Clusters with
+    ``flush`` (K,) take the buffered aggregate (mixed as ``old +
+    server_lr * (new - old)`` when ``server_lr`` is not 1); the others
+    keep ``cluster_params``.  Returns the new (K, ...) cluster models."""
+    one_hot = membership_one_hot(assignment, k)
+    w = cluster_weights(losses, data_sizes, assignment, k,
+                        participating=contrib_w, loss_weighted=loss_weighted,
+                        one_hot=one_hot)
+    new_models = cluster_aggregate(contrib_stack, w, assignment, k,
+                                   use_kernels=use_kernels, one_hot=one_hot)
+    if server_lr != 1.0:
+        new_models = tree_map(lambda new, old: old + server_lr * (new - old),
+                              new_models, cluster_params)
+    return tree_map(
+        lambda new, old: torch.where(
+            flush.reshape((-1,) + (1,) * (new.dim() - 1)), new, old),
+        new_models, cluster_params)

@@ -40,15 +40,22 @@ Randomness goes through a *draws* object with three methods:
 came before it (the reference's ``fold_in``).  :class:`ArrayDraws`
 replays given arrays: the parity tests hand it the reference's draws.
 
-Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
-slice): the async engine, a client mesh, telemetry and multi-seed
-sweeps.
+Async strategies (fedbuff, fedhc-async, fedspace-async) run on the
+event engine, `core/async_engine.py`: :func:`simulate` and :func:`run`
+route them there, as the reference's do.  :func:`run_many_seeds` is the
+seed sweep: one contact plan built once and shared, then a loop over
+seeds, each seed the run ``simulate`` gives on that seed (the reference
+vmaps its scan over a stacked seed axis; a stacked axis here is speed
+work, ROADMAP queue 2).
+
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
+slice): a client mesh and telemetry.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -111,8 +118,9 @@ class SimData(NamedTuple):
     plan: Any = None           # contact plan (None when always-up)
 
 
-# host reads the round loop makes, by reason (see the module docstring)
-HOST_READS: Dict[str, int] = {"window": 0, "recluster": 0}
+# host reads the round loop makes, by reason (see the module docstring;
+# "stage2" is the async engine's, `core/async_engine.py`)
+HOST_READS: Dict[str, int] = {"window": 0, "recluster": 0, "stage2": 0}
 
 
 def reset_host_reads() -> None:
@@ -149,7 +157,11 @@ _S_DATA, _S_PART, _S_MODEL, _S_FREQ, _S_KMEANS, _S_LOOP = range(6)
 
 
 class TorchDraws:
-    """Native per-round draws from a generator on the run's device."""
+    """Native per-round draws from a generator on the run's device.  The
+    async engine takes an event's picks from ``batch_picks(event)``: the
+    reference draws them with the same expression (``randint`` of shape
+    (C, B) from the loop key folded with the index), full cohort or
+    partial."""
 
     def __init__(self, cfg: FLRunConfig, seed: int, device: torch.device):
         self.cfg, self.seed = cfg, int(seed)
@@ -210,13 +222,8 @@ class ArrayDraws:
 
 
 def _strategy_for(cfg: FLRunConfig) -> strat_lib.Strategy:
-    """The config's strategy, if this slice's engine runs it."""
+    """The config's strategy, if the port's engines run it."""
     strategy = strat_lib.get(cfg.method)
-    if strategy.is_async:
-        raise NotImplementedError(
-            f"{cfg.method!r} runs on the async event engine: not ported yet "
-            f"(ROADMAP queue 1, slice 11: core/staleness.py and "
-            f"core/async_engine.py)")
     if cfg.telemetry:
         raise NotImplementedError(
             "telemetry is not ported yet (ROADMAP queue 1, slice 13: obs/)")
@@ -605,9 +612,15 @@ def simulate(cfg: FLRunConfig, seed: Optional[int] = None, *, device=None,
 
     Without ``state0``/``data`` the run sets itself up (:func:`setup`);
     without ``draws`` it draws natively (:class:`TorchDraws`).  The
-    history is fetched from the device once, after the last round."""
-    dev = device_lib.resolve(device)
+    history is fetched from the device once, after the last round.  Async
+    strategies route to `core/async_engine.simulate` (its
+    ``(AsyncState, AsyncOutput)`` types instead)."""
     strategy = _strategy_for(cfg)
+    if strategy.is_async:
+        from repro_torch.core import async_engine   # it imports this module
+        return async_engine.simulate(cfg, seed, device=device, state0=state0,
+                                     data=data, draws=draws)
+    dev = device_lib.resolve(device)
     seed = cfg.seed if seed is None else seed
     if (state0 is None) != (data is None):
         raise ValueError("pass both state0 and data, or neither")
@@ -639,22 +652,100 @@ def simulate(cfg: FLRunConfig, seed: Optional[int] = None, *, device=None,
     return state, outs
 
 
-def history_from_outputs(outs: RoundOutput) -> Dict[str, Any]:
-    """Host-side history dict: entries at every ``eval_every``-th round
-    (plus the last), the re-cluster and stage-2 totals."""
-    idx = np.nonzero(outs.evaluated)[0]
-    return {
+def split_outputs(outs):
+    """``(outputs, telemetry_or_None)``: the reference's discriminator
+    between a telemetry-carrying ``(outputs, Telemetry)`` pair (a plain
+    tuple) and bare outputs (a NamedTuple).  The port records no
+    telemetry yet (ROADMAP slice 13), so it always gets bare outputs."""
+    if isinstance(outs, tuple) and not hasattr(outs, "_fields"):
+        return outs
+    return outs, None
+
+
+def eval_point_lists(outs):
+    """``(outs, partial_history)``: the per-eval-point lists of both
+    engines (``evaluated``-masked round/acc/loss/time/energy) from
+    outputs already on the host; the callers add their own totals."""
+    idx = np.nonzero(np.asarray(outs.evaluated))[0]
+    return outs, {
         "round": [int(i) + 1 for i in idx],
         "acc": [float(outs.acc[i]) for i in idx],
         "loss": [float(outs.loss[i]) for i in idx],
         "time_s": [float(outs.time_s[i]) for i in idx],
         "energy_j": [float(outs.energy_j[i]) for i in idx],
-        "reclusters": int(np.sum(outs.reclustered)),
-        "global_rounds": int(np.sum(outs.did_global)),
     }
 
 
-def run(cfg: FLRunConfig, *, device=None) -> Dict[str, Any]:
-    """The reference ``engine.run``'s history dict, from one native run."""
+def history_from_outputs(outs: RoundOutput) -> Dict[str, Any]:
+    """Host-side history dict: entries at every ``eval_every``-th round
+    (plus the last), the re-cluster and stage-2 totals."""
+    outs, _ = split_outputs(outs)
+    outs, history = eval_point_lists(outs)
+    history["reclusters"] = int(np.sum(outs.reclustered))
+    history["global_rounds"] = int(np.sum(outs.did_global))
+    return history
+
+
+def _print_history(history: Dict[str, Any], tag: str, what: str) -> None:
+    for r, a, l, t, e in zip(history["round"], history["acc"],
+                             history["loss"], history["time_s"],
+                             history["energy_j"]):
+        print(f"[{tag}] {what} {r:4d} acc={a:.3f} loss={l:.3f} T={t:.0f}s "
+              f"E={e:.1f}J")
+
+
+def run(cfg: FLRunConfig, verbose: bool = False, *,
+        device=None) -> Dict[str, Any]:
+    """The reference ``engine.run``'s history dict, from one native run;
+    async strategies route to `core/async_engine.run`."""
+    if strat_lib.get(cfg.method).is_async:
+        from repro_torch.core import async_engine
+        return async_engine.run(cfg, verbose=verbose, device=device)
     _, outs = simulate(cfg, device=device)
-    return history_from_outputs(outs)
+    history = history_from_outputs(outs)
+    if verbose:
+        k = 1 if strat_lib.get(cfg.method).centralized else cfg.num_clusters
+        _print_history(history, f"{cfg.method} K={k}", "round")
+    return history
+
+
+def run_many_seeds(cfg: FLRunConfig, seeds: Sequence[int], *,
+                   device=None) -> Dict[str, np.ndarray]:
+    """Multi-seed sweep: the contact plan of a visibility-gated strategy
+    is built once and handed to every seed's :func:`setup`; each seed then
+    runs through :func:`simulate`, so it is the run that seed gives alone
+    and takes only the re-cluster branches it takes (the reference's
+    vmapped ``lax.cond`` runs both).  Returns the reference's per-round
+    arrays of shape ``(num_seeds, rounds)`` (mask by ``evaluated``) and
+    per-seed totals."""
+    strategy = _strategy_for(cfg)
+    if strategy.is_async:
+        raise NotImplementedError(
+            "run_many_seeds is sync-only for now; vmap the async engine's "
+            "scan directly or loop async_engine.run over seeds")
+    if cfg.contact_slices or cfg.contact_factorized:
+        raise ValueError(
+            "contact_slices/contact_factorized are incompatible with "
+            "run_many_seeds: both plan forms are seed-dependent (they "
+            "bake in one seed's cluster layout), while the sweep shares "
+            "a single plan across the seed axis. Use the full stored "
+            "plan for sweeps.")
+    dev = device_lib.resolve(device)
+    plan = _plan_for(cfg, strategy, device=dev)
+    rows = []
+    for seed in seeds:
+        state0, data = setup(cfg, int(seed), contact_plan=plan, device=dev)
+        rows.append(simulate(cfg, int(seed), device=dev, state0=state0,
+                             data=data)[1])
+        del state0, data
+
+    def stack(name):
+        return np.stack([getattr(o, name) for o in rows])
+    return {
+        "seeds": np.asarray(list(seeds)),
+        "acc": stack("acc"), "loss": stack("loss"),
+        "time_s": stack("time_s"), "energy_j": stack("energy_j"),
+        "evaluated": stack("evaluated"),
+        "reclusters": stack("reclustered").sum(axis=1),
+        "global_rounds": stack("did_global").sum(axis=1),
+    }

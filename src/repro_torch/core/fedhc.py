@@ -1,23 +1,67 @@
-"""FedHC run configuration and the per-client training pieces.
+"""FedHC run configuration, the per-client training pieces and the
+history-dict entry point.
 
 Counterpart of ``repro/core/fedhc.py``: :class:`FLRunConfig` (same fields
 and defaults, so configs and manifests carry across), per-client local
-SGD and the §III-C MAML meta-update of re-formed clusters.  The
-reference's ``vmap`` over clients is a leading client dimension here
-(`models/lenet.py`); its host-loop oracle ``run_fl_legacy`` is not ported.
+SGD, the §III-C MAML meta-update of re-formed clusters, :func:`run_fl`
+and :func:`time_energy_to_accuracy` (paper Table I's metric over a
+history dict) and the live :data:`METHODS` view of the strategy registry.
+The reference's ``vmap`` over clients is a leading client dimension here
+(`models/lenet.py`); its host-loop oracle ``run_fl_legacy`` is not ported
+(ROADMAP queue 1, slice 15).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 
 from repro_torch.core import aggregation as agg
 from repro_torch.core import maml as maml_lib
+from repro_torch.core import strategies as strat_lib
 from repro_torch.data.synthetic import MNIST_LIKE, DatasetSpec
 from repro_torch.models.lenet import lenet_loss
 from repro_torch.tree import tree_map
+
+
+class _MethodsView:
+    """Live, registry-ordered view of every registered method name: a
+    strategy registered later shows up in ``in``, iteration, ``len`` and
+    indexing (the reference's ``_MethodsView``).  :func:`methods` returns
+    a plain tuple."""
+
+    def __iter__(self):
+        return iter(strat_lib.names())
+
+    def __len__(self) -> int:
+        return len(strat_lib.names())
+
+    def __getitem__(self, i):
+        return strat_lib.names()[i]
+
+    def __contains__(self, method) -> bool:
+        return method in strat_lib.names()
+
+    def __eq__(self, other):
+        try:
+            return tuple(self) == tuple(other)
+        except TypeError:             # not iterable: not equal, not an error
+            return NotImplemented
+
+    def __hash__(self):
+        return hash(strat_lib.names())
+
+    def __repr__(self) -> str:
+        return f"METHODS{strat_lib.names()!r}"
+
+
+METHODS = _MethodsView()      # every registered method, live
+
+
+def methods() -> tuple:
+    """Snapshot of the registered method names (registry-ordered)."""
+    return strat_lib.names()
 
 
 @dataclass(frozen=True)
@@ -56,8 +100,8 @@ class FLRunConfig:
     telemetry: bool = False
     client_microbatch: int = 0            # train clients in blocks of this
     #                                       size (0 = all at once)
-    # asynchronous buffered aggregation (async strategies; not run by this
-    # slice's engine)
+    # asynchronous buffered aggregation (async strategies:
+    # core/async_engine.py)
     async_cohort: int = 0
     async_buffer: int = 0
     staleness: str = "polynomial"
@@ -118,3 +162,24 @@ def _meta_update_clusters(cluster_models: Any, assignment, images, labels,
         summed = one_hot.T @ g.reshape(g.shape[0], -1)            # (K,P)
         return m - beta * summed.reshape(m.shape)
     return tree_map(per_cluster, cluster_models, grads)
+
+
+def run_fl(cfg: FLRunConfig, verbose: bool = False, *,
+           device=None) -> Dict[str, list]:
+    """Run a full FL experiment on ``device`` (default ``cuda``): the
+    history dict with entries at every ``eval_every``-th round (plus the
+    last) and the re-cluster count.  Routes through ``engine.run``, which
+    sends async strategies to the event engine."""
+    from repro_torch.core import engine   # late: engine imports this module
+    return engine.run(cfg, verbose=verbose, device=device)
+
+
+def time_energy_to_accuracy(history: Dict[str, list], target: float):
+    """First ``(time, energy, round)`` at which accuracy >= target, else
+    ``(inf, inf, -1)``.  The typed form is ``RunResult.time_to_accuracy``
+    (`repro_torch/api.py`), which returns None when never reached."""
+    for r, a, t, e in zip(history["round"], history["acc"],
+                          history["time_s"], history["energy_j"]):
+        if a >= target:
+            return t, e, r
+    return float("inf"), float("inf"), -1

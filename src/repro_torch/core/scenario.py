@@ -15,12 +15,10 @@ import json
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
+from repro_torch.core import staleness as stale_lib
 from repro_torch.core import strategies as strat_lib
 from repro_torch.data.synthetic import MNIST_LIKE, DatasetSpec
 
-# the staleness-decay schedules the reference registers
-# (repro/core/staleness.py); AsyncSpec validates against their names
-STALENESS_NAMES = ("constant", "polynomial", "hinge")
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -160,10 +158,10 @@ class AsyncSpec:
     def __post_init__(self):
         _require(self.cohort >= 0, f"cohort={self.cohort} must be >= 0")
         _require(self.buffer >= 0, f"buffer={self.buffer} must be >= 0")
-        if self.staleness not in STALENESS_NAMES:
+        if self.staleness not in stale_lib.names():
             raise ValueError(
                 f"unknown staleness schedule {self.staleness!r}; "
-                f"registered: {STALENESS_NAMES}")
+                f"registered: {stale_lib.names()}")
         _require(0.0 < self.server_lr <= 1.0,
                  f"server_lr={self.server_lr} must be in (0, 1]")
 

@@ -3,9 +3,9 @@
 Counterpart of ``repro/core/strategies.py``, as data: the same
 :class:`Strategy` fields and validation and the same ten registered
 strategies, so ``Scenario`` validation and content hashes agree with the
-JAX package.  The port's engine runs the sync strategies (the five
-always-up paper methods, fedspace and isl-onboard); the async ones raise
-``NotImplementedError`` in `core/engine.py` naming their ROADMAP slice.
+JAX package.  `core/engine.py` runs the sync strategies (the five
+always-up paper methods, fedspace and isl-onboard) and routes the async
+ones (fedbuff, fedhc-async, fedspace-async) to `core/async_engine.py`.
 
 ``CLUSTER_INITS`` maps an init name to ``fn(gen, positions, label_hists,
 k) -> (assignment, centroids)``, drawing from the ``torch.Generator``
@@ -142,7 +142,15 @@ class Strategy:
 
     @property
     def is_async(self) -> bool:
+        """Runs on the event engine (`core/async_engine.py`)."""
         return self.aggregation == "async-buffered"
+
+    @property
+    def flat(self) -> bool:
+        """Single-server layout: one cluster whatever ``num_clusters``
+        (FedBuff), with the hierarchical (model upload) costs, unlike the
+        raw-data ``centralized`` c-fedavg."""
+        return self.cluster_init == "single" and not self.centralized
 
 
 _REGISTRY: Dict[str, Strategy] = {}

@@ -37,8 +37,20 @@
 //    32 KB of loads in flight a block, and three blocks an SM for the f32
 //    stage-1 (launch bounds cap it at 80 registers);
 //  * the (C, K) weights are staged in shared memory a chunk of rows at a
-//    time, padded to KMAX = 4, 8 or 16 (the smallest bucket >= K; the wrapper
-//    raises above 16) with zeros so the inner loop has no branch on K;
+//    time, padded to KMAX = 4, 8 or 16 (the smallest bucket >= K) with zeros
+//    so the inner loop has no branch on K;
+//  * any K.  A thread keeps KMAX x VEC accumulators in registers, so K above
+//    16 is cut into passes of 16 clusters: the grid has a block for every
+//    (column tile, pass), the pass varying fastest, so the blocks of one tile
+//    run side by side and the later passes find the tile's rows in L2.  One
+//    pass of 32 clusters with 2 elements a lane (no re-read, fewer bytes in
+//    flight a load) was slower at every K and dtype measured on an H100 SXM
+//    at 700 W (PERF.md), and went.  On that card the passes run at ~30% of
+//    the byte bound at K = 17 and 32: a thread does 64 FMAs and 16
+//    shared-memory weight reads a 16-byte load, and at 188 registers an SM
+//    holds one block;
+//  * any number of leaves: the wrapper cuts a tree of more than MAX_LEAVES
+//    leaves into launches of at most MAX_LEAVES, each with its own table;
 //  * the block sums its warps' partials in warp order in shared memory and
 //    writes the tile's outputs once.  No atomics and no second kernel: two
 //    calls on the same inputs give the same bits;
@@ -162,11 +174,12 @@ __device__ __forceinline__ void fma_row(float (&acc)[KMAX][VEC],
   }
 }
 
-// One block: column tile `tile` of leaf `lf`, all C rows.
+// One block: column tile `tile` of leaf `lf`, all C rows, clusters k0 to
+// k0 + KMAX - 1 (those below K).
 template <typename T, int KMAX, int VEC>
 __device__ __forceinline__ void grouped_tile(
     const Leaf& lf, int tile, int C, const float* __restrict__ w, int K,
-    float* smem) {
+    int k0, float* smem) {
   constexpr int TILE = 32 * VEC;
   constexpr int ROWS = KMAX * VEC >= 128 ? 4 : 8;  // loads before the first FMA
   constexpr int CHUNK_ROWS = CHUNK_FLOATS / KMAX;
@@ -188,7 +201,7 @@ __device__ __forceinline__ void grouped_tile(
     __syncthreads();                       // previous chunk fully consumed
     for (int i = threadIdx.x; i < cn * KMAX; i += THREADS) {
       const int c = i / KMAX, k = i - c * KMAX;
-      smem[i] = k < K ? __ldg(w + (long long)(c0 + c) * K + k) : 0.0f;
+      smem[i] = k0 + k < K ? __ldg(w + (long long)(c0 + c) * K + k0 + k) : 0.0f;
     }
     __syncthreads();
     if (!active) continue;
@@ -221,7 +234,7 @@ __device__ __forceinline__ void grouped_tile(
   float* red = smem;                       // (WARPS, TILE)
 #pragma unroll
   for (int k = 0; k < KMAX; ++k) {
-    if (k >= K) break;
+    if (k0 + k >= K) break;
     __syncthreads();                       // weights / red consumed
 #pragma unroll
     for (int v = 0; v < VEC; ++v) red[warp * TILE + lane * VEC + v] = acc[k][v];
@@ -232,7 +245,7 @@ __device__ __forceinline__ void grouped_tile(
       float s = 0.0f;
 #pragma unroll
       for (int i = 0; i < WARPS; ++i) s += red[i * TILE + j];
-      store(out + k * P + p, s);
+      store(out + (long long)(k0 + k) * P + p, s);
     }
   }
 }
@@ -243,32 +256,36 @@ __device__ __forceinline__ void grouped_tile(
 template <typename T, int KMAX>
 __host__ __device__ constexpr int min_blocks() { return KMAX * (16 / (int)sizeof(T)) <= 16 ? 3 : 1; }
 
+// block b: column tile b / passes, clusters from (b % passes) * KMAX
 template <typename T, int KMAX>
 __global__ void __launch_bounds__(THREADS, (min_blocks<T, KMAX>()))
 wagg_grouped_kernel(const __grid_constant__ Table tab,
-                    const float* __restrict__ w, int C, int K) {
+                    const float* __restrict__ w, int C, int K, int passes) {
   constexpr int VW = 16 / sizeof(T);       // a lane's 16 bytes: 4 f32, 8 bf16
   __shared__ __align__(16) float smem[cmax(CHUNK_FLOATS, WARPS * 32 * VW)];
-  const int tile = blockIdx.x;
+  const int tile = blockIdx.x / passes;
+  const int k0 = (blockIdx.x - tile * passes) * KMAX;
   int li = 0;
   for (int i = 1; i < tab.n; ++i)
     if (tab.leaf[i].first <= tile) li = i;
   const Leaf& lf = tab.leaf[li];
   if (lf.vec == 1)
-    grouped_tile<T, KMAX, 1>(lf, tile - lf.first, C, w, K, smem);
+    grouped_tile<T, KMAX, 1>(lf, tile - lf.first, C, w, K, k0, smem);
   else
-    grouped_tile<T, KMAX, VW>(lf, tile - lf.first, C, w, K, smem);
+    grouped_tile<T, KMAX, VW>(lf, tile - lf.first, C, w, K, k0, smem);
 }
 
 template <typename T>
 cudaError_t launch_grouped(const Table& tab, const float* w, int C, int K,
-                           int tiles, cudaStream_t s) {
-  if (K <= 4)
-    wagg_grouped_kernel<T, 4><<<tiles, THREADS, 0, s>>>(tab, w, C, K);
-  else if (K <= 8)
-    wagg_grouped_kernel<T, 8><<<tiles, THREADS, 0, s>>>(tab, w, C, K);
+                           int kmax, int tiles, cudaStream_t s) {
+  const int passes = (K + kmax - 1) / kmax;
+  const unsigned grid = (unsigned)tiles * (unsigned)passes;
+  if (kmax == 4)
+    wagg_grouped_kernel<T, 4><<<grid, THREADS, 0, s>>>(tab, w, C, K, passes);
+  else if (kmax == 8)
+    wagg_grouped_kernel<T, 8><<<grid, THREADS, 0, s>>>(tab, w, C, K, passes);
   else
-    wagg_grouped_kernel<T, 16><<<tiles, THREADS, 0, s>>>(tab, w, C, K);
+    wagg_grouped_kernel<T, 16><<<grid, THREADS, 0, s>>>(tab, w, C, K, passes);
   return cudaGetLastError();
 }
 
@@ -328,21 +345,28 @@ cudaError_t launch_small_c(const T* stack, const float* w, T* out, int C,
 
 extern "C" {
 
-// weighted_agg_multi over n leaves in one launch.  dtype 0 = f32, 1 = bf16
-// (every leaf).  The arrays hold the leaves in work order: input (C, P_i)
-// and output (K, P_i) pointers, P_i, the first column tile of each leaf and
-// its elements a lane (16 / sizeof(T) or 1; 16 needs P_i * sizeof(T) % 16 == 0
-// and a 16-byte-aligned input).  Leaf i has ceil(P_i / (32 * vec_i)) column
-// tiles; the tiles of the leaves are consecutive and number `tiles`, one
-// block each.  Returns cudaGetLastError() after the launch (0 =
+// weighted_agg_multi over n <= MAX_LEAVES leaves in one launch.  dtype 0 =
+// f32, 1 = bf16 (every leaf).  The arrays hold the leaves in work order:
+// input (C, P_i) and output (K, P_i) pointers, P_i, the first column tile of
+// each leaf and its elements a lane (16 / sizeof(T) or 1; 16 needs P_i *
+// sizeof(T) % 16 == 0 and a 16-byte-aligned input).  Leaf i has
+// ceil(P_i / (32 * vec_i)) column tiles; the tiles of the leaves are
+// consecutive and number `tiles`.  kmax (4, 8 or 16) clusters a pass,
+// ceil(K / kmax) passes (kmax 4 and 8 take one): one block for each (tile,
+// pass).  Returns cudaGetLastError() after the launch (0 =
 // cudaSuccess), or cudaErrorInvalidValue for arguments the kernel does not
 // take; the caller checks contiguity, placement and that the weights are
 // (C, K) f32.
 int wagg_grouped(int dtype, int n, const void* const* ins, void* const* outs,
                  const long long* ps, const int* firsts, const int* vecs,
-                 int tiles, const float* w, int C, int K, void* stream) {
+                 int tiles, const float* w, int C, int K, int kmax,
+                 void* stream) {
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  if (n < 1 || n > MAX_LEAVES || K < 1 || K > 16 || C < 1 || tiles < 1)
+  if (n < 1 || n > MAX_LEAVES || K < 1 || C < 1 || tiles < 1)
+    return (int)cudaErrorInvalidValue;
+  if ((kmax != 4 && kmax != 8 && kmax != 16) || (kmax < 16 && K > kmax))
+    return (int)cudaErrorInvalidValue;
+  if ((long long)tiles * ((K + kmax - 1) / kmax) >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   const int esize = dtype == 0 ? 4 : 2;
   const int vw = 16 / esize;
@@ -362,8 +386,8 @@ int wagg_grouped(int dtype, int n, const void* const* ins, void* const* outs,
   }
   if (next != tiles) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return (int)launch_grouped<float>(tab, w, C, K, tiles, s);
-  return (int)launch_grouped<__nv_bfloat16>(tab, w, C, K, tiles, s);
+  if (dtype == 0) return (int)launch_grouped<float>(tab, w, C, K, kmax, tiles, s);
+  return (int)launch_grouped<__nv_bfloat16>(tab, w, C, K, kmax, tiles, s);
 }
 
 // weighted_agg, K = 1, 1 <= C <= 32: out (P,) = w (C,) . stack (C, P).

@@ -45,8 +45,9 @@ def weighted_agg_multi(stack: torch.Tensor,
 
 def weighted_agg_multi_tree(tree: Any, weights: torch.Tensor) -> Any:
     """(C, ...) tree + (C, K) weights -> (K, ...) tree, leaf by leaf as
-    the reference's tree form; on the card every leaf goes into one
-    grouped launch (one for LeNet's 10 leaves: one a stage-1)."""
+    the reference's tree form; on the card the leaves go into one grouped
+    launch for every 64 (one for LeNet's 10 leaves: one a stage-1), any
+    K."""
     leaves = tree_leaves(tree)
     if not leaves or leaves[0].device.type == "cpu":
         k = weights.shape[1]
@@ -56,7 +57,7 @@ def weighted_agg_multi_tree(tree: Any, weights: torch.Tensor) -> Any:
     else:                         # (C, ...) leaves go in as they are
         outs = _wagg.launch_grouped([x.contiguous() for x in leaves],
                                     weights)
-        LAUNCHES["weighted_agg_multi"] += 1
+        LAUNCHES["weighted_agg_multi"] += _wagg.launches(len(leaves))
     return tree_unflatten(tree, outs)
 
 

@@ -24,24 +24,35 @@ import torch
 
 from repro_torch.kernels import build
 
-K_MAX = 16
+KMAX_BUCKETS = (4, 8, 16)  # clusters a pass (accumulators a lane column);
+#                            K > 16 takes passes of the last
 WARPS = 8                 # warps of a block; warp w takes rows w, w + 8, ...
-MAX_LEAVES = 64           # entries of the kernel's descriptor table
+MAX_LEAVES = 64           # entries of the kernel's descriptor table: a tree
+#                           of more leaves takes one launch a group of 64
 SMALL_C_MAX = 32          # K = 1 at C <= this streams (wagg_small_c_kernel)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # codes of the C interface
 _SIZES = {torch.float32: 4, torch.bfloat16: 2}
 
 
 class GroupedPlan(NamedTuple):
-    """One launch over every leaf: one block for each column tile (32 lanes
-    x ``vec`` columns) of each leaf, all C rows, shared by the block's 8
-    warps (warp w takes rows w, w + 8, ...)."""
+    """The launches over every leaf: one block for each column tile (32
+    lanes x ``vec`` columns) of each leaf and each pass of ``kmax``
+    clusters, all C rows, shared by the block's 8 warps (warp w takes rows
+    w, w + 8, ...).  One launch for every ``MAX_LEAVES`` leaves."""
     order: Tuple[int, ...]    # leaves in work order (the narrowest first)
     vec: Tuple[int, ...]      # per leaf, in leaf order: elements a lane
     #                           loads from a row (16 bytes, or 1)
     tiles: Tuple[int, ...]    # per leaf: column tiles
-    first: Tuple[int, ...]    # per leaf: its first tile in the grid
-    blocks: int
+    first: Tuple[int, ...]    # per leaf: its first tile in its launch's grid
+    blocks: int               # blocks of all launches: tiles x passes
+    kmax: int                 # clusters a pass (accumulators a lane column)
+    passes: int               # ceil(K / kmax)
+    groups: Tuple[Tuple[int, ...], ...]   # leaves of each launch, in work
+    #                                       order
+
+    @property
+    def launches(self) -> int:
+        return len(self.groups)
 
 
 class SmallC(NamedTuple):
@@ -51,38 +62,44 @@ class SmallC(NamedTuple):
 
 def plan_grouped(ps: Sequence[int], c: int, k: int, dtype: torch.dtype,
                  aligned: Sequence[bool]) -> GroupedPlan:
-    """Launch shape for leaves of ``ps`` columns over ``c`` rows.  A leaf
-    whose rows are 16-byte aligned (``aligned``) loads 16 bytes a lane.
-    The rows are not split over blocks: LeNet's leaves already make 355
-    tiles, 2.7 blocks an SM of an H100, and the card measured every split
-    slower or no faster (``csrc/weighted_agg.cu``, PERF.md)."""
+    """Launch shape for leaves of ``ps`` columns over ``c`` rows and ``k``
+    clusters.  K <= 16 takes one pass of the smallest of 4, 8 or 16
+    accumulators that holds it; a larger K takes passes of 16 clusters.  A
+    leaf whose rows are 16-byte aligned (``aligned``) loads 16 bytes a
+    lane.  The rows are not split over blocks: LeNet's leaves already make
+    355 tiles, 2.7 blocks an SM of an H100, and the card measured every
+    split slower or no faster (``csrc/weighted_agg.cu``, PERF.md).  Leaves
+    go into launches of at most ``MAX_LEAVES`` (the kernel's table), in
+    work order."""
     if not ps or len(ps) != len(aligned):
         raise ValueError(f"weighted_agg_multi: {len(ps)} leaves and "
                          f"{len(aligned)} alignment flags")
-    if len(ps) > MAX_LEAVES:
-        raise ValueError(f"weighted_agg_multi: {len(ps)} leaves, more than "
-                         f"the kernel's table of {MAX_LEAVES}")
-    if not 1 <= k <= K_MAX:
-        raise ValueError(f"weighted_agg_multi: K={k} outside [1, {K_MAX}] "
-                         f"(K accumulators live in registers)")
+    if k < 1:
+        raise ValueError(f"weighted_agg_multi: K={k} clusters")
     if dtype not in _DTYPES:
         raise TypeError(f"weighted_agg_multi: stack dtype {dtype} not in "
                         f"{tuple(_DTYPES)}")
     if c < 1 or min(ps) < 1:
         raise ValueError(f"weighted_agg_multi: empty stack (C={c}, P={ps})")
+    kmax = next((b for b in KMAX_BUCKETS if k <= b), KMAX_BUCKETS[-1])
+    passes = -(-k // kmax)
     wide = 16 // _SIZES[dtype]
     vec = tuple(wide if a else 1 for a in aligned)
     tiles = tuple(-(-p // (32 * v)) for p, v in zip(ps, vec))
     order = tuple(sorted(range(len(ps)), key=lambda i: (ps[i], i)))
+    groups = tuple(order[i:i + MAX_LEAVES]
+                   for i in range(0, len(order), MAX_LEAVES))
     first = [0] * len(ps)
-    blocks = 0
-    for i in order:
-        first[i] = blocks
-        blocks += tiles[i]
-    if blocks >= 2**31:
-        raise ValueError(f"weighted_agg_multi: {blocks} blocks do not fit a "
-                         f"grid")
-    return GroupedPlan(order, vec, tiles, tuple(first), blocks)
+    for group in groups:
+        grid = 0
+        for i in group:
+            first[i] = grid
+            grid += tiles[i]
+        if grid * passes >= 2**31:
+            raise ValueError(f"weighted_agg_multi: {grid * passes} blocks do "
+                             f"not fit a grid")
+    return GroupedPlan(order, vec, tiles, tuple(first),
+                       sum(tiles) * passes, kmax, passes, groups)
 
 
 def plan(c: int, p: int, *, vec4: bool, k: Optional[int] = None,
@@ -101,7 +118,7 @@ def _fn_grouped():
     fn = build.load("weighted_agg").wagg_grouped
     fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5 + [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -132,9 +149,8 @@ def _check(stack: torch.Tensor, weights: torch.Tensor) -> None:
         raise ValueError(f"weighted_agg_multi: stack {tuple(stack.shape)} and "
                          f"weights {tuple(weights.shape)} do not agree (want "
                          f"(C, ...) and (C, K))")
-    if not 1 <= weights.shape[1] <= K_MAX:
-        raise ValueError(f"weighted_agg_multi: K={weights.shape[1]} outside "
-                         f"[1, {K_MAX}] (K accumulators live in registers)")
+    if weights.shape[1] < 1:
+        raise ValueError("weighted_agg_multi: K=0 clusters")
     if stack.shape[0] >= 2**31:
         raise ValueError(f"weighted_agg_multi: C={stack.shape[0]} does not "
                          f"fit an int32")
@@ -161,8 +177,8 @@ def _planned(shapes: Tuple[torch.Size, ...], k: int, dtype: torch.dtype,
              based: Tuple[bool, ...]):
     """For leaves of ``shapes`` (C, ...) whose data start on a 16-byte
     boundary where ``based`` says so: the plan, the buffer's length, each
-    leaf's output view (shape, strides, offset) and the plan's per-leaf
-    arrays in work order for the C interface."""
+    leaf's output view (shape, strides, offset) and, for each launch, its
+    per-leaf arrays in work order for the C interface and its tiles."""
     c = shapes[0][0]
     ps = tuple(math.prod(s[1:]) for s in shapes)
     aligned = [b and (p * _SIZES[dtype]) % 16 == 0 for b, p in zip(based, ps)]
@@ -175,16 +191,20 @@ def _planned(shapes: Tuple[torch.Size, ...], k: int, dtype: torch.dtype,
             strides[d] = strides[d + 1] * shape[d + 1]
         views.append((shape, tuple(strides), off))
         off += k * p
-    n, order = len(ps), pl.order
-    arrays = ((ctypes.c_longlong * n)(*[ps[i] for i in order]),
-              (ctypes.c_int * n)(*[pl.first[i] for i in order]),
-              (ctypes.c_int * n)(*[pl.vec[i] for i in order]))
-    return pl, off, tuple(views), arrays
+    arrays = []
+    for group in pl.groups:
+        n = len(group)
+        arrays.append(((ctypes.c_longlong * n)(*[ps[i] for i in group]),
+                       (ctypes.c_int * n)(*[pl.first[i] for i in group]),
+                       (ctypes.c_int * n)(*[pl.vec[i] for i in group]),
+                       sum(pl.tiles[i] for i in group)))
+    return pl, off, tuple(views), tuple(arrays)
 
 
 def launch_grouped(leaves: Sequence[torch.Tensor],
                    weights: torch.Tensor) -> List[torch.Tensor]:
-    """One launch for every (C, ...) leaf: returns the (K, ...) outputs,
+    """Every (C, ...) leaf in ``ceil(len(leaves) / MAX_LEAVES)`` launches
+    (one for a tree of up to 64 leaves): returns the (K, ...) outputs,
     contiguous views of one buffer of K * sum(P_i) elements, leaf-major
     (P_i a leaf's elements per client).  Raises on what the kernel does not
     take and on a refused launch."""
@@ -201,26 +221,35 @@ def launch_grouped(leaves: Sequence[torch.Tensor],
             raise TypeError(f"weighted_agg_multi: leaves of several dtypes "
                             f"({dt} and {x.dtype})")
     k = weights.shape[1]
-    pl, total, views, (ps_arr, first_arr, vec_arr) = _planned(
+    pl, total, views, arrays = _planned(
         tuple(x.shape for x in leaves), k, dt,
         tuple(x.data_ptr() % 16 == 0 for x in leaves))
     out = torch.empty((total,), dtype=dt, device=dev)
     base, size = out.data_ptr(), out.element_size()
-    n, order = len(leaves), pl.order
     with _on(dev):
-        err = _fn_grouped()(
-            _DTYPES[dt], n,
-            (ctypes.c_void_p * n)(*[leaves[i].data_ptr() for i in order]),
-            (ctypes.c_void_p * n)(*[base + size * views[i][2]
-                                    for i in order]),
-            ps_arr, first_arr, vec_arr, pl.blocks, weights.data_ptr(), c, k,
-            torch.cuda.current_stream().cuda_stream)
-    if err:
-        shapes = [tuple(x.shape) for x in leaves]
-        raise RuntimeError(f"weighted_agg_multi launch failed: CUDA error "
-                           f"{err} (leaves {shapes}, K={k}, {dt}, "
-                           f"{pl.blocks} blocks)")
+        stream = torch.cuda.current_stream().cuda_stream
+        for group, (ps_arr, first_arr, vec_arr, tiles) in zip(pl.groups,
+                                                              arrays):
+            n = len(group)
+            err = _fn_grouped()(
+                _DTYPES[dt], n,
+                (ctypes.c_void_p * n)(*[leaves[i].data_ptr() for i in group]),
+                (ctypes.c_void_p * n)(*[base + size * views[i][2]
+                                        for i in group]),
+                ps_arr, first_arr, vec_arr, tiles, weights.data_ptr(), c, k,
+                pl.kmax, stream)
+            if err:
+                shapes = [tuple(leaves[i].shape) for i in group]
+                raise RuntimeError(
+                    f"weighted_agg_multi launch failed: CUDA error {err} "
+                    f"(leaves {shapes}, K={k} in {pl.passes} passes of "
+                    f"{pl.kmax}, {dt}, {tiles} tiles)")
     return [torch.as_strided(out, *v) for v in views]
+
+
+def launches(n_leaves: int) -> int:
+    """Launches :func:`launch_grouped` makes for a tree of ``n_leaves``."""
+    return -(-n_leaves // MAX_LEAVES)
 
 
 def launch(stack: torch.Tensor, weights: torch.Tensor, *,

@@ -207,7 +207,8 @@ def test_host_reads_one_per_due_round(method, mask):
         if (rnd + 1) % cfg.rounds_per_global == 0 or pending:
             due += 1
             pending = not outs.did_global[rnd]
-    assert tengine.HOST_READS == {"window": due, "recluster": 0}
+    assert tengine.HOST_READS == {"window": due, "recluster": 0,
+                                "stage2": 0}
     assert due > cfg.rounds // cfg.rounds_per_global or method != "fedspace"
 
 
@@ -215,10 +216,10 @@ def test_always_up_methods_read_no_window():
     cfg = _cfg("fedhc", rounds=8)
     tengine.reset_host_reads()
     _sim(cfg)
-    assert tengine.HOST_READS == {"window": 0, "recluster": 2}
+    assert tengine.HOST_READS == {"window": 0, "recluster": 2, "stage2": 0}
     tengine.reset_host_reads()
     _sim(_cfg("h-base", rounds=8))
-    assert tengine.HOST_READS == {"window": 0, "recluster": 0}
+    assert tengine.HOST_READS == {"window": 0, "recluster": 0, "stage2": 0}
 
 
 def test_plan_layouts_need_a_static_layout():

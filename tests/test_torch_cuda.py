@@ -102,16 +102,49 @@ def test_grouped_kernel_takes_unaligned_leaves(cuda_device, C, dt):
 
 @pytest.mark.cuda
 def test_grouped_kernel_refuses_more_leaves_than_its_table(cuda_device):
+    """More leaves than the kernel's table are no longer refused: 65 leaves
+    take two launches (64 and 1), both counted, equal to plain."""
     from repro_torch.kernels import weighted_agg as wagg
     leaves, w = _tree([64] * (wagg.MAX_LEAVES + 1), 16, 4, torch.float32,
                       cuda_device, 1)
     before = ops.LAUNCHES["weighted_agg_multi"]
-    with pytest.raises(ValueError, match="table"):
-        ops.weighted_agg_multi_tree(leaves, w)
-    assert ops.LAUNCHES["weighted_agg_multi"] == before
-    got = ops.weighted_agg_multi_tree(leaves[:wagg.MAX_LEAVES], w)
+    got = ops.weighted_agg_multi_tree(leaves, w)
     torch.cuda.synchronize()
+    assert ops.LAUNCHES["weighted_agg_multi"] == before + 2
     _assert_tree_close(got, leaves, w, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [17, 32, 40, 64])
+@pytest.mark.parametrize("C", [32, 800])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_grouped_kernel_takes_any_k(cuda_device, K, C, dt):
+    """K above 16 on LeNet's leaves in passes of 16 clusters: equal to
+    plain, one launch a tree, the same bits from a second call."""
+    leaves, w = _tree(LENET_P, C, K, dt, cuda_device, C + K)
+    before = ops.LAUNCHES["weighted_agg_multi"]
+    got = ops.weighted_agg_multi_tree(leaves, w)
+    again = ops.weighted_agg_multi_tree(leaves, w)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["weighted_agg_multi"] == before + 2
+    _assert_tree_close(got, leaves, w, dt)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [4, 17, 32])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_grouped_kernel_takes_65_leaves(cuda_device, K, dt):
+    """65 leaves of mixed widths and alignments: two launches, equal to
+    plain, at K = 4, 17 and 32."""
+    from repro_torch.kernels import weighted_agg as wagg
+    ps = [40 + 3 * i for i in range(wagg.MAX_LEAVES + 1)]
+    leaves, w = _tree(ps, 48, K, dt, cuda_device, K + 65)
+    before = ops.LAUNCHES["weighted_agg_multi"]
+    got = ops.weighted_agg_multi_tree(leaves, w)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["weighted_agg_multi"] == before + 2
+    _assert_tree_close(got, leaves, w, dt)
 
 
 @pytest.mark.cuda

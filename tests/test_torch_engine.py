@@ -129,13 +129,32 @@ def test_scenario_json_and_hash_equal_the_reference(method):
         dataset=tsc.data.dataset)
 
 
-@pytest.mark.parametrize("method,match", [("fedspace-async", "slice 11"),
-                                          ("fedbuff", "slice 11"),
-                                          ("fedhc-async", "slice 11")])
-def test_other_engines_name_their_roadmap_slice(method, match):
-    with pytest.raises(NotImplementedError, match=match):
-        tengine.setup(FLRunConfig(method=method, num_clients=8),
-                      device="cpu")
+def _sweep_async():
+    tapi.run_sweep(tapi.Scenario(method="fedhc-async"), (0, 1),
+                   device="cpu")
+
+
+def _async_factorized():
+    tengine.setup(FLRunConfig(method="fedspace-async", num_clients=8,
+                              contact_factorized=True), device="cpu")
+
+
+def _async_telemetry():
+    tengine.run(FLRunConfig(method="fedbuff", num_clients=8,
+                            telemetry=True), device="cpu")
+
+
+@pytest.mark.parametrize("call,exc,match", [
+    (_sweep_async, ValueError, "sync-only"),
+    (_async_factorized, ValueError, "sync-engine-only"),
+    (_async_telemetry, NotImplementedError, "slice 13"),
+], ids=["run_sweep-async", "async-factorized", "async-telemetry"])
+def test_other_engines_name_their_roadmap_slice(call, exc, match):
+    """What the async engine (slice 11) still refuses, with the
+    reference's errors: a seed sweep of an async method, per-client-clock
+    routing on a factorized plan, and telemetry (slice 13)."""
+    with pytest.raises(exc, match=match):
+        call()
 
 
 def test_mesh_and_telemetry_are_not_ported_yet():
@@ -166,7 +185,8 @@ sys.path.insert(0, "src"); sys.path.insert(0, ".")
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
-for name in names + ["chip_smoke"]:
+sys.path.insert(0, "examples")
+for name in names + ["chip_smoke", "quickstart_torch"]:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))

@@ -21,6 +21,7 @@ from repro.core import strategies as jstrat
 from repro.core.fedhc import FLRunConfig as JaxConfig
 from repro.data.synthetic import client_batches as jax_client_batches
 
+from repro_torch.core import async_engine as tasync
 from repro_torch.core import engine as tengine
 from repro_torch.core.fedhc import FLRunConfig as TorchConfig
 
@@ -73,7 +74,11 @@ def reference_setup(cfg: JaxConfig):
 def reference_draws(cfg: JaxConfig, state0, data):
     """The per-round draws of the reference's round scan:
     ``batch_picks`` (R, C, B), ``kmeans_init`` (R, K) and
-    ``central_picks`` (R, max(steps, 1), B)."""
+    ``central_picks`` (R, max(steps, 1), B).  ``batch_picks`` are also the
+    async engine's per-event picks: its event scan draws them with the
+    same expression, full cohort or partial
+    (``repro/core/async_engine.py``; held by
+    ``test_bridged_draws_are_the_async_event_picks``)."""
     strategy = jstrat.get(cfg.method)
     k = 1 if strategy.centralized else cfg.num_clusters
     n = cfg.num_clients
@@ -95,7 +100,7 @@ def reference_draws(cfg: JaxConfig, state0, data):
 def bridged(device="cpu", golden_streams=False, **cfg_kwargs):
     """``(torch_cfg, state0, data, draws, jax_cfg)`` for one config: the
     port's run inputs taken from the reference's setup, draws and contact
-    plan.
+    plan (``state0`` the async engine's state for an async method).
 
     ``golden_streams`` draws with JAX's non-partitionable threefry, the
     random streams ``tests/golden/engine_always.json`` was captured under
@@ -105,7 +110,8 @@ def bridged(device="cpu", golden_streams=False, **cfg_kwargs):
     with jax.threefry_partitionable(not golden_streams):
         arrays, jstate0, jdata = reference_setup(jcfg)
         draws = reference_draws(jcfg, jstate0, jdata)
-    state0, data = tengine.state_from_numpy(tcfg, arrays, device=device)
+    eng = tasync if jstrat.get(jcfg.method).is_async else tengine
+    state0, data = eng.state_from_numpy(tcfg, arrays, device=device)
     return (tcfg, state0, data, tengine.ArrayDraws(*draws, device=device),
             jcfg)
 
@@ -136,3 +142,20 @@ def test_bridged_draws_replay_reference_batches():
         np.testing.assert_array_equal(np.asarray(labels)[flat],
                                       np.asarray(labs))
         assert len(set(kinit[rnd].tolist())) == 2
+
+
+def test_bridged_draws_are_the_async_event_picks():
+    """The reference's async event scan draws an event's (C, B) picks with
+    the sync round's expression (full cohort: ``client_batches``; partial:
+    ``randint`` then a gather of the cohort's rows), so the bridged
+    ``batch_picks`` replay them too."""
+    cfg = JaxConfig(method="fedhc-async", num_clients=8, num_clusters=2,
+                    rounds=3, samples_per_client=16, batch_size=8,
+                    async_cohort=3)
+    state0, data = jengine.setup(cfg)
+    batch, _, _ = reference_draws(cfg, state0, data)
+    for step in range(cfg.rounds):
+        r_rnd = jax.random.fold_in(state0.rng, step)
+        picks = jax.random.randint(r_rnd, (8, cfg.batch_size), 0,
+                                   data.client_idx.shape[1])
+        np.testing.assert_array_equal(np.asarray(picks), batch[step])

@@ -195,17 +195,23 @@ def test_weighted_agg_plan_picks_the_small_c_kernel_for_k1(c, k, vec4, want):
 LENET_P = [150, 6, 2400, 16, 30720, 120, 10080, 84, 840, 10]
 
 
-def _blocks(pl, ps):
-    """The plan's blocks in launch order, as csrc/weighted_agg.cu maps
-    them: block b takes column tile b - first of the last leaf (in work
-    order) whose first tile is <= b.  Yields (leaf, column lo, column hi),
-    half-open and cut to the leaf."""
-    firsts = [pl.first[i] for i in pl.order]
-    for b in range(pl.blocks):
-        leaf = pl.order[max(j for j, f in enumerate(firsts) if f <= b)]
-        width = 32 * pl.vec[leaf]
-        t = b - pl.first[leaf]
-        yield leaf, t * width, min(ps[leaf], (t + 1) * width)
+def _blocks(pl, ps, k=None):
+    """The plan's blocks, launch by launch, as csrc/weighted_agg.cu maps
+    them: in a launch, block b takes pass b % passes of column tile
+    t = b // passes, of the last leaf (in work order) whose first tile is
+    <= t.  Yields (leaf, column lo, column hi, cluster lo, cluster hi),
+    half-open and cut to the leaf and to ``k`` clusters."""
+    k = pl.kmax * pl.passes if k is None else k
+    for group in pl.groups:
+        firsts = [pl.first[i] for i in group]
+        grid = sum(pl.tiles[i] for i in group) * pl.passes
+        for b in range(grid):
+            tile, pas = divmod(b, pl.passes)
+            leaf = group[max(j for j, f in enumerate(firsts) if f <= tile)]
+            width = 32 * pl.vec[leaf]
+            t = tile - pl.first[leaf]
+            yield (leaf, t * width, min(ps[leaf], (t + 1) * width),
+                   pas * pl.kmax, min(k, (pas + 1) * pl.kmax))
 
 
 def _warp_rows(c):
@@ -223,22 +229,30 @@ def _lenet_aligned(dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("K", [1, 4, 16])
+@pytest.mark.parametrize("K", [1, 4, 16, 17, 32])
 @pytest.mark.parametrize("C", [32, 800, 10_000])
 def test_plan_grouped_covers_every_column_and_row_once(C, K, dtype):
-    """Every column of every leaf in exactly one block, every row of a
-    block in exactly one of its warps (so no warp walks all of C), and at C
-    = 800 in f32 (the stage-1) at least two blocks for every SM of an H100
-    (132)."""
+    """Every (column, cluster) of every leaf in exactly one block, every
+    row of a block in exactly one of its warps (so no warp walks all of C),
+    and at C = 800 in f32 (the stage-1) at least two blocks for every SM of
+    an H100 (132).  K <= 16 is one pass of the smallest bucket that holds
+    it; K > 16 takes passes of 16 clusters."""
     pl = wagg_launcher.plan_grouped(LENET_P, C, K, dtype,
                                     _lenet_aligned(dtype))
     assert sorted(pl.order) == list(range(len(LENET_P)))
-    assert sum(pl.tiles) == pl.blocks
-    cols = [np.zeros(p, np.int64) for p in LENET_P]
-    for leaf, lo, hi in _blocks(pl, LENET_P):
-        assert 0 <= lo < hi <= LENET_P[leaf]
-        assert hi - lo <= 32 * pl.vec[leaf]
-        cols[leaf][lo:hi] += 1
+    assert pl.groups == (pl.order,) and pl.launches == 1
+    if K <= 16:
+        assert pl.kmax == min(b for b in (4, 8, 16) if K <= b)
+        assert pl.passes == 1 and sum(pl.tiles) == pl.blocks
+    else:
+        assert pl.kmax == 16
+        assert pl.passes == -(-K // pl.kmax)
+        assert pl.blocks == sum(pl.tiles) * pl.passes
+    cols = [np.zeros((K, p), np.int64) for p in LENET_P]
+    for leaf, lo, hi, k0, k1 in _blocks(pl, LENET_P, K):
+        assert 0 <= lo < hi <= LENET_P[leaf] and 0 <= k0 < k1 <= K
+        assert hi - lo <= 32 * pl.vec[leaf] and k1 - k0 <= pl.kmax
+        cols[leaf][k0:k1, lo:hi] += 1
     for leaf, c in enumerate(cols):
         assert (c == 1).all(), leaf
     rows = np.zeros(C, np.int64)
@@ -254,12 +268,21 @@ def test_plan_grouped_covers_every_column_and_row_once(C, K, dtype):
 
 
 def test_plan_grouped_refuses_what_the_kernel_does_not_take():
+    """Refused: an empty stack, mismatched flags, an unsupported dtype.
+    Taken (they were refused before the kernel took any K and any number
+    of leaves): a tree of 65 leaves, two launches of 64 and 1; K = 17, two
+    passes of 16 clusters."""
     aligned = [True] * (wagg_launcher.MAX_LEAVES + 1)
-    with pytest.raises(ValueError, match="table"):
-        wagg_launcher.plan_grouped([64] * len(aligned), 32, 4,
-                                   torch.float32, aligned)
-    with pytest.raises(ValueError, match="K=17"):
-        wagg_launcher.plan_grouped([64], 32, 17, torch.float32, [True])
+    pl = wagg_launcher.plan_grouped([64] * len(aligned), 32, 4,
+                                    torch.float32, aligned)
+    assert pl.launches == 2 and [len(g) for g in pl.groups] == [64, 1]
+    assert pl.groups[0] + pl.groups[1] == pl.order
+    assert pl.first[pl.groups[1][0]] == 0          # its own launch's grid
+    pl = wagg_launcher.plan_grouped([64], 32, 17, torch.float32, [True])
+    assert (pl.kmax, pl.passes, pl.vec[0]) == (16, 2, 4)
+    assert pl.blocks == pl.tiles[0] * pl.passes
+    with pytest.raises(ValueError, match="K=0"):
+        wagg_launcher.plan_grouped([64], 32, 0, torch.float32, [True])
     with pytest.raises(ValueError, match="empty"):
         wagg_launcher.plan_grouped([64, 0], 32, 4, torch.float32,
                                    [True, True])
@@ -270,47 +293,59 @@ def test_plan_grouped_refuses_what_the_kernel_does_not_take():
 
 
 def _emulate_grouped(stacks, w, pl):
-    """The grouped kernel's arithmetic on the CPU: walk the plan's blocks;
-    in a block, warp i accumulates its rows (i, i + 8, ...) in row order
-    and the block sums its warps in warp order.  f32 throughout, output in
-    the stack's dtype."""
+    """The grouped kernel's arithmetic on the CPU: walk the plan's blocks
+    (every launch, every pass); in a block, warp i accumulates its rows
+    (i, i + 8, ...) in row order for the pass's clusters and the block sums
+    its warps in warp order.  f32 throughout, output in the stack's
+    dtype."""
     c, k = w.shape
     ps = [x.shape[1] for x in stacks]
     outs = [torch.zeros((k, p)) for p in ps]
     warps = wagg_launcher.WARPS
-    for leaf, lo, hi in _blocks(pl, ps):
+    for leaf, lo, hi, k0, k1 in _blocks(pl, ps, k):
         x = stacks[leaf][:, lo:hi].float()
-        acc = torch.zeros((warps, k, hi - lo))
+        wk = w[:, k0:k1]
+        acc = torch.zeros((warps, k1 - k0, hi - lo))
         for j in range(0, c, warps):            # row j + i to warp i
             n = min(warps, c - j)
-            acc[:n] = acc[:n] + w[j:j + n, :, None] * x[j:j + n, None, :]
-        block = torch.zeros((k, hi - lo))
+            acc[:n] = acc[:n] + wk[j:j + n, :, None] * x[j:j + n, None, :]
+        block = torch.zeros((k1 - k0, hi - lo))
         for i in range(warps):
             block = block + acc[i]
-        outs[leaf][:, lo:hi] = block
+        outs[leaf][k0:k1, lo:hi] = block
     return [o.to(x.dtype) for o, x in zip(outs, stacks)]
 
 
-@pytest.mark.parametrize("C,K,dt", [
-    (40, 4, "float32"),
-    (300, 4, "float32"),
-    (100, 1, "float32"),
-    (130, 16, "float32"),
-    (200, 4, "bfloat16"),
+@pytest.mark.parametrize("C,K,dt,ps", [
+    (40, 4, "float32", LENET_P),
+    (300, 4, "float32", LENET_P),
+    (100, 1, "float32", LENET_P),
+    (130, 16, "float32", LENET_P),
+    (200, 4, "bfloat16", LENET_P),
+    (60, 17, "float32", LENET_P),            # two passes of 16
+    (60, 17, "bfloat16", LENET_P),
+    (60, 32, "float32", LENET_P),
+    (60, 32, "bfloat16", LENET_P),
+    (45, 40, "float32", LENET_P),            # three passes, the last of 8
+    (24, 4, "float32", [40 + 3 * i for i in range(65)]),   # 2 launches
+    (24, 17, "bfloat16", [8 * (i % 5 + 1) for i in range(65)]),
 ])
-def test_grouped_kernel_order_matches_plain(C, K, dt):
+def test_grouped_kernel_order_matches_plain(C, K, dt, ps):
     """The CPU emulation of the kernel's summation order equals the plain
-    version on random LeNet-shaped leaves (2e-5 f32, 3e-2 bf16, the
+    version on random leaves (LeNet's, or 65 of them: two launches), at K
+    up to 40 in passes of 16 clusters (2e-5 f32, 3e-2 bf16, the
     tolerances of tests/test_kernels.py), with weights normalized per
     cluster as the engine's are."""
     g = _rng(C, K, 3)
     dtype = getattr(torch, dt)
     stacks = [torch.from_numpy(g.standard_normal((C, p)).astype(np.float32)
-                               ).to(dtype) for p in LENET_P]
+                               ).to(dtype) for p in ps]
     w = g.uniform(size=(C, K)).astype(np.float32)
     w = torch.from_numpy(w / w.sum(0, keepdims=True))
-    pl = wagg_launcher.plan_grouped(LENET_P, C, K, dtype,
-                                    _lenet_aligned(dtype))
+    size = torch.empty((), dtype=dtype).element_size()
+    pl = wagg_launcher.plan_grouped(ps, C, K, dtype,
+                                    [(p * size) % 16 == 0 for p in ps])
+    assert pl.launches == wagg_launcher.launches(len(ps))
     got = _emulate_grouped(stacks, w, pl)
     tol = 2e-5 if dt == "float32" else 3e-2
     for out, x in zip(got, stacks):

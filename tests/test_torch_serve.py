@@ -125,12 +125,12 @@ def test_port_and_chip_smoke_import_no_jax():
     """Every module of the port imports with ``jax`` and ``repro`` blocked,
     and neither the port nor chip_smoke.py names them in an import."""
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
-    for f in files:
+    extra = [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
+    for f in files + extra:
         for line in f.read_text().splitlines():
             assert not re.match(_BLOCK, line), f"{f}: {line}"
     mods = [".".join(f.relative_to(ROOT / "src").with_suffix("").parts)
-            for f in files[:-1]]
+            for f in files]
     mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m
             for m in mods]
     code = f"""
@@ -140,7 +140,8 @@ class Block(importlib.abc.MetaPathFinder):
         if name.split(".")[0] in ("jax", "jaxlib", "repro"):
             raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, Block())
-for m in {mods!r}:
+sys.path.insert(0, "examples")
+for m in {mods!r} + ["quickstart_torch"]:
     importlib.import_module(m)
 print(len({mods!r}))
 """
