@@ -18,7 +18,13 @@ and over 65 leaves and runs fedhc at K = 17 and 32, runs
 seed sweeps (fedhc, and fedspace on one plan) against single runs and
 the five paper methods on the MNIST_K4 preset, runs the async event
 engine (fedbuff, fedhc-async, fedspace-async at N = 800, kernels on and
-off, and the full cohort against the sync engine), serves the full
+off, and the full cohort against the sync engine), runs fedhc at N = 800
+with flight telemetry off and on (histories equal with ``==``, host
+reads, launches and synchronizing calls equal, the overhead, device time
+by ``fed_step/*`` scope, a Chrome trace under ``chiprun_out/``) and
+fedspace and fedhc-async with telemetry on, runs a 16-cell grid at N =
+800 through the fleet sweep service (every cell against its own
+``api.run``; the grid resumed as a no-op), serves the full
 gemma2-2b (26 layers, bf16, random weights) through
 ``repro_torch.launch.serve.serve_batch`` with a prompt longer than its
 4096-token window, checks prefill + decode against a longer prefill,
@@ -845,6 +851,31 @@ def check_contact_plan() -> dict:
     return out
 
 
+def synchronizing_calls(fn) -> list:
+    """Run ``fn`` with the CUDA runtime's sync debug mode on: the calls it
+    reports as synchronizing, each as the innermost port frame (file:line)
+    that asked."""
+    import torch
+    syncs = []
+
+    def seen(message, category, filename, lineno, *_):
+        if "synchroniz" in str(message):
+            port = [f for f in traceback.extract_stack()
+                    if "repro_torch" in f.filename]
+            f = port[-1] if port else None
+            syncs.append(f"{Path(f.filename).name}:{f.lineno}" if f
+                         else f"{Path(filename).name}:{lineno}")
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = seen
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return syncs
+
+
 def contact_phase(scenario) -> dict:
     """fedspace and isl-onboard through ``api.run`` at N = 800, K = 4, 10
     rounds of 4 minutes on the full plan, kernels on and off in turns; then
@@ -913,23 +944,8 @@ def contact_phase(scenario) -> dict:
     cfg = runs["fedspace/True"][0].scenario.to_flat()
     state0, data = engine.setup(cfg, device=DEV)
     engine.reset_host_reads()
-    syncs = []
-
-    def seen(message, category, filename, lineno, *_):
-        if "synchroniz" in str(message):      # the innermost port frame
-            port = [f for f in traceback.extract_stack()
-                    if "repro_torch" in f.filename]
-            f = port[-1] if port else None
-            syncs.append(f"{Path(f.filename).name}:{f.lineno}" if f
-                         else f"{Path(filename).name}:{lineno}")
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = seen
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            engine.simulate(cfg, device=DEV, state0=state0, data=data)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+    syncs = synchronizing_calls(
+        lambda: engine.simulate(cfg, device=DEV, state0=state0, data=data))
     return {"phase": "contact", "num_clients": CONTACT_N, "num_clusters": 4,
             "rounds": 10, "round_minutes": 4.0, "runs": lines,
             "sync_check": {"host_reads": dict(engine.HOST_READS),
@@ -1284,6 +1300,274 @@ def async_phase() -> dict:
             "order": "per method: on, off (one setup)"}
 
 
+def series_vs_history(res) -> dict:
+    """A telemetry-on ``RunResult``'s per-round series against its own
+    history: stage-2 firings, re-clusters and (async) flushes sum to the
+    totals, and ``t_round_s`` and the energy split cumulate to ``time_s``
+    and ``energy_j`` at the eval points (rtol 1e-5)."""
+    import numpy as np
+    r = res.telemetry.rounds
+    assert int(r["did_global"].sum()) == res.global_rounds, r["did_global"]
+    assert int(r["reclustered"].sum()) == res.reclusters, r["reclustered"]
+    if res.flushes is not None:
+        assert int(r["flushes"].sum()) == res.flushes, r["flushes"]
+    idx = res.round - 1
+    t = np.cumsum(r["t_round_s"].astype(np.float64))[idx]
+    e = np.cumsum(r["e_compute_j"].astype(np.float64)
+                  + r["e_comm_j"].astype(np.float64))[idx]
+    t_err = float(np.max(np.abs(t - res.time_s) / res.time_s))
+    e_err = float(np.max(np.abs(e - res.energy_j) / res.energy_j))
+    assert t_err <= TRAJ_RTOL and e_err <= TRAJ_RTOL, (t_err, e_err)
+    return {"rounds": res.telemetry.num_rounds,
+            "did_global": int(r["did_global"].sum()),
+            "reclustered": int(r["reclustered"].sum()),
+            "flushes": int(r["flushes"].sum()),
+            "accepted_mean": float(r["accepted"].mean()),
+            "stale_max": float(r["stale_max"].max()),
+            "hops_mean": float(r["hops_mean"].mean()),
+            "hops_max": float(r["hops_max"].max()),
+            "e_compute_share": float(r["e_compute_j"].sum() / (
+                r["e_compute_j"].sum() + r["e_comm_j"].sum())),
+            "t_rel_err": t_err, "e_rel_err": e_err,
+            "summary": res.telemetry.summary()}
+
+
+def obs_phase(scenario) -> dict:
+    """Flight telemetry at the paper's 800 satellites.  fedhc (K = 4, 10
+    rounds of 4 minutes, Z = 0.2, kernels on) with telemetry off and on in
+    turns, three runs each on one setup: histories equal with ``==`` (off
+    against off first, then on against off), host reads, kernel launches
+    and the CUDA runtime's synchronizing calls equal on and off, median
+    ``run_s`` on and off; fedspace and fedhc-async (cohort 200) with
+    telemetry on, their series against their histories; one telemetry-on
+    fedhc run under ``torch.profiler`` (device ms by ``fed_step/*``
+    scope); the Chrome trace written under ``chiprun_out/`` and
+    validated."""
+    import dataclasses
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import api
+    from repro_torch.api import AsyncSpec, ExecSpec, FleetSpec, Scenario
+    from repro_torch.api import TrainSpec
+    from repro_torch.core import engine
+    from repro_torch.kernels import ops
+    from repro_torch.obs.telemetry import load_chrome_trace
+
+    drift = dict(round_minutes=4.0, dropout_threshold=0.2)
+    base = scenario("fedhc", CONTACT_N, True, **drift)
+    flavours = {tel: base.replace(exec=dataclasses.replace(
+        base.exec, telemetry=tel)) for tel in (False, True)}
+    cache, runs = {}, {False: [], True: []}
+    for _ in range(3):
+        for tel in (False, True):
+            ops.reset_launches()
+            engine.reset_host_reads()
+            res = api.run(flavours[tel], device=DEV, setup_cache=cache)
+            check_result(res, 10, 5)
+            runs[tel].append((res, dict(ops.LAUNCHES),
+                              dict(engine.HOST_READS)))
+    # off against off first: the card's own determinism
+    off0 = runs[False][0][0].to_history()
+    off_equal = all(r.to_history() == off0 for r, _, _ in runs[False])
+    on_equal = all(r.to_history() == off0 for r, _, _ in runs[True])
+    if off_equal:
+        assert on_equal, "telemetry on changed the fedhc history"
+    else:            # the card is not bit-deterministic run to run
+        for r, _, _ in runs[True]:
+            hold(run_points(r), run_points(runs[False][0][0]),
+                 "telemetry on vs off")
+    work = {(tuple(sorted(l.items())), tuple(sorted(h.items())))
+            for tel in runs for _, l, h in runs[tel]}
+    assert len(work) == 1, work
+    launches, reads = runs[True][0][1], runs[True][0][2]
+    assert launches["kmeans_assign"] == 10, launches
+    assert launches["weighted_agg_multi"] == 10 + runs[True][0][0].reclusters
+
+    # the CUDA runtime's synchronizing calls over the round loop, off, on
+    # and off again (the first call under the debug mode adds a one-time
+    # synchronizing call of its own): on makes as many as off
+    state0, data = cache[next(iter(cache))]
+    syncs = [synchronizing_calls(lambda: engine.simulate(
+        flavours[tel].to_flat(), device=DEV, state0=state0, data=data))
+        for tel in (False, True, False)]
+    assert len(syncs[1]) == len(syncs[2]), syncs
+
+    def stats(tel):
+        s = [r.run_s / 10 for r, _, _ in runs[tel]]
+        return {"run_s_per_round": s, "median": statistics.median(s),
+                "peak_device_mem_mb": [r.peak_device_mem_mb
+                                       for r, _, _ in runs[tel]]}
+    on_run = runs[True][0][0]
+    out = {"phase": "obs", "method": "fedhc", "num_clients": CONTACT_N,
+           "num_clusters": 4, "rounds": 10, **drift,
+           "off_equals_off": off_equal, "on_equals_off": on_equal,
+           "launches": launches, "host_reads": reads,
+           "synchronizing_calls": {"off, on, off": syncs},
+           "telemetry_off": stats(False), "telemetry_on": stats(True),
+           "overhead": (stats(True)["median"] / stats(False)["median"]
+                        - 1.0),
+           "spans": on_run.telemetry.spans,
+           "counters": on_run.telemetry.counters,
+           "fedhc_series": series_vs_history(on_run),
+           "order": "off, on (x3), one setup"}
+    del runs, cache, state0, data
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # fedspace on the 800-satellite contact plan and fedhc-async (cohort
+    # 200): telemetry off then on, on one setup
+    def off_on(sc, steps):
+        cache, res = {}, []
+        for tel in (False, True):
+            res.append(api.run(sc.replace(exec=ExecSpec(
+                use_pallas_kernels=True, telemetry=tel)), device=DEV,
+                setup_cache=cache))
+            check_result(res[-1], steps, sc.train.eval_every)
+        assert res[1].to_history() == res[0].to_history(), sc.method
+        return res[1], {"off": res[0].run_s / steps,
+                        "on": res[1].run_s / steps}
+    fedspace, out["fedspace_run_s_per_round"] = off_on(
+        scenario("fedspace", CONTACT_N, True, round_minutes=4.0), 10)
+    out["fedspace_series"] = series_vs_history(fedspace)
+    assert out["fedspace_series"]["hops_max"] >= 1
+    asyn, out["fedhc_async_run_s_per_event"] = off_on(Scenario(
+        method="fedhc-async",
+        fleet=FleetSpec(num_clients=CONTACT_N, num_clusters=4,
+                        round_minutes=4.0),
+        train=TrainSpec(rounds=ASYNC_EVENTS, eval_every=10,
+                        rounds_per_global=5),
+        async_=AsyncSpec(cohort=CONTACT_N // 4, buffer=CONTACT_N // 16)),
+        ASYNC_EVENTS)
+    out["fedhc_async_series"] = series_vs_history(asyn)
+
+    # device time by fed_step scope: one telemetry-on fedhc run
+    cfg = flavours[True].to_flat()
+    state0, data = engine.setup(cfg, device=DEV)
+    engine.simulate(cfg, device=DEV, state0=state0, data=data)   # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.simulate(cfg, device=DEV, state0=state0, data=data)
+    # a scope's range on the host (record_function) and on the device
+    # timeline (its GPU annotation: first to last kernel in the range; the
+    # backward kernels the autograd thread launches fall inside it), beside
+    # the device time of the kernels the host range launched itself
+    cuda = torch.autograd.DeviceType.CUDA
+    scopes, busy_us = {}, 0.0
+    for e in prof.key_averages():
+        if not e.key.startswith("fed_step/"):
+            busy_us += e.self_device_time_total if e.device_type == cuda \
+                else 0.0
+            continue
+        side = "device" if e.device_type == cuda else "host"
+        scopes.setdefault(e.key, {})[side] = {
+            "count": e.count,
+            "range_ms": (e.self_device_time_total if side == "device"
+                         else e.cpu_time_total) / 1e3,
+            "launched_kernels_ms": e.device_time_total / 1e3}
+    assert set(scopes) == {"fed_step/local_train", "fed_step/aggregate",
+                           "fed_step/telemetry"}, scopes
+    out["profile_scopes"] = scopes
+    out["profile_device_busy_ms"] = busy_us / 1e3
+
+    # the Chrome trace of the telemetry-on fedhc run
+    trace_path = ROOT / "chiprun_out" / "obs_fedhc_trace.json"
+    on_run.telemetry.save_chrome_trace(str(trace_path))
+    trace = load_chrome_trace(str(trace_path))
+    out["chrome_trace"] = {"path": str(trace_path.relative_to(ROOT)),
+                           "events": len(trace["traceEvents"])}
+    del state0, data, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# the fleet phase's grid: the paper's methods at 800 satellites over K and
+# seeds (fig. 3's axes), every cell a 10-round run with the kernels on
+FLEET_GRID = {
+    "name": "chip-smoke-fleet",
+    "base": {"fleet.num_clients": CONTACT_N, "fleet.round_minutes": 4.0,
+             "fleet.dropout_threshold": 0.2, "train.rounds": 10,
+             "train.eval_every": 5, "exec.use_pallas_kernels": True},
+    "axes": [{"path": "method",
+              "values": ["fedhc", "h-base", "c-fedavg", "fedspace"]},
+             {"path": "fleet.num_clusters", "values": [3, 4]},
+             {"path": "seed", "values": [17, 18]}],
+}
+
+
+def fleet_phase(tmp: Path) -> dict:
+    """The fleet sweep service at N = 800: :data:`FLEET_GRID` run through
+    ``fleet.run_grid`` into a fresh store (one seed sweep a class, one
+    contact plan a fedspace class, c-fedavg deduplicated across K), every
+    cell held at the golden bar against its own ``api.run``; the same grid
+    again (nothing runs); the report CLI's first lines."""
+    import io
+    import shutil
+    from repro_torch import api
+    from repro_torch.fleet import SweepGrid, plan_grid, run_grid
+    from repro_torch.kernels import ops
+    from repro_torch.obs.report import main as report_main
+    from repro_torch.obs.trace import COUNTERS, Counters
+
+    grid = SweepGrid.from_dict(FLEET_GRID)
+    plan = plan_grid(grid)
+    base = tmp / "sweeps"
+    shutil.rmtree(base, ignore_errors=True)
+    ops.reset_launches()
+    c0 = COUNTERS.snapshot()
+    t0 = time.perf_counter()
+    store, report = run_grid(grid, str(base), device=DEV, verbose=False)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    d = Counters.delta(c0, COUNTERS.snapshot())
+    cells = store.load_all()
+    runs = sum(len(c.jobs) for c in plan.classes)
+    gated = sum(c.cells[0].scenario.strategy.visibility_gated
+                for c in plan.classes)
+    assert report["cells_run"] == len(plan.cells) == 16, report
+    assert d.get("fleet.cells.deduped", 0) == len(plan.cells) - runs == 2, d
+    assert d.get("engine.plan_cache.miss", 0) == gated == 2, d
+    # the kernels: 10 drift checks and 10 stage-1s a federated run, and a
+    # stage-1 a re-cluster; c-fedavg runs neither
+    fed_jobs = [sc for c in plan.classes for sc in c.jobs.values()
+                if not sc.strategy.centralized]
+    recl = sum(r.reclusters for r in
+               {c.cell_jobs[x.key]: cells[x.key] for c in plan.classes
+                for x in c.cells}.values())
+    assert launches["kmeans_assign"] == 10 * len(fed_jobs), launches
+    assert launches["weighted_agg_multi"] == 10 * len(fed_jobs) + recl, \
+        launches
+    for key, res in cells.items():
+        single = api.run(res.scenario, device=DEV)
+        hold(run_points(res), run_points(single),
+             f"fleet cell {res.scenario.method} K="
+             f"{res.scenario.fleet.num_clusters} seed={res.scenario.seed}")
+
+    t0 = time.perf_counter()
+    _, again = run_grid(grid, str(base), device=DEV, verbose=False)
+    resume_s = time.perf_counter() - t0
+    assert again["cells_run"] == 0 and again["cells_skipped"] == 16, again
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert report_main([store.root]) == 0
+    return {"phase": "fleet", "grid_hash": grid.grid_hash(),
+            "cells": len(plan.cells), "classes": len(plan.classes),
+            "runs": runs, "deduped": d.get("fleet.cells.deduped", 0),
+            "plan_builds": d.get("engine.plan_cache.miss", 0),
+            "plan_reuses": d.get("engine.plan_cache.hit", 0),
+            "launches": launches, "reclusters": recl, "wall_s": wall,
+            "per_class": [{"label": e["label"], "mode": e["mode"],
+                           "run": e["run"], "wall_s": e["wall_s"],
+                           "per_round_s": e["per_round_s"],
+                           "counters": e["counters"]}
+                          for e in report["classes"]],
+            "resume": {"cells_run": again["cells_run"],
+                       "cells_skipped": again["cells_skipped"],
+                       "wall_s": resume_s},
+            "report_head": buf.getvalue().splitlines()[:14]}
+
+
 def check_result(res, rounds: int, eval_every: int) -> None:
     import numpy as np
     want = sorted({r for r in range(eval_every, rounds + 1, eval_every)}
@@ -1457,6 +1741,10 @@ def main() -> int:
         exec=ExecSpec(use_pallas_kernels=True))))
     gc.collect()
     torch.cuda.empty_cache()
+
+    # ---- 5d. flight telemetry and the fleet sweep service at N = 800
+    emit(obs_phase(scenario))
+    emit(fleet_phase(tmp))
 
     # ---- 6. serving: full gemma2-2b, prefill + greedy decode -------------
     del on, off, runs

@@ -8,13 +8,22 @@ Counterpart of ``repro/api.py`` on one device (``cuda`` unless
 :class:`RunResult` and :class:`SweepResult` have the reference's fields,
 ``time_to_accuracy`` (paper Table I's metric) and JSON ``save``/``load``
 in the reference's format, key for key, so a file written by either
-package loads in the other (``telemetry`` is saved as ``null`` until the
-obs slice).  ``compile_s`` is the time spent building the CUDA kernels at
-first use (~0 afterwards, and 0 on the CPU); the reference's AOT compile
-cache has no counterpart, since PyTorch runs eagerly.
+package loads in the other, telemetry included.  ``compile_s`` is the time
+spent building the CUDA kernels at first use (~0 afterwards, and 0 on the
+CPU); the reference's AOT compile cache has no counterpart, since PyTorch
+runs eagerly.
+
+``scenario.exec.telemetry`` turns on both observability planes
+(`repro_torch.obs`): the engines' per-round :class:`Telemetry` records,
+carried by the run's one device-to-host copy, and host spans around
+setup / compile / run / fetch, surfaced as ``RunResult.telemetry`` and
+rendered by ``python -m repro_torch.obs.report``.  The setup-cache
+counters (``api.setup_cache.hit/miss`` in ``obs.trace.COUNTERS``) count
+on every call that passes a ``setup_cache``, telemetry on or off.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -34,6 +43,8 @@ from repro_torch.core.scenario import (AsyncSpec, CommsSpec, DataSpec,
                                        ExecSpec, FleetSpec, Scenario,
                                        TrainSpec)
 from repro_torch.kernels import build
+from repro_torch.obs.telemetry import RunTelemetry, rounds_from_scan
+from repro_torch.obs.trace import COUNTERS, Counters, Tracer
 
 __all__ = [
     "Scenario", "DataSpec", "FleetSpec", "TrainSpec", "CommsSpec",
@@ -77,7 +88,9 @@ class RunResult:
     mean_staleness: Optional[float] = None
     peak_device_mem_mb: Optional[float] = None  # CUDA peak allocation
     peak_host_mem_mb: Optional[float] = None    # host peak RSS
-    telemetry: Optional[Any] = None             # not ported yet (slice 13)
+    telemetry: Optional[RunTelemetry] = None    # both obs planes when
+    #                            ExecSpec.telemetry is on: per-round
+    #                            device series + host spans + counters
 
     @property
     def wall_s(self) -> float:
@@ -129,13 +142,14 @@ class RunResult:
                         "run_s": self.run_s,
                         "peak_device_mem_mb": self.peak_device_mem_mb,
                         "peak_host_mem_mb": self.peak_host_mem_mb},
-            "telemetry": None,
+            "telemetry": (self.telemetry.to_dict()
+                          if self.telemetry is not None else None),
         })
 
     @classmethod
     def load(cls, path: str) -> "RunResult":
-        """A result saved by either package (a saved telemetry record is
-        not read: the port has no telemetry type yet)."""
+        """A result saved by either package, its telemetry record
+        included."""
         with open(path) as f:
             d = json.load(f)
         h, t = d["history"], d["timings"]
@@ -156,6 +170,8 @@ class RunResult:
             mean_staleness=h.get("mean_staleness"),
             peak_device_mem_mb=t.get("peak_device_mem_mb"),
             peak_host_mem_mb=t.get("peak_host_mem_mb"),
+            telemetry=(RunTelemetry.from_dict(d["telemetry"])
+                       if d.get("telemetry") else None),
         )
 
 
@@ -249,9 +265,10 @@ def run(scenario: Scenario, *, device=None, verbose: bool = False,
     """Run one scenario end to end on ``device`` (default ``cuda``).
 
     ``setup_cache``: a dict owned by the caller; runs that differ only in
-    execution knobs (microbatch, kernel routing) reuse one setup (data,
-    model, clustering, contact plan), and a hit reports ``setup_s ~ 0``.
-    Safe because a run never writes into its setup's tensors."""
+    execution knobs (microbatch, kernel routing, telemetry) reuse one
+    setup (data, model, clustering, contact plan), and a hit reports
+    ``setup_s ~ 0``.  Safe because a run never writes into its setup's
+    tensors."""
     if scenario.exec.mesh_devices is not None:
         raise NotImplementedError(
             "a client mesh is not ported yet (ROADMAP queue 1, slice 12: "
@@ -261,9 +278,22 @@ def run(scenario: Scenario, *, device=None, verbose: bool = False,
     strategy = strat_lib.get(cfg.method)
     eng = async_engine if strategy.is_async else engine
 
+    # host-plane observability: a span tracer when telemetry is on (the
+    # spans ride RunResult.telemetry), setup-cache counters always
+    telem_on = cfg.telemetry
+    tracer = Tracer(nvtx=dev.type == "cuda") if telem_on else None
+    counters0 = COUNTERS.snapshot() if telem_on else {}
+
+    def span(name):
+        return (tracer.span(name) if tracer is not None
+                else contextlib.nullcontext())
+
+    # the kernel build is the port's "compile" (the reference's "lower"
+    # has no counterpart: eager PyTorch traces no program)
     t0 = time.perf_counter()
-    if cfg.use_pallas_kernels and dev.type == "cuda":
-        build.build_all()
+    with span("compile"):
+        if cfg.use_pallas_kernels and dev.type == "cuda":
+            build.build_all()
     compile_s = time.perf_counter() - t0
 
     if dev.type == "cuda":
@@ -271,18 +301,25 @@ def run(scenario: Scenario, *, device=None, verbose: bool = False,
     t0 = time.perf_counter()
     key = _setup_cache_key(cfg, dev) if setup_cache is not None else None
     if key is not None and key in setup_cache:
+        COUNTERS.inc("api.setup_cache.hit")
         state0, data = setup_cache[key]
     else:
-        state0, data = eng.setup(cfg, device=dev)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        if key is not None:
+            COUNTERS.inc("api.setup_cache.miss")
+        with span("setup"):
+            state0, data = eng.setup(cfg, device=dev)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         if key is not None:
             setup_cache[key] = (state0, data)
     setup_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    _, outs = eng.simulate(cfg, device=dev, state0=state0, data=data)
-    history = eng.history_from_outputs(outs)
+    with span("run"):              # the rounds, ending in the one fetch
+        _, outs = eng.simulate(cfg, device=dev, state0=state0, data=data)
+    round_outs, telem = engine.split_outputs(outs)
+    with span("fetch"):
+        history = eng.history_from_outputs(round_outs)
     run_s = time.perf_counter() - t0
     if verbose:
         engine._print_history(history, cfg.method,
@@ -305,6 +342,10 @@ def run(scenario: Scenario, *, device=None, verbose: bool = False,
         mean_staleness=history.get("mean_staleness"),
         peak_device_mem_mb=device_lib.peak_device_mem_mb(dev),
         peak_host_mem_mb=_peak_host_mem_mb(),
+        telemetry=(RunTelemetry(
+            rounds=rounds_from_scan(telem), spans=tracer.span_dicts(),
+            counters=Counters.delta(counters0, COUNTERS.snapshot()))
+            if telem_on else None),
     )
 
 

@@ -49,6 +49,11 @@ stage-2 could be due: a cluster commits at most one flush an event, so
 none is due before ``rounds_per_global`` events have passed since the
 last global, unless one is pending.  Flat fedbuff makes no read.  The
 history is fetched once after the last event.
+
+Telemetry (``cfg.telemetry``): each event also builds one
+``obs.telemetry.Telemetry`` under the ``async_event/telemetry`` profiler
+scope (the reference's step 9): outputs only, riding the history's one
+fetch, so :func:`simulate` returns the ``(AsyncOutput, Telemetry)`` pair.
 """
 from __future__ import annotations
 
@@ -68,6 +73,8 @@ from repro_torch.core.engine import SimData
 from repro_torch.core.fedhc import FLRunConfig, _local_train
 from repro_torch.data.synthetic import client_batches
 from repro_torch.models.lenet import lenet_accuracy
+from repro_torch.obs import telemetry as telem_lib
+from repro_torch.obs.trace import phase_scope
 from repro_torch.orbits import contact as contact_lib
 from repro_torch.orbits import cost as cost_lib
 from repro_torch.orbits.constellation import (Constellation,
@@ -118,7 +125,7 @@ class AsyncOutput(NamedTuple):
 def _statics(cfg: FLRunConfig):
     """Resolve and validate the static async knobs of a config:
     ``(strategy, cohort, buffer, k)``."""
-    strategy = engine._strategy_for(cfg)          # raises for telemetry
+    strategy = strat_lib.get(cfg.method)
     if not strategy.is_async:
         raise ValueError(f"{cfg.method!r} is a synchronous strategy; use "
                          f"repro_torch.core.engine (which routes "
@@ -414,8 +421,41 @@ def _event(ctx: _Ctx, state: AsyncState, step: int):
         v_client=v_client, commits=commits, assignment=state.assignment,
         ps_index=state.ps_index, t_sim=t_restart, e_sim=e_new,
         pending_global=pending, since_global=since)
-    return new_state, (acc, losses.mean(), t_restart, e_new,
-                       flush_i.sum(), mean_tau, evaluated, int(do_global))
+    row = (acc, losses.mean(), t_restart, e_new, flush_i.sum(), mean_tau,
+           evaluated, int(do_global))
+    if not cfg.telemetry:
+        return new_state, row
+
+    # ---- 9. telemetry (outputs only, nothing re-enters the state) -------
+    with phase_scope("async_event/telemetry"):
+        any_ok = n_ok > 0
+        stale_min = torch.where(
+            any_ok, torch.where(ok, tau, torch.inf).amin(), 0.0)
+        stale_max = torch.where(
+            any_ok, torch.where(ok, tau, -torch.inf).amax(), 0.0)
+        # compute energy of the cohort's finished rounds is
+        # time-independent, so subtracting it from the event's energy
+        # splits compute from comm exactly
+        e_cmp = torch.where(in_cohort, cost_lib.compute_energy_j(
+            data.data_sizes, data.freqs, ctx.cp), 0.0).sum()
+        if strategy.visibility_gated:
+            # hop counts at the event time (uploads are gated at each
+            # client's own clock; this is the event-anchored view)
+            hops_mean, hops_max = engine._hop_stats(
+                cfg, ctx.constellation.positions(state.t_sim),
+                state.ps_index, state.assignment, ok)
+        else:
+            hops_mean = hops_max = 0.0
+        telem = telem_lib.Telemetry(
+            cohort_size=ctx.cohort, accepted=n_ok, cluster_fill=buf_count,
+            stale_min=stale_min, stale_mean=mean_tau, stale_max=stale_max,
+            flushes=flush_i.sum(), did_global=int(do_global),
+            reclustered=0, bits_stage1=ctx.model_bits * (n_ok + ctx.cohort),
+            bits_stage2=2.0 * ctx.model_bits * k if do_global else 0.0,
+            t_round_s=t_restart - state.t_sim, e_compute_j=e_cmp,
+            e_comm_j=(e_new - state.e_sim) - e_cmp,
+            hops_mean=hops_mean, hops_max=hops_max)
+    return new_state, row + (telem,)
 
 
 def simulate(cfg: FLRunConfig, seed: Optional[int] = None, *, device=None,
@@ -426,7 +466,8 @@ def simulate(cfg: FLRunConfig, seed: Optional[int] = None, *, device=None,
     ``cfg.rounds`` counts events (cohort pops).  Without ``state0``/
     ``data`` the run sets itself up; without ``draws`` it draws natively
     (``engine.TorchDraws``).  The history is fetched once, after the last
-    event."""
+    event; with ``cfg.telemetry`` that fetch also carries the telemetry
+    and the outputs are the pair ``(AsyncOutput, Telemetry)``."""
     strategy, cohort, buffer, k = _statics(cfg)
     dev = device_lib.resolve(device)
     seed = cfg.seed if seed is None else seed
@@ -449,13 +490,17 @@ def simulate(cfg: FLRunConfig, seed: Optional[int] = None, *, device=None,
         state, row = _event(ctx, state, step)
         rows.append(row)
     series = torch.stack([torch.stack([r[i].float() for r in rows])
-                          for i in range(6)]).cpu().numpy()  # one fetch
+                          for i in range(6)])
+    if cfg.telemetry:
+        series, telem = telem_lib.fetch(series, [r[8] for r in rows])
+    else:
+        series = series.cpu().numpy()                        # one fetch
     outs = AsyncOutput(
         acc=series[0], loss=series[1], time_s=series[2], energy_j=series[3],
         evaluated=np.asarray([r[6] for r in rows], bool),
         did_global=np.asarray([r[7] for r in rows], np.int32),
         flushes=series[4].astype(np.int32), mean_tau=series[5])
-    return state, outs
+    return state, ((outs, telem) if cfg.telemetry else outs)
 
 
 def history_from_outputs(outs: AsyncOutput) -> Dict[str, Any]:

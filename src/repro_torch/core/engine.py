@@ -46,10 +46,19 @@ route them there, as the reference's do.  :func:`run_many_seeds` is the
 seed sweep: one contact plan built once and shared, then a loop over
 seeds, each seed the run ``simulate`` gives on that seed (the reference
 vmaps its scan over a stacked seed axis; a stacked axis here is speed
-work, ROADMAP queue 2).
+work, ROADMAP queue 2).  Contact-plan builds and reuses are counted in
+``obs.trace.COUNTERS`` (``engine.plan_cache.miss/hit``).
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-slice): a client mesh and telemetry.
+Telemetry (``cfg.telemetry``, `obs/telemetry.py`): each round also builds
+one :class:`~repro_torch.obs.telemetry.Telemetry` from the round's
+intermediates, under the ``fed_step/*`` profiler scopes; nothing of it
+re-enters the round state, it draws nothing, reads nothing on the host,
+and it rides the history's one fetch: :func:`simulate` then returns the
+reference's ``(RoundOutput, Telemetry)`` pair, which :func:`split_outputs`
+separates.  Telemetry off runs the rounds without it.
+
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP slice):
+a client mesh (`api.run`).
 """
 from __future__ import annotations
 
@@ -73,8 +82,11 @@ from repro_torch.data.synthetic import (client_batches, dirichlet_partition,
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.lenet import (from_numpy, init_lenet, lenet_accuracy,
                                       lenet_loss)
+from repro_torch.obs import telemetry as telem_lib
+from repro_torch.obs.trace import COUNTERS, phase_scope
 from repro_torch.orbits import contact as contact_lib
 from repro_torch.orbits import cost as cost_lib
+from repro_torch.orbits import topology as topo_lib
 from repro_torch.orbits.constellation import (Constellation,
                                               ground_station_position)
 from repro_torch.orbits.links import LinkParams
@@ -221,15 +233,6 @@ class ArrayDraws:
 # ---------------------------------------------------------------------------
 
 
-def _strategy_for(cfg: FLRunConfig) -> strat_lib.Strategy:
-    """The config's strategy, if the port's engines run it."""
-    strategy = strat_lib.get(cfg.method)
-    if cfg.telemetry:
-        raise NotImplementedError(
-            "telemetry is not ported yet (ROADMAP queue 1, slice 13: obs/)")
-    return strategy
-
-
 def _constellation_for(num_clients: int) -> Constellation:
     planes = int(math.sqrt(num_clients))
     while num_clients % planes:
@@ -250,6 +253,7 @@ def _plan_for(cfg: FLRunConfig, strategy: strat_lib.Strategy,
         raise ValueError("contact_slices/contact_factorized require a "
                          "static cluster layout (recluster='never'): the "
                          "plan only covers the build-time PS set")
+    COUNTERS.inc("engine.plan_cache.miss")
     geometry = dict(dt_s=cfg.contact_dt_s,
                     min_elevation_deg=cfg.gs_min_elevation_deg,
                     max_range_km=cfg.isl_max_range_km,
@@ -303,7 +307,7 @@ def setup(cfg: FLRunConfig, seed: Optional[int] = None, *,
     plan of a visibility-gated strategy (``contact_plan`` passes a
     prebuilt one instead)."""
     dev = device_lib.resolve(device)
-    strategy = _strategy_for(cfg)
+    strategy = strat_lib.get(cfg.method)
     ds = cfg.dataset
     k = _num_clusters(cfg, strategy)
     n_total = cfg.num_clients * cfg.samples_per_client
@@ -331,6 +335,8 @@ def setup(cfg: FLRunConfig, seed: Optional[int] = None, *,
                             float(cfg.samples_per_client), device=dev)
     state0 = _initial_state(cfg, strategy, w0, assignment0, centroids0,
                             ps_index0, dev)
+    if contact_plan is not None and strategy.visibility_gated:
+        COUNTERS.inc("engine.plan_cache.hit")
     plan = (contact_plan if contact_plan is not None else _initial_plan(
         cfg, strategy, state0.assignment, state0.ps_index, dev))
     return state0, SimData(images, labels, test_x, test_y, client_idx,
@@ -346,7 +352,7 @@ def state_from_numpy(cfg: FLRunConfig, arrays: Dict[str, Any], *,
     ``plan`` (`orbits/contact.plan_from_numpy`'s input).  Without a
     ``plan`` a visibility-gated strategy builds its own."""
     dev = device_lib.resolve(device)
-    strategy = _strategy_for(cfg)
+    strategy = strat_lib.get(cfg.method)
 
     def t(name, dtype):
         return torch.as_tensor(np.asarray(arrays[name]), device=dev).to(dtype)
@@ -383,6 +389,7 @@ class _Ctx:
     constellation: Constellation
     model_bits: float
     use_kernels: bool
+    telemetry: bool = False
     lp: LinkParams = LinkParams()
     cp: cost_lib.ComputeParams = cost_lib.ComputeParams()
 
@@ -390,7 +397,8 @@ class _Ctx:
 def _finish(ctx: _Ctx, state: RoundState, rnd: int, params, assignment,
             centroids, ps_index, reclustered: int, loss_val, t_r, e_r,
             did_global: int, global_model,
-            pending_global: bool = False) -> Tuple[RoundState, tuple]:
+            pending_global: bool = False,
+            telem=None) -> Tuple[RoundState, tuple]:
     cfg = ctx.cfg
     t_new = state.t_sim + t_r + cfg.round_minutes * 60.0
     e_new = state.e_sim + e_r
@@ -404,7 +412,7 @@ def _finish(ctx: _Ctx, state: RoundState, rnd: int, params, assignment,
                            e_new, state.reclusters + reclustered,
                            pending_global)
     return new_state, (acc, loss_val, t_new, e_new, reclustered, evaluated,
-                       did_global)
+                       did_global, telem)
 
 
 class _Links(NamedTuple):
@@ -480,9 +488,10 @@ def fed_step(ctx: _Ctx, state: RoundState, rnd: int):
     else:
         participating = torch.ones_like(in_region)
 
-    params, losses = _local_train(state.params, imgs, labs, lr=cfg.lr,
-                                  steps=cfg.local_steps,
-                                  microbatch=cfg.client_microbatch)
+    with phase_scope("fed_step/local_train", ctx.telemetry):
+        params, losses = _local_train(state.params, imgs, labs, lr=cfg.lr,
+                                      steps=cfg.local_steps,
+                                      microbatch=cfg.client_microbatch)
     pending_global = False
     if links is None:
         do_global = cadence_due
@@ -494,10 +503,12 @@ def fed_step(ctx: _Ctx, state: RoundState, rnd: int):
         HOST_READS["window"] += 1
         do_global = bool(links.stage2[0])
         pending_global = not do_global
-    params = agg.hierarchical_round(
-        params, losses, data.data_sizes, state.assignment, k, participating,
-        do_global=do_global, loss_weighted=strategy.loss_weighted,
-        use_kernels=ctx.use_kernels)
+    with phase_scope("fed_step/aggregate", ctx.telemetry):
+        params = agg.hierarchical_round(
+            params, losses, data.data_sizes, state.assignment, k,
+            participating, do_global=do_global,
+            loss_weighted=strategy.loss_weighted,
+            use_kernels=ctx.use_kernels)
     loss_val = losses.mean()
 
     ps_index_l = state.ps_index.long()
@@ -532,12 +543,63 @@ def fed_step(ctx: _Ctx, state: RoundState, rnd: int):
                 ctx, rnd, positions, params, losses, imgs, labs, assignment)
             reclustered = 1
 
+    telem = None
+    if ctx.telemetry:
+        with phase_scope("fed_step/telemetry"):
+            telem = _fed_telemetry(ctx, state, positions, participating,
+                                   assignment, do_global, reclustered, t_r,
+                                   e_r)
+
     def global_model():
         return tree_map(lambda x: x.float().mean(0), params)
 
     return _finish(ctx, state, rnd, params, assignment, centroids, ps_index,
                    reclustered, loss_val, t_r, e_r, int(do_global),
-                   global_model, pending_global)
+                   global_model, pending_global, telem=telem)
+
+
+def _hop_stats(cfg: FLRunConfig, positions, ps_index, assignment, accepted):
+    """``(mean, max)`` member->PS ISL hop count over the ``accepted``
+    members with a route at ``positions`` (0 where none has one)."""
+    hrows = topo_lib.hop_rows(
+        topo_lib.isl_adjacency(positions, cfg.isl_max_range_km), ps_index,
+        cfg.isl_max_hops)                                           # (K,C)
+    members = torch.arange(cfg.num_clients, device=positions.device)
+    hops = hrows[assignment.long(), members]
+    routed = accepted & torch.isfinite(hops)
+    hops = torch.where(routed, hops, 0.0)
+    return hops.sum() / routed.float().sum().clamp_min(1.0), hops.amax()
+
+
+def _fed_telemetry(ctx: _Ctx, state: RoundState, positions, participating,
+                   assignment, do_global: bool, reclustered: int, t_r, e_r
+                   ) -> telem_lib.Telemetry:
+    """One federated round's telemetry (the reference's
+    ``fed_step/telemetry`` block): outputs only.  ``cluster_fill`` counts
+    members under the layout after a re-cluster; the hop counts use the
+    round's start layout, the one the uploads took."""
+    cfg, k, model_bits = ctx.cfg, ctx.k, ctx.model_bits
+    part_f = participating.float()
+    n_part = part_f.sum()
+    e_cmp = (part_f * cost_lib.compute_energy_j(
+        ctx.data.data_sizes, ctx.data.freqs, ctx.cp)).sum()
+    per_global = (model_bits * k * (k - 1) if ctx.strategy.isl_global
+                  else 2.0 * model_bits * k)
+    if ctx.strategy.visibility_gated:
+        hops_mean, hops_max = _hop_stats(cfg, positions, state.ps_index,
+                                         state.assignment, participating)
+    else:
+        hops_mean = hops_max = 0.0
+    return telem_lib.Telemetry(
+        cohort_size=cfg.num_clients, accepted=n_part,
+        cluster_fill=agg.membership_one_hot(assignment, k).sum(0),
+        stale_min=0.0, stale_mean=0.0, stale_max=0.0, flushes=k,
+        did_global=int(do_global), reclustered=reclustered,
+        bits_stage1=2.0 * model_bits * n_part,
+        bits_stage2=per_global if do_global else 0.0,
+        t_round_s=t_r + cfg.round_minutes * 60.0,
+        e_compute_j=e_cmp, e_comm_j=e_r - e_cmp,
+        hops_mean=hops_mean, hops_max=hops_max)
 
 
 def _recluster(ctx: _Ctx, rnd: int, positions, params, losses, imgs, labs,
@@ -590,13 +652,32 @@ def central_step(ctx: _Ctx, state: RoundState, rnd: int):
     participating = torch.ones((cfg.num_clients,), dtype=torch.bool,
                                device=positions.device)
     server_pos = positions[state.ps_index[:1].long()][0]
+    sample_bits = cfg.dataset.img ** 2 * cfg.dataset.channels * 32.0
+    cp = ctx.cp
     t_r, e_r = cost_lib.cfedavg_round_costs(
         positions, server_pos, participating, data.data_sizes, data.freqs,
-        sample_bits=cfg.dataset.img ** 2 * cfg.dataset.channels * 32.0,
-        server_freq_hz=ctx.cp.max_freq_hz, lp=ctx.lp, cp=ctx.cp)
+        sample_bits=sample_bits, server_freq_hz=cp.max_freq_hz, lp=ctx.lp,
+        cp=cp)
+    telem = None
+    if ctx.telemetry:
+        # raw-data uplink + central training: stage-1 traffic is the
+        # sample upload, compute energy is the server's
+        with phase_scope("fed_step/telemetry"):
+            n_samples = data.data_sizes.sum()
+            e_train = (cp.eps0 * cp.max_freq_hz
+                       * (n_samples * cp.cycles_per_sample / cp.max_freq_hz))
+            telem = telem_lib.Telemetry(
+                cohort_size=cfg.num_clients, accepted=cfg.num_clients,
+                cluster_fill=[float(cfg.num_clients)] * ctx.k,
+                stale_min=0.0, stale_mean=0.0, stale_max=0.0, flushes=0,
+                did_global=0, reclustered=0,
+                bits_stage1=n_samples * sample_bits, bits_stage2=0.0,
+                t_round_s=t_r + cfg.round_minutes * 60.0,
+                e_compute_j=e_train, e_comm_j=e_r - e_train,
+                hops_mean=0.0, hops_max=0.0)
     return _finish(ctx, state, rnd, model, state.assignment,
                    state.centroids, state.ps_index, 0, loss_val, t_r, e_r,
-                   0, lambda: model)
+                   0, lambda: model, telem=telem)
 
 
 # ---------------------------------------------------------------------------
@@ -612,10 +693,12 @@ def simulate(cfg: FLRunConfig, seed: Optional[int] = None, *, device=None,
 
     Without ``state0``/``data`` the run sets itself up (:func:`setup`);
     without ``draws`` it draws natively (:class:`TorchDraws`).  The
-    history is fetched from the device once, after the last round.  Async
-    strategies route to `core/async_engine.simulate` (its
-    ``(AsyncState, AsyncOutput)`` types instead)."""
-    strategy = _strategy_for(cfg)
+    history is fetched from the device once, after the last round; with
+    ``cfg.telemetry`` that fetch also carries the telemetry and the
+    outputs are the pair ``(RoundOutput, Telemetry)``.  Async strategies
+    route to `core/async_engine.simulate` (its ``(AsyncState,
+    AsyncOutput)`` types instead)."""
+    strategy = strat_lib.get(cfg.method)
     if strategy.is_async:
         from repro_torch.core import async_engine   # it imports this module
         return async_engine.simulate(cfg, seed, device=device, state0=state0,
@@ -635,7 +718,7 @@ def simulate(cfg: FLRunConfig, seed: Optional[int] = None, *, device=None,
                k=_num_clusters(cfg, strategy),
                constellation=_constellation_for(cfg.num_clients),
                model_bits=n_params * 32.0,
-               use_kernels=cfg.use_pallas_kernels)
+               use_kernels=cfg.use_pallas_kernels, telemetry=cfg.telemetry)
     step = central_step if strategy.centralized else fed_step
 
     state, rows = state0, []
@@ -643,20 +726,24 @@ def simulate(cfg: FLRunConfig, seed: Optional[int] = None, *, device=None,
         state, row = step(ctx, state, rnd)
         rows.append(row)
     series = torch.stack([torch.stack([r[i].float() for r in rows])
-                          for i in range(4)]).cpu().numpy()  # one fetch
+                          for i in range(4)])
+    if cfg.telemetry:
+        series, telem = telem_lib.fetch(series, [r[7] for r in rows])
+    else:
+        series = series.cpu().numpy()                        # one fetch
     outs = RoundOutput(
         acc=series[0], loss=series[1], time_s=series[2], energy_j=series[3],
         reclustered=np.asarray([r[4] for r in rows], np.int32),
         evaluated=np.asarray([r[5] for r in rows], bool),
         did_global=np.asarray([r[6] for r in rows], np.int32))
-    return state, outs
+    return state, ((outs, telem) if cfg.telemetry else outs)
 
 
 def split_outputs(outs):
-    """``(outputs, telemetry_or_None)``: the reference's discriminator
-    between a telemetry-carrying ``(outputs, Telemetry)`` pair (a plain
-    tuple) and bare outputs (a NamedTuple).  The port records no
-    telemetry yet (ROADMAP slice 13), so it always gets bare outputs."""
+    """``(outputs, telemetry_or_None)``: a telemetry-on run returns an
+    ``(outputs, Telemetry)`` pair, a plain tuple, while bare outputs are
+    NamedTuples (``_fields``).  Shared with the async engine (whose pair is
+    ``(AsyncOutput, Telemetry)``)."""
     if isinstance(outs, tuple) and not hasattr(outs, "_fields"):
         return outs
     return outs, None
@@ -718,7 +805,7 @@ def run_many_seeds(cfg: FLRunConfig, seeds: Sequence[int], *,
     vmapped ``lax.cond`` runs both).  Returns the reference's per-round
     arrays of shape ``(num_seeds, rounds)`` (mask by ``evaluated``) and
     per-seed totals."""
-    strategy = _strategy_for(cfg)
+    strategy = strat_lib.get(cfg.method)
     if strategy.is_async:
         raise NotImplementedError(
             "run_many_seeds is sync-only for now; vmap the async engine's "
@@ -735,8 +822,8 @@ def run_many_seeds(cfg: FLRunConfig, seeds: Sequence[int], *,
     rows = []
     for seed in seeds:
         state0, data = setup(cfg, int(seed), contact_plan=plan, device=dev)
-        rows.append(simulate(cfg, int(seed), device=dev, state0=state0,
-                             data=data)[1])
+        rows.append(split_outputs(simulate(cfg, int(seed), device=dev,
+                                           state0=state0, data=data)[1])[0])
         del state0, data
 
     def stack(name):

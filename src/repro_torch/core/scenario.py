@@ -189,8 +189,9 @@ class ExecSpec:
     #                                   mesh the block must decompose
     #                                   device-locally (cross-field check
     #                                   in Scenario.__post_init__)
-    telemetry: bool = False           # per-round telemetry (not ported
-    #                                   yet: the engine raises)
+    telemetry: bool = False           # per-round device telemetry +
+    #                                   host spans (repro_torch.obs),
+    #                                   surfaced as RunResult.telemetry
 
     def __post_init__(self):
         if self.mesh_devices is not None:

@@ -140,29 +140,52 @@ def _async_factorized():
 
 
 def _async_telemetry():
-    tengine.run(FLRunConfig(method="fedbuff", num_clients=8,
-                            telemetry=True), device="cpu")
+    _, (outs, telem) = tengine.simulate(
+        FLRunConfig(method="fedbuff", num_clients=8, num_clusters=2,
+                    rounds=2, eval_every=2, samples_per_client=16,
+                    batch_size=8, local_steps=1, eval_size=64,
+                    async_cohort=4, telemetry=True), device="cpu")
+    assert telem.cohort_size.tolist() == [4, 4]
+    assert outs.flushes.tolist() == telem.flushes.tolist()
 
 
 @pytest.mark.parametrize("call,exc,match", [
     (_sweep_async, ValueError, "sync-only"),
     (_async_factorized, ValueError, "sync-engine-only"),
-    (_async_telemetry, NotImplementedError, "slice 13"),
+    (_async_telemetry, None, None),
 ], ids=["run_sweep-async", "async-factorized", "async-telemetry"])
 def test_other_engines_name_their_roadmap_slice(call, exc, match):
     """What the async engine (slice 11) still refuses, with the
-    reference's errors: a seed sweep of an async method, per-client-clock
-    routing on a factorized plan, and telemetry (slice 13)."""
+    reference's errors: a seed sweep of an async method and per-client-
+    clock routing on a factorized plan.  Telemetry (slice 13) is ported:
+    that case runs (``exc`` None) and returns the reference's
+    ``(AsyncOutput, Telemetry)`` pair."""
+    if exc is None:
+        call()
+        return
     with pytest.raises(exc, match=match):
         call()
 
 
 def test_mesh_and_telemetry_are_not_ported_yet():
+    """The client mesh (slice 12) still raises; telemetry (slice 13), once
+    refused here, now runs: the sync engine returns the reference's
+    ``(RoundOutput, Telemetry)`` pair, one row a round."""
     sc = tapi.Scenario(exec=tapi.ExecSpec(mesh_devices=0))
     with pytest.raises(NotImplementedError, match="slice 12"):
         tapi.run(sc, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 13"):
-        tengine.setup(FLRunConfig(telemetry=True), device="cpu")
+    cfg = FLRunConfig(method="h-base", num_clients=8, num_clusters=2,
+                      rounds=3, eval_every=3, samples_per_client=16,
+                      batch_size=8, local_steps=1, eval_size=64,
+                      telemetry=True)
+    _, pair = tengine.simulate(cfg, device="cpu")
+    outs, telem = tengine.split_outputs(pair)
+    assert type(outs) is tengine.RoundOutput
+    assert telem.flushes.tolist() == [2, 2, 2]
+    assert telem.cluster_fill.shape == (3, 2)
+    assert tengine.history_from_outputs(pair) == tengine.history_from_outputs(
+        tengine.simulate(dataclasses.replace(cfg, telemetry=False),
+                         device="cpu")[1])
 
 
 def test_cuda_is_the_default_and_never_falls_back(monkeypatch):
