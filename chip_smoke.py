@@ -24,7 +24,11 @@ reads, launches and synchronizing calls equal, the overhead, device time
 by ``fed_step/*`` scope, a Chrome trace under ``chiprun_out/``) and
 fedspace and fedhc-async with telemetry on, runs a 16-cell grid at N =
 800 through the fleet sweep service (every cell against its own
-``api.run``; the grid resumed as a no-op), serves the full
+``api.run``; the grid resumed as a no-op), runs the client mesh at N =
+800 (fedhc on a one-rank NCCL mesh equal with ``==`` to the unsharded
+run, then fedhc, fedspace and fedhc-async on two spawned ranks that
+share the card over gloo, each against its single-device run at the
+sharded bar), serves the full
 gemma2-2b (26 layers, bf16, random weights) through
 ``repro_torch.launch.serve.serve_batch`` with a prompt longer than its
 4096-token window, checks prefill + decode against a longer prefill,
@@ -1568,6 +1572,240 @@ def fleet_phase(tmp: Path) -> dict:
             "report_head": buf.getvalue().splitlines()[:14]}
 
 
+MESH_METHODS = ("fedhc", "fedspace", "fedhc-async")
+MESH_LOSS_RTOL, MESH_LOSS_ATOL = 1e-4, 1e-5   # the reference's sharded bar
+MESH_RANKS = 2                # ranks sharing the one card (over gloo)
+MESH_TIMEOUT_S = 600
+
+
+def mesh_scenarios() -> dict:
+    """The mesh phase's runs at N = 800, K = 4: fedhc as in
+    ``paper_scale`` (10 rounds of 4 minutes, Z = 0.2), fedspace as in
+    ``contact`` (10 rounds), fedhc-async as in ``async`` (40 events,
+    cohorts of 200, buffers of 50); kernels on."""
+    from repro_torch.api import (AsyncSpec, ExecSpec, FleetSpec, Scenario,
+                                 TrainSpec)
+    on = ExecSpec(use_pallas_kernels=True)
+    return {
+        "fedhc": Scenario(
+            method="fedhc",
+            fleet=FleetSpec(num_clients=CONTACT_N, num_clusters=4,
+                            round_minutes=4.0, dropout_threshold=0.2),
+            train=TrainSpec(rounds=10, eval_every=5), exec=on),
+        "fedspace": Scenario(
+            method="fedspace",
+            fleet=FleetSpec(num_clients=CONTACT_N, num_clusters=4,
+                            round_minutes=4.0),
+            train=TrainSpec(rounds=10, eval_every=5), exec=on),
+        "fedhc-async": Scenario(
+            method="fedhc-async",
+            fleet=FleetSpec(num_clients=CONTACT_N, num_clusters=4,
+                            round_minutes=4.0),
+            train=TrainSpec(rounds=ASYNC_EVENTS, eval_every=10,
+                            rounds_per_global=5),
+            async_=AsyncSpec(cohort=CONTACT_N // 4, buffer=CONTACT_N // 16),
+            exec=on)}
+
+
+def mesh_record(res, launches, reads, steps: int) -> dict:
+    """What a mesh run reports: the history, s a round or event, peak MB,
+    launches and host reads."""
+    return {"history": res.to_history(), "run_s": res.run_s,
+            "s_per_step": res.run_s / steps, "setup_s": res.setup_s,
+            "peak_device_mem_mb": res.peak_device_mem_mb,
+            "mesh_shape": res.mesh_shape, "launches": launches,
+            "host_reads": reads}
+
+
+def mesh_rank(rank: int, world: int, store: str, out: str) -> None:
+    """One rank of the two that share the card: a gloo process group (NCCL
+    refuses two ranks on one device) over CUDA tensors, the client mesh,
+    and each of :func:`mesh_scenarios` through ``api.run``; the records
+    go to ``out`` as JSON.  Runs in a spawned process."""
+    import datetime
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch import api
+    from repro_torch.core import engine
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    mesh = mesh_lib.make_client_mesh(0, device_type="cuda")
+    records = {}
+    for name, sc in mesh_scenarios().items():
+        ops.reset_launches()
+        engine.reset_host_reads()
+        res = api.run(sc, device="cuda", mesh=mesh)
+        records[name] = mesh_record(res, dict(ops.LAUNCHES),
+                                    dict(engine.HOST_READS),
+                                    sc.train.rounds)
+    dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(records, f)
+
+
+def hold_sharded(a: dict, b: dict, what: str) -> None:
+    """The reference's sharded bar between two history dicts:
+    re-clusters, stage-2 rounds, flushes and eval rounds exact, time and
+    energy rtol 1e-5, loss rtol 1e-4 atol 1e-5, accuracy atol 5e-3."""
+    import numpy as np
+    for key in ("round", "reclusters", "global_rounds", "flushes"):
+        assert a.get(key) == b.get(key), (what, key, a.get(key), b.get(key))
+    for key in ("time_s", "energy_j"):
+        x, y = np.asarray(a[key], float), np.asarray(b[key], float)
+        assert np.all(np.abs(x - y) <= TRAJ_RTOL * np.abs(y)), (what, key,
+                                                                 x, y)
+    x, y = np.asarray(a["loss"], float), np.asarray(b["loss"], float)
+    assert np.all(np.abs(x - y) <= MESH_LOSS_ATOL + MESH_LOSS_RTOL
+                  * np.abs(y)), (what, "loss", x, y)
+    x, y = np.asarray(a["acc"], float), np.asarray(b["acc"], float)
+    assert np.all(np.abs(x - y) <= ACC_ATOL), (what, "acc", x, y)
+
+
+def mesh_phase(tmp: Path) -> dict:
+    """The client mesh at N = 800 (`launch/mesh.py`,
+    `core/aggregation_spmd.py`).  W = 1 under NCCL in this process: fedhc
+    equal with ``==`` to the unsharded run, host reads and launches
+    equal.  Then two spawned ranks on the one card over gloo: fedhc,
+    fedspace and fedhc-async, each held to its single-device run at the
+    sharded bar, the kernels launched on that path (each rank one stage-1
+    launch a round or event on its C/2 rows, one drift check a round);
+    per rank s a round or event, peak MB and the bytes all-reduced by a
+    stage-1.  A failing rank fails the phase."""
+    import multiprocessing
+    import torch
+    import torch.distributed as dist
+    from repro_torch import api
+    from repro_torch.core import engine
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+
+    tmp = tmp.resolve()          # a file:// store needs an absolute path
+    scs = mesh_scenarios()
+    single = {}
+    for name, sc in scs.items():
+        ops.reset_launches()
+        engine.reset_host_reads()
+        res = api.run(sc, device=DEV)
+        single[name] = mesh_record(res, dict(ops.LAUNCHES),
+                                   dict(engine.HOST_READS), sc.train.rounds)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- W = 1 under NCCL: the unsharded run, bit for bit ---------------
+    store = tmp / "mesh_nccl.store"
+    store.unlink(missing_ok=True)
+    mesh_lib.init_process_group("cuda", init_method=f"file://{store}",
+                                rank=0, world_size=1)
+    turns = {"single": [], "w1": []}
+    try:
+        assert dist.get_backend() == "nccl", dist.get_backend()
+        mesh = mesh_lib.make_client_mesh(0, device_type="cuda")
+        # NCCL builds its communicator at the first collective: once,
+        # outside the timed runs
+        dist.all_reduce(torch.zeros(1, device=DEV))
+        cache = {}
+        for which in ("single", "w1", "w1", "single"):
+            ops.reset_launches()
+            engine.reset_host_reads()
+            res = api.run(scs["fedhc"], device=DEV,
+                          mesh=mesh if which == "w1" else None,
+                          setup_cache=cache)
+            turns[which].append(mesh_record(
+                res, dict(ops.LAUNCHES), dict(engine.HOST_READS), 10))
+        del cache
+    finally:
+        dist.destroy_process_group()
+    want = single["fedhc"]
+    for rec in turns["w1"] + turns["single"]:
+        assert rec["history"] == want["history"], (rec["history"],
+                                                    want["history"])
+        assert rec["launches"] == want["launches"], rec["launches"]
+        assert rec["host_reads"] == want["host_reads"], rec["host_reads"]
+    assert all(r["mesh_shape"] == {"clients": 1} for r in turns["w1"])
+    w1 = turns["w1"][0]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- two ranks on the one card over gloo ---------------------------
+    store = tmp / "mesh_gloo.store"
+    store.unlink(missing_ok=True)
+    outs = [tmp / f"mesh_rank{r}.json" for r in range(MESH_RANKS)]
+    for path in outs:
+        path.unlink(missing_ok=True)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=mesh_rank,
+                         args=(r, MESH_RANKS, str(store), str(outs[r])))
+             for r in range(MESH_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(MESH_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(30)
+    wall_s = time.perf_counter() - t0
+    codes = [p.exitcode for p in procs]
+    assert codes == [0] * MESH_RANKS, f"mesh ranks exited {codes}"
+    ranks = [json.loads(path.read_text()) for path in outs]
+
+    k, p_total = 4, sum(lenet_leaf_sizes())
+    for name, sc in scs.items():
+        steps = sc.train.rounds
+        for r, rec in enumerate(ranks):
+            got = rec[name]
+            assert got["mesh_shape"] == {"clients": MESH_RANKS}, got
+            assert got["history"] == ranks[0][name]["history"], (name, r)
+            assert got["host_reads"] == single[name]["host_reads"], (
+                name, r, got["host_reads"], single[name]["host_reads"])
+            hold_sharded(got["history"], single[name]["history"],
+                         f"{name} rank {r} vs single")
+            launches = got["launches"]
+            if name == "fedhc-async":
+                assert launches["weighted_agg_multi"] == steps, launches
+                assert launches["kmeans_assign"] == 0, launches
+            else:
+                recl = got["history"]["reclusters"]
+                assert launches["weighted_agg_multi"] == steps + recl, \
+                    launches
+                assert launches["kmeans_assign"] == steps, launches
+            # a stage-1 all-reduces the (K, P) f32 partials once
+            got["stage1_allreduce_bytes"] = k * p_total * 4
+    return {"phase": "mesh", "num_clients": CONTACT_N, "num_clusters": 4,
+            "w1_nccl": {"equal": True,
+                        "run_s": [r["run_s"] for r in turns["w1"]],
+                        "single_run_s": [r["run_s"]
+                                         for r in turns["single"]],
+                        "order": "single, w1, w1, single (one setup each)",
+                        "peak_device_mem_mb": w1["peak_device_mem_mb"],
+                        "launches": w1["launches"],
+                        "host_reads": w1["host_reads"]},
+            # a sync round gathers (C, 4) f32 (losses, participation,
+            # member time and energy); an async event (C, 6) plus the
+            # (C,) clocks of a partial cohort
+            "gather_bytes": {"sync_round": CONTACT_N * 4 * 4,
+                             "async_event": CONTACT_N * 7 * 4},
+            "single": {name: {key: rec[key] for key in (
+                "s_per_step", "setup_s", "peak_device_mem_mb", "launches",
+                "host_reads")} for name, rec in single.items()},
+            "ranks": [{name: {key: rec[key] for key in (
+                "s_per_step", "setup_s", "peak_device_mem_mb", "launches",
+                "host_reads", "stage1_allreduce_bytes")}
+                for name, rec in r.items()} for r in ranks],
+            "histories": {name: {"single": single[name]["history"],
+                                 "mesh": ranks[0][name]["history"]}
+                          for name in scs},
+            "ranks_wall_s": wall_s, "backend": "gloo over CUDA tensors"}
+
+
 def check_result(res, rounds: int, eval_every: int) -> None:
     import numpy as np
     want = sorted({r for r in range(eval_every, rounds + 1, eval_every)}
@@ -1745,6 +1983,13 @@ def main() -> int:
     # ---- 5d. flight telemetry and the fleet sweep service at N = 800
     emit(obs_phase(scenario))
     emit(fleet_phase(tmp))
+
+    # ---- 5e. the client mesh at N = 800: W = 1 under NCCL, and two ranks
+    # sharing the card over gloo; the counts are set to 0 before each run
+    # and read after it, in the ranks too
+    emit(mesh_phase(tmp))
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # ---- 6. serving: full gemma2-2b, prefill + greedy decode -------------
     del on, off, runs

@@ -1,10 +1,15 @@
 """One-call experiment API: ``run(scenario) -> RunResult`` and
 ``run_sweep(scenario, seeds) -> SweepResult``.
 
-Counterpart of ``repro/api.py`` on one device (``cuda`` unless
-``device="cpu"`` is passed).  Routing is the reference's: sync strategies
-(always-up and visibility-gated) run on `core/engine.py`, async ones
-(fedbuff, fedhc-async, fedspace-async) on `core/async_engine.py`.
+Counterpart of ``repro/api.py`` (``cuda`` unless ``device="cpu"`` is
+passed).  ``scenario.exec.mesh_devices`` (or an explicit ``mesh=``) runs
+on a client mesh (`launch/mesh.py`): every rank of the process group the
+caller initialized calls :func:`run` alike, holds its own rows of the
+client stack and returns the same result, ``mesh_shape`` ``{"clients":
+W}``; without a process group it raises.  Routing is the reference's:
+sync strategies (always-up and visibility-gated) run on
+`core/engine.py`, async ones (fedbuff, fedhc-async, fedspace-async) on
+`core/async_engine.py`.
 :class:`RunResult` and :class:`SweepResult` have the reference's fields,
 ``time_to_accuracy`` (paper Table I's metric) and JSON ``save``/``load``
 in the reference's format, key for key, so a file written by either
@@ -43,6 +48,7 @@ from repro_torch.core.scenario import (AsyncSpec, CommsSpec, DataSpec,
                                        ExecSpec, FleetSpec, Scenario,
                                        TrainSpec)
 from repro_torch.kernels import build
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.obs.telemetry import RunTelemetry, rounds_from_scan
 from repro_torch.obs.trace import COUNTERS, Counters, Tracer
 
@@ -252,31 +258,50 @@ def _peak_host_mem_mb() -> Optional[float]:
     return round(float(peak) * scale / 1e6, 3)
 
 
-def _setup_cache_key(cfg, dev):
+def _setup_cache_key(cfg, dev, mesh, caxes):
     """Setup does not read the execution-only knobs (microbatch, kernel
-    routing, telemetry): runs that differ only in them share one."""
+    routing, telemetry): runs that differ only in them share one.  A
+    setup on a mesh holds that mesh's rows, so the mesh is in the key."""
     return (dataclasses.replace(cfg, client_microbatch=0,
                                 use_pallas_kernels=False, telemetry=False),
-            dev)
+            dev, mesh, caxes)
+
+
+def _resolve_mesh(scenario: Scenario, mesh, dev):
+    """An explicit ``mesh=`` wins; otherwise the ExecSpec's (``None`` =>
+    one device, ``0`` => every rank of the process group)."""
+    if mesh is not None:
+        return mesh
+    md = scenario.exec.mesh_devices
+    if md is None:
+        return None
+    return mesh_lib.make_client_mesh(md, device_type=dev.type)
 
 
 def run(scenario: Scenario, *, device=None, verbose: bool = False,
+        mesh=None, client_axes=None,
         setup_cache: Optional[Dict[Any, Any]] = None) -> RunResult:
     """Run one scenario end to end on ``device`` (default ``cuda``).
+
+    ``mesh=``/``client_axes=`` override the ExecSpec's placement for a
+    caller that already holds a client mesh (module docstring).
 
     ``setup_cache``: a dict owned by the caller; runs that differ only in
     execution knobs (microbatch, kernel routing, telemetry) reuse one
     setup (data, model, clustering, contact plan), and a hit reports
     ``setup_s ~ 0``.  Safe because a run never writes into its setup's
     tensors."""
-    if scenario.exec.mesh_devices is not None:
-        raise NotImplementedError(
-            "a client mesh is not ported yet (ROADMAP queue 1, slice 12: "
-            "core/aggregation_spmd.py, launch/mesh.py)")
     dev = device_lib.resolve(device)
     cfg = scenario.to_flat()
     strategy = strat_lib.get(cfg.method)
     eng = async_engine if strategy.is_async else engine
+    mesh = _resolve_mesh(scenario, mesh, dev)
+    caxes = client_axes if client_axes is not None \
+        else scenario.exec.client_axes
+    if mesh is not None and caxes is None:
+        caxes = mesh_lib.mesh_axes(mesh)          # every axis carries clients
+    if mesh is not None and strategy.shardable:
+        mesh_lib.validate_client_sharding(mesh, caxes, cfg.num_clients)
 
     # host-plane observability: a span tracer when telemetry is on (the
     # spans ride RunResult.telemetry), setup-cache counters always
@@ -299,7 +324,8 @@ def run(scenario: Scenario, *, device=None, verbose: bool = False,
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    key = _setup_cache_key(cfg, dev) if setup_cache is not None else None
+    key = (_setup_cache_key(cfg, dev, mesh, caxes)
+           if setup_cache is not None else None)
     if key is not None and key in setup_cache:
         COUNTERS.inc("api.setup_cache.hit")
         state0, data = setup_cache[key]
@@ -307,7 +333,8 @@ def run(scenario: Scenario, *, device=None, verbose: bool = False,
         if key is not None:
             COUNTERS.inc("api.setup_cache.miss")
         with span("setup"):
-            state0, data = eng.setup(cfg, device=dev)
+            state0, data = eng.setup(cfg, device=dev, mesh=mesh,
+                                     client_axes=caxes)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
         if key is not None:
@@ -316,7 +343,8 @@ def run(scenario: Scenario, *, device=None, verbose: bool = False,
 
     t0 = time.perf_counter()
     with span("run"):              # the rounds, ending in the one fetch
-        _, outs = eng.simulate(cfg, device=dev, state0=state0, data=data)
+        _, outs = eng.simulate(cfg, device=dev, state0=state0, data=data,
+                               mesh=mesh, client_axes=caxes)
     round_outs, telem = engine.split_outputs(outs)
     with span("fetch"):
         history = eng.history_from_outputs(round_outs)
@@ -335,7 +363,8 @@ def run(scenario: Scenario, *, device=None, verbose: bool = False,
         reclusters=history["reclusters"],
         global_rounds=history["global_rounds"],
         strategy=dataclasses.asdict(strategy),
-        mesh_shape=None,
+        mesh_shape=(mesh_lib.mesh_shape(mesh) if mesh is not None
+                    else None),
         setup_s=round(setup_s, 4), compile_s=round(compile_s, 4),
         run_s=round(run_s, 4),
         flushes=history.get("flushes"),

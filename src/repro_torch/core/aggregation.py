@@ -12,8 +12,8 @@ as ``repro/core/aggregation_spmd.py::hierarchical_round_sharded`` does;
 ``do_global`` is a Python bool (for always-up methods it depends only on
 the round index).  :func:`buffered_flush` is the async engine's flush,
 the math of ``aggregation_spmd.py::buffered_flush_sharded`` on one
-device.  The client-axis sharding of that module waits for the multi-GPU
-slice.
+device.  The client mesh's forms of both, over ``torch.distributed``, are
+in `core/aggregation_spmd.py`.
 """
 from __future__ import annotations
 
@@ -164,6 +164,12 @@ def buffered_flush(contrib_stack, losses, data_sizes, assignment, k: int,
                         one_hot=one_hot)
     new_models = cluster_aggregate(contrib_stack, w, assignment, k,
                                    use_kernels=use_kernels, one_hot=one_hot)
+    return mix_flushed(new_models, cluster_params, flush, server_lr)
+
+
+def mix_flushed(new_models, cluster_params, flush, server_lr: float) -> Any:
+    """The flushed clusters' new models (mixed as ``old + server_lr *
+    (new - old)`` unless ``server_lr`` is 1); the others keep theirs."""
     if server_lr != 1.0:
         new_models = tree_map(lambda new, old: old + server_lr * (new - old),
                               new_models, cluster_params)

@@ -57,8 +57,24 @@ and it rides the history's one fetch: :func:`simulate` then returns the
 reference's ``(RoundOutput, Telemetry)`` pair, which :func:`split_outputs`
 separates.  Telemetry off runs the rounds without it.
 
-Not ported yet (raises ``NotImplementedError`` naming its ROADMAP slice):
-a client mesh (`api.run`).
+Client mesh (``mesh=``/``client_axes=`` on :func:`setup`,
+:func:`simulate`, :func:`run`; `launch/mesh.py`): one process a rank,
+each holding rows ``[r*C/W, (r+1)*C/W)`` of the client stack, of
+``client_idx``, ``data_sizes`` and ``freqs``, and of a full contact
+plan's ``isl_tpb`` (`aggregation_spmd.ClientShard`); no rank builds the
+full (C, ...) stack.  Positions, the drift check, k-means, the data pool,
+``gs_visible``/``gs_dist_km`` and the decisions are replicated.  A round
+makes one gather (an ``all_reduce`` into zeros) of the rows' losses,
+participation and member costs, so every rank computes the stage-1
+weights, the loss and the Eq. 7-10 reductions in the one-device order;
+stage 1 reduces its own rows and ``all_reduce``s the (K, P) partials
+(`aggregation_spmd.hierarchical_round_sharded`).  A gated round gathers
+the K PS rows of ``isl_tpb`` when its stage-2 is due.  Each host read is
+of a value rank 0 broadcasts first, so the ranks take the same branch.
+The history and telemetry are replicated, so each rank fetches its own
+copy once.  At W = 1 the history is the one-device history bit for bit.
+c-fedavg (``shardable`` False) runs replicated on every rank, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -72,6 +88,7 @@ import torch.nn.functional as F
 
 from repro_torch import device as device_lib
 from repro_torch.core import aggregation as agg
+from repro_torch.core import aggregation_spmd as agg_spmd
 from repro_torch.core import clustering as cl
 from repro_torch.core import maml as maml_lib
 from repro_torch.core import strategies as strat_lib
@@ -290,24 +307,65 @@ def _num_clusters(cfg: FLRunConfig, strategy: strat_lib.Strategy) -> int:
 
 
 def _initial_state(cfg, strategy, w0, assignment0, centroids0, ps_index0,
-                   device) -> RoundState:
+                   device, shard=None) -> RoundState:
+    """The round-0 state; on a client mesh the stack is only this rank's
+    rows, broadcast from ``w0`` (the full stack is never built)."""
+    rows = cfg.num_clients if shard is None else shard.rows
     params0 = (w0 if strategy.centralized
-               else agg.broadcast_global(w0, cfg.num_clients))
+               else agg.broadcast_global(w0, rows))
     zero = torch.zeros((), dtype=torch.float32, device=device)
     return RoundState(params0, assignment0.to(torch.int32),
                       centroids0.float(), ps_index0.to(torch.int32),
                       zero, zero.clone(), 0)
 
 
+def _shard_for(cfg: FLRunConfig, strategy: strat_lib.Strategy, mesh,
+               client_axes) -> Optional[agg_spmd.ClientShard]:
+    """This rank's rows on ``mesh``; None without a mesh, and for a
+    strategy whose state is replicated (c-fedavg)."""
+    if mesh is None or not strategy.shardable:
+        return None
+    return agg_spmd.client_shard(mesh, cfg.num_clients, client_axes)
+
+
+def _shard_plan(plan, shard):
+    """A plan's per-client rows for this rank: a full plan's ``isl_tpb``
+    and a sliced plan's ``tpb_to_ps``; ``gs_visible``, ``gs_dist_km``, the
+    sliced PS rows and a factorized plan's generator inputs stay
+    replicated."""
+    if isinstance(plan, contact_lib.ContactPlan):
+        return plan._replace(
+            isl_tpb=plan.isl_tpb[:, shard.lo:shard.hi].contiguous())
+    if isinstance(plan, contact_lib.ClusterContactPlan):
+        return plan._replace(
+            tpb_to_ps=plan.tpb_to_ps[:, shard.lo:shard.hi].contiguous())
+    return plan
+
+
+def _shard_data(data: SimData, shard) -> SimData:
+    """This rank's rows of the per-client ``SimData`` tensors and plan."""
+    if shard is None:
+        return data
+    return data._replace(
+        client_idx=shard.local(data.client_idx),
+        data_sizes=shard.local(data.data_sizes),
+        freqs=shard.local(data.freqs),
+        plan=(_shard_plan(data.plan, shard) if data.plan is not None
+              else None))
+
+
 def setup(cfg: FLRunConfig, seed: Optional[int] = None, *,
-          contact_plan=None, device=None) -> Tuple[RoundState, SimData]:
+          contact_plan=None, device=None, mesh=None,
+          client_axes=None) -> Tuple[RoundState, SimData]:
     """One-time experiment setup on ``device`` (default ``cuda``):
     synthetic data, model init, the strategy's initial clustering and PS
     selection, all drawn from generators on the device, and the contact
     plan of a visibility-gated strategy (``contact_plan`` passes a
-    prebuilt one instead)."""
+    prebuilt one instead).  On a client ``mesh`` every rank draws the
+    same values and keeps its own rows (module docstring)."""
     dev = device_lib.resolve(device)
     strategy = strat_lib.get(cfg.method)
+    shard = _shard_for(cfg, strategy, mesh, client_axes)
     ds = cfg.dataset
     k = _num_clusters(cfg, strategy)
     n_total = cfg.num_clients * cfg.samples_per_client
@@ -334,25 +392,29 @@ def setup(cfg: FLRunConfig, seed: Optional[int] = None, *,
     data_sizes = torch.full((cfg.num_clients,),
                             float(cfg.samples_per_client), device=dev)
     state0 = _initial_state(cfg, strategy, w0, assignment0, centroids0,
-                            ps_index0, dev)
+                            ps_index0, dev, shard)
     if contact_plan is not None and strategy.visibility_gated:
         COUNTERS.inc("engine.plan_cache.hit")
     plan = (contact_plan if contact_plan is not None else _initial_plan(
         cfg, strategy, state0.assignment, state0.ps_index, dev))
-    return state0, SimData(images, labels, test_x, test_y, client_idx,
-                           data_sizes, freqs, plan)
+    return state0, _shard_data(SimData(images, labels, test_x, test_y,
+                                       client_idx, data_sizes, freqs, plan),
+                               shard)
 
 
 def state_from_numpy(cfg: FLRunConfig, arrays: Dict[str, Any], *,
-                     device=None) -> Tuple[RoundState, SimData]:
+                     device=None, mesh=None,
+                     client_axes=None) -> Tuple[RoundState, SimData]:
     """Setup from given arrays instead of draws: ``images``, ``labels``,
     ``test_x``, ``test_y``, ``client_idx``, ``w0`` (the LeNet param tree),
     ``freqs``, ``assignment0``, ``centroids0`` and ``ps_index0``, as numpy
     (e.g. fetched from the JAX package's ``engine.setup``), and optionally
     ``plan`` (`orbits/contact.plan_from_numpy`'s input).  Without a
-    ``plan`` a visibility-gated strategy builds its own."""
+    ``plan`` a visibility-gated strategy builds its own.  On a client
+    ``mesh`` each rank keeps its own rows, as :func:`setup` does."""
     dev = device_lib.resolve(device)
     strategy = strat_lib.get(cfg.method)
+    shard = _shard_for(cfg, strategy, mesh, client_axes)
 
     def t(name, dtype):
         return torch.as_tensor(np.asarray(arrays[name]), device=dev).to(dtype)
@@ -360,7 +422,7 @@ def state_from_numpy(cfg: FLRunConfig, arrays: Dict[str, Any], *,
     state = _initial_state(cfg, strategy, from_numpy(arrays["w0"], dev),
                            t("assignment0", torch.int32),
                            t("centroids0", torch.float32),
-                           t("ps_index0", torch.int32), dev)
+                           t("ps_index0", torch.int32), dev, shard)
     plan = (contact_lib.plan_from_numpy(arrays["plan"], device=dev)
             if arrays.get("plan") is not None else _initial_plan(
                 cfg, strategy, state.assignment, state.ps_index, dev))
@@ -370,7 +432,7 @@ def state_from_numpy(cfg: FLRunConfig, arrays: Dict[str, Any], *,
                    torch.full((cfg.num_clients,),
                               float(cfg.samples_per_client), device=dev),
                    t("freqs", torch.float32), plan)
-    return state, data
+    return state, _shard_data(data, shard)
 
 
 # ---------------------------------------------------------------------------
@@ -392,6 +454,10 @@ class _Ctx:
     telemetry: bool = False
     lp: LinkParams = LinkParams()
     cp: cost_lib.ComputeParams = cost_lib.ComputeParams()
+    shard: Optional[agg_spmd.ClientShard] = None   # this rank's rows on a
+    #                                                client mesh
+    sizes_all: Optional[torch.Tensor] = None       # (C,) data sizes, the
+    #                                                mesh's gathered copy
 
 
 def _finish(ctx: _Ctx, state: RoundState, rnd: int, params, assignment,
@@ -432,21 +498,29 @@ def _gated_links(ctx: _Ctx, state: RoundState, due: bool) -> _Links:
     all-pairs PS consensus for isl-onboard.  A sliced or factorized plan
     was built on the initial layout; a full one gathers with the current
     ``ps_index``."""
-    plan, cfg = ctx.data.plan, ctx.cfg
+    plan, shard = ctx.data.plan, ctx.shard
     if isinstance(plan, (contact_lib.ClusterContactPlan,
                          contact_lib.FactorizedContactPlan)):
         gs_vis, gs_dist, tpb_to_ps, ps_rows = contact_lib.lookup_sliced(
             plan, state.t_sim)
+        if shard is not None and isinstance(
+                plan, contact_lib.FactorizedContactPlan):
+            tpb_to_ps = shard.local(tpb_to_ps)   # recomputed for all C
     else:
         gs_vis, gs_dist, tpb = contact_lib.lookup(plan, state.t_sim)
-        ps_of_member = state.ps_index.long()[state.assignment.long()]
-        members = torch.arange(cfg.num_clients, device=tpb.device)
+        rows = (state.assignment if shard is None
+                else shard.local(state.assignment))
+        ps_of_member = state.ps_index.long()[rows.long()]
+        members = torch.arange(rows.shape[0], device=tpb.device)
         tpb_to_ps = tpb[members, ps_of_member]
-        ps_rows = tpb[state.ps_index.long()]                        # (K,C)
+        # (K,C); on a mesh the PS rows live on their owners' ranks
+        ps_rows = tpb[state.ps_index.long()] if shard is None else None
     # the PS itself always takes part: the route table's diagonal is 0
     participating = torch.isfinite(tpb_to_ps)
     if not due:
         return _Links(participating, tpb_to_ps, None)
+    if ps_rows is None:
+        ps_rows = shard.ps_rows(tpb, state.ps_index)
     if ctx.strategy.isl_global:
         # on-board consensus: needs every PS pair connected
         ps_tpb = ps_rows[:, state.ps_index.long()]                  # (K,K)
@@ -466,13 +540,18 @@ def _gated_links(ctx: _Ctx, state: RoundState, due: bool) -> _Links:
 
 def fed_step(ctx: _Ctx, state: RoundState, rnd: int):
     """One federated round (fedhc / fedhc-nomaml / h-base / fedce /
-    fedspace / isl-onboard)."""
+    fedspace / isl-onboard).  On a client mesh ``state.params`` and the
+    batches are this rank's rows (module docstring)."""
     cfg, data, strategy, k = ctx.cfg, ctx.data, ctx.strategy, ctx.k
+    shard = ctx.shard
     positions = ctx.constellation.positions(state.t_sim)
     cadence_due = (rnd + 1) % cfg.rounds_per_global == 0
 
+    picks = ctx.draws.batch_picks(rnd)
+    if shard is not None:
+        picks = shard.local(picks)
     imgs, labs = client_batches(data.images, data.labels, data.client_idx,
-                                ctx.draws.batch_picks(rnd))
+                                picks)
 
     # geometry drift: a satellite whose nearest centroid changed has
     # "left" its cluster (Alg. 1) -- drives the dropout rate
@@ -486,12 +565,14 @@ def fed_step(ctx: _Ctx, state: RoundState, rnd: int):
         links = _gated_links(ctx, state, cadence_due or state.pending_global)
         participating = links.participating
     else:
-        participating = torch.ones_like(in_region)
+        participating = torch.ones_like(
+            in_region if shard is None else shard.local(in_region))
 
     with phase_scope("fed_step/local_train", ctx.telemetry):
-        params, losses = _local_train(state.params, imgs, labs, lr=cfg.lr,
-                                      steps=cfg.local_steps,
-                                      microbatch=cfg.client_microbatch)
+        params, losses = _local_train(
+            state.params, imgs, labs, lr=cfg.lr, steps=cfg.local_steps,
+            microbatch=cfg.client_microbatch,
+            client_shards=1 if shard is None else shard.world)
     pending_global = False
     if links is None:
         do_global = cadence_due
@@ -501,29 +582,44 @@ def fed_step(ctx: _Ctx, state: RoundState, rnd: int):
         # the round's one host read, after training was queued so the
         # device has work while the host waits
         HOST_READS["window"] += 1
-        do_global = bool(links.stage2[0])
+        do_global = bool(agg_spmd.agreed(ctx.shard, links.stage2[0]))
         pending_global = not do_global
+    e_cmp = None
+    if shard is not None:
+        # every rank now holds the full losses and participation, and
+        # reduces the member costs in the one-device order
+        losses, participating, t_r, e_r, e_cmp = _gather_round(
+            ctx, positions, state, links, participating, losses)
     with phase_scope("fed_step/aggregate", ctx.telemetry):
-        params = agg.hierarchical_round(
-            params, losses, data.data_sizes, state.assignment, k,
-            participating, do_global=do_global,
-            loss_weighted=strategy.loss_weighted,
-            use_kernels=ctx.use_kernels)
+        if shard is None:
+            params = agg.hierarchical_round(
+                params, losses, data.data_sizes, state.assignment, k,
+                participating, do_global=do_global,
+                loss_weighted=strategy.loss_weighted,
+                use_kernels=ctx.use_kernels)
+        else:
+            params = agg_spmd.hierarchical_round_sharded(
+                params, losses, ctx.sizes_all, state.assignment, k,
+                do_global, shard=shard, participating=participating,
+                loss_weighted=strategy.loss_weighted,
+                use_kernels=ctx.use_kernels)
     loss_val = losses.mean()
 
     ps_index_l = state.ps_index.long()
     if links is not None:
-        t_r, e_r = cost_lib.routed_cluster_round_costs(
-            links.tpb_to_ps, participating, data.data_sizes, data.freqs,
-            model_bits=ctx.model_bits, lp=ctx.lp, cp=ctx.cp)
+        if shard is None:
+            t_r, e_r = cost_lib.routed_cluster_round_costs(
+                links.tpb_to_ps, participating, data.data_sizes, data.freqs,
+                model_bits=ctx.model_bits, lp=ctx.lp, cp=ctx.cp)
         if do_global:
             t_r, e_r = t_r + links.stage2[1], e_r + links.stage2[2]
     else:
-        ps_positions = positions[ps_index_l][state.assignment.long()]
-        t_r, e_r = cost_lib.cluster_round_costs(
-            positions, ps_positions, state.assignment, participating,
-            data.data_sizes, data.freqs, model_bits=ctx.model_bits,
-            lp=ctx.lp, cp=ctx.cp)
+        if shard is None:
+            ps_positions = positions[ps_index_l][state.assignment.long()]
+            t_r, e_r = cost_lib.cluster_round_costs(
+                positions, ps_positions, state.assignment, participating,
+                data.data_sizes, data.freqs, model_bits=ctx.model_bits,
+                lp=ctx.lp, cp=ctx.cp)
         if do_global:
             gs = ground_station_position(t_s=state.t_sim)
             t_g, e_g = cost_lib.ground_round_costs(
@@ -538,7 +634,8 @@ def fed_step(ctx: _Ctx, state: RoundState, rnd: int):
         # re-cluster check (Alg. 1 lines 14-18): a host read
         d_r = cl.dropout_rate(in_region, state.assignment, k)
         HOST_READS["recluster"] += 1
-        if bool(d_r.max() > cfg.dropout_threshold):
+        if bool(agg_spmd.agreed(ctx.shard,
+                                d_r.max() > cfg.dropout_threshold)):
             params, assignment, centroids, ps_index = _recluster(
                 ctx, rnd, positions, params, losses, imgs, labs, assignment)
             reclustered = 1
@@ -548,14 +645,47 @@ def fed_step(ctx: _Ctx, state: RoundState, rnd: int):
         with phase_scope("fed_step/telemetry"):
             telem = _fed_telemetry(ctx, state, positions, participating,
                                    assignment, do_global, reclustered, t_r,
-                                   e_r)
+                                   e_r, e_cmp)
 
-    def global_model():
-        return tree_map(lambda x: x.float().mean(0), params)
+    if shard is None:
+        def global_model():
+            return tree_map(lambda x: x.float().mean(0), params)
+    else:
+        def global_model():
+            return shard.mean_rows(params)
 
     return _finish(ctx, state, rnd, params, assignment, centroids, ps_index,
                    reclustered, loss_val, t_r, e_r, int(do_global),
                    global_model, pending_global, telem=telem)
+
+
+def _gather_round(ctx: _Ctx, positions, state: RoundState, links,
+                  participating, losses):
+    """A client-mesh round's one gather: this rank's losses,
+    participation and member costs (and compute energies, for telemetry)
+    into full (C,) vectors on every rank.  Returns ``(losses,
+    participating, t_r, e_r, e_cmp)``, the stage-1 costs reduced as one
+    device reduces them (``e_cmp`` None without telemetry)."""
+    data, shard = ctx.data, ctx.shard
+    if links is not None:
+        t_i, e_i = cost_lib.routed_cluster_member_costs(
+            links.tpb_to_ps, participating, data.data_sizes, data.freqs,
+            model_bits=ctx.model_bits, lp=ctx.lp, cp=ctx.cp)
+    else:
+        rows = shard.local(state.assignment).long()
+        ps_positions = positions[state.ps_index.long()][rows]
+        t_i, e_i = cost_lib.cluster_member_costs(
+            shard.local(positions), ps_positions, data.data_sizes,
+            data.freqs, model_bits=ctx.model_bits, lp=ctx.lp, cp=ctx.cp)
+    cols = [losses, participating, t_i, e_i]
+    if ctx.telemetry:
+        cols.append(cost_lib.compute_energy_j(data.data_sizes, data.freqs,
+                                              ctx.cp))
+    full = shard.gather_vectors(*cols)
+    part = full[1] > 0
+    t_r, e_r = cost_lib.round_of_members(full[2], full[3], part)
+    e_cmp = (part.float() * full[4]).sum() if ctx.telemetry else None
+    return full[0], part, t_r, e_r, e_cmp
 
 
 def _hop_stats(cfg: FLRunConfig, positions, ps_index, assignment, accepted):
@@ -572,17 +702,20 @@ def _hop_stats(cfg: FLRunConfig, positions, ps_index, assignment, accepted):
 
 
 def _fed_telemetry(ctx: _Ctx, state: RoundState, positions, participating,
-                   assignment, do_global: bool, reclustered: int, t_r, e_r
-                   ) -> telem_lib.Telemetry:
+                   assignment, do_global: bool, reclustered: int, t_r, e_r,
+                   e_cmp=None) -> telem_lib.Telemetry:
     """One federated round's telemetry (the reference's
     ``fed_step/telemetry`` block): outputs only.  ``cluster_fill`` counts
     members under the layout after a re-cluster; the hop counts use the
-    round's start layout, the one the uploads took."""
+    round's start layout, the one the uploads took.  On a client mesh
+    ``participating`` is the gathered (C,) vector and ``e_cmp`` the
+    compute energy the gather summed, so every series is replicated."""
     cfg, k, model_bits = ctx.cfg, ctx.k, ctx.model_bits
     part_f = participating.float()
     n_part = part_f.sum()
-    e_cmp = (part_f * cost_lib.compute_energy_j(
-        ctx.data.data_sizes, ctx.data.freqs, ctx.cp)).sum()
+    if e_cmp is None:
+        e_cmp = (part_f * cost_lib.compute_energy_j(
+            ctx.data.data_sizes, ctx.data.freqs, ctx.cp)).sum()
     per_global = (model_bits * k * (k - 1) if ctx.strategy.isl_global
                   else 2.0 * model_bits * k)
     if ctx.strategy.visibility_gated:
@@ -607,23 +740,34 @@ def _recluster(ctx: _Ctx, rnd: int, positions, params, losses, imgs, labs,
     """k-means on the current geometry, stage-1 under the new layout, the
     §III-C MAML hand-off, and the inherited model for every member whose
     cluster changed."""
-    cfg, k, strategy = ctx.cfg, ctx.k, ctx.strategy
+    cfg, k, strategy, shard = ctx.cfg, ctx.k, ctx.strategy, ctx.shard
     res = cl.kmeans(positions, k, ctx.draws.kmeans_init(rnd))
     new_assignment = res.assignment
-    cluster_models = agg.cluster_aggregate(
-        params, agg.loss_weights(losses, new_assignment, k),
-        new_assignment, k, use_kernels=ctx.use_kernels)
+    weights = agg.loss_weights(losses, new_assignment, k)
+    if shard is None:
+        cluster_models = agg.cluster_aggregate(
+            params, weights, new_assignment, k, use_kernels=ctx.use_kernels)
+        rows_new, rows_old, reduce = new_assignment, assignment, None
+    else:
+        # the (C,) losses and layouts are full, the stack and batches
+        # this rank's rows
+        cluster_models = agg_spmd.cluster_aggregate_sharded(
+            params, weights, new_assignment, k, shard,
+            use_kernels=ctx.use_kernels)
+        rows_new, rows_old = (shard.local(new_assignment),
+                              shard.local(assignment))
+        reduce = shard.sum_tree
     if strategy.maml:
         cluster_models = _meta_update_clusters(
-            cluster_models, new_assignment, imgs, labs, k=k,
-            alpha=cfg.maml_alpha, beta=cfg.maml_beta)
-    inherited = agg.broadcast_clusters(cluster_models, new_assignment)
+            cluster_models, rows_new, imgs, labs, k=k,
+            alpha=cfg.maml_alpha, beta=cfg.maml_beta, reduce=reduce)
+    inherited = agg.broadcast_clusters(cluster_models, rows_new)
     if strategy.maml:
         # joining members take MAML inner steps on their own data from the
         # meta-updated cluster model (§III-C)
         inherited = maml_lib.inner_adapt(lenet_loss, inherited,
                                          (imgs, labs), cfg.maml_alpha)
-    changed = new_assignment != assignment
+    changed = rows_new != rows_old
     params = tree_map(
         lambda inh, old: torch.where(
             changed.reshape((-1,) + (1,) * (inh.dim() - 1)), inh, old),
@@ -685,40 +829,61 @@ def central_step(ctx: _Ctx, state: RoundState, rnd: int):
 # ---------------------------------------------------------------------------
 
 
+def _check_rows(tree: Any, rows: int) -> None:
+    """A state handed to a run must hold the rows the run expects: every
+    client-stacked leaf ``rows`` long (a mesh's rank holds C/W)."""
+    got = {x.shape[0] for x in tree_leaves(tree)}
+    if got != {rows}:
+        raise ValueError(f"the client stack has {sorted(got)} rows, this "
+                         f"run expects {rows}: set it up with the same "
+                         f"mesh (setup(..., mesh=mesh))")
+
+
 def simulate(cfg: FLRunConfig, seed: Optional[int] = None, *, device=None,
              state0: Optional[RoundState] = None,
              data: Optional[SimData] = None,
-             draws: Any = None) -> Tuple[RoundState, RoundOutput]:
+             draws: Any = None, mesh=None,
+             client_axes=None) -> Tuple[RoundState, RoundOutput]:
     """Run every round -> (final state, per-round history as numpy).
 
     Without ``state0``/``data`` the run sets itself up (:func:`setup`);
     without ``draws`` it draws natively (:class:`TorchDraws`).  The
     history is fetched from the device once, after the last round; with
     ``cfg.telemetry`` that fetch also carries the telemetry and the
-    outputs are the pair ``(RoundOutput, Telemetry)``.  Async strategies
+    outputs are the pair ``(RoundOutput, Telemetry)``.  On a client
+    ``mesh`` a given ``state0``/``data`` must come from a setup on the
+    same mesh; every rank returns the same history.  Async strategies
     route to `core/async_engine.simulate` (its ``(AsyncState,
     AsyncOutput)`` types instead)."""
     strategy = strat_lib.get(cfg.method)
     if strategy.is_async:
         from repro_torch.core import async_engine   # it imports this module
         return async_engine.simulate(cfg, seed, device=device, state0=state0,
-                                     data=data, draws=draws)
+                                     data=data, draws=draws, mesh=mesh,
+                                     client_axes=client_axes)
     dev = device_lib.resolve(device)
     seed = cfg.seed if seed is None else seed
     if (state0 is None) != (data is None):
         raise ValueError("pass both state0 and data, or neither")
     if state0 is None:
-        state0, data = setup(cfg, seed, device=dev)
+        state0, data = setup(cfg, seed, device=dev, mesh=mesh,
+                             client_axes=client_axes)
     if draws is None:
         draws = TorchDraws(cfg, seed, dev)
+    shard = _shard_for(cfg, strategy, mesh, client_axes)
     n_params = sum(x.numel() for x in tree_leaves(state0.params))
     if not strategy.centralized:
-        n_params //= cfg.num_clients
+        rows = cfg.num_clients if shard is None else shard.rows
+        _check_rows(state0.params, rows)
+        n_params //= rows
     ctx = _Ctx(cfg=cfg, strategy=strategy, data=data, draws=draws,
                k=_num_clusters(cfg, strategy),
                constellation=_constellation_for(cfg.num_clients),
                model_bits=n_params * 32.0,
-               use_kernels=cfg.use_pallas_kernels, telemetry=cfg.telemetry)
+               use_kernels=cfg.use_pallas_kernels, telemetry=cfg.telemetry,
+               shard=shard,
+               sizes_all=(None if shard is None
+                          else shard.gather(data.data_sizes)))
     step = central_step if strategy.centralized else fed_step
 
     state, rows = state0, []
@@ -781,14 +946,17 @@ def _print_history(history: Dict[str, Any], tag: str, what: str) -> None:
               f"E={e:.1f}J")
 
 
-def run(cfg: FLRunConfig, verbose: bool = False, *,
-        device=None) -> Dict[str, Any]:
-    """The reference ``engine.run``'s history dict, from one native run;
-    async strategies route to `core/async_engine.run`."""
+def run(cfg: FLRunConfig, verbose: bool = False, *, device=None,
+        mesh=None, client_axes=None) -> Dict[str, Any]:
+    """The reference ``engine.run``'s history dict, from one native run
+    (on a client ``mesh``, the same dict on every rank); async strategies
+    route to `core/async_engine.run`."""
     if strat_lib.get(cfg.method).is_async:
         from repro_torch.core import async_engine
-        return async_engine.run(cfg, verbose=verbose, device=device)
-    _, outs = simulate(cfg, device=device)
+        return async_engine.run(cfg, verbose=verbose, device=device,
+                                mesh=mesh, client_axes=client_axes)
+    _, outs = simulate(cfg, device=device, mesh=mesh,
+                       client_axes=client_axes)
     history = history_from_outputs(outs)
     if verbose:
         k = 1 if strat_lib.get(cfg.method).centralized else cfg.num_clusters

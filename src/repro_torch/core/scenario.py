@@ -174,8 +174,9 @@ class AsyncSpec:
 class ExecSpec:
     """How the program executes: client mesh + kernel routing.
     ``mesh_devices=None`` runs on one device; a client mesh (``0`` = every
-    local device, ``n > 0`` = the first ``n``) is validated as in the
-    reference but waits for the multi-GPU slice."""
+    rank of the initialized process group, ``n > 0`` = exactly ``n``
+    ranks, the world size) shards the client stack one block of rows a
+    rank (`launch/mesh.py`, `core/aggregation_spmd.py`)."""
     mesh_devices: Optional[int] = None
     client_axes: Optional[Tuple[str, ...]] = None   # None => every axis
     use_pallas_kernels: bool = False  # route the drift check and every

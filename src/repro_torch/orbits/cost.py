@@ -64,6 +64,13 @@ def cluster_round_costs(positions, ps_positions, assignment, participating,
     over participating members and the energy sum."""
     t_i, e_i = cluster_member_costs(positions, ps_positions, data_sizes,
                                     freqs, model_bits, lp, cp)
+    return round_of_members(t_i, e_i, participating)
+
+
+def round_of_members(t_i, e_i, participating) -> Costs:
+    """A round from per-member costs: the makespan over participating
+    members and their energy sum (what a client mesh computes on the
+    gathered (C,) member costs, in this order)."""
     t_round = torch.where(participating, t_i, 0.0).max()
     return t_round, (participating.float() * e_i).sum()
 
@@ -100,8 +107,7 @@ def routed_cluster_round_costs(tpb_to_ps, participating, data_sizes, freqs,
     t_i, e_i = routed_cluster_member_costs(tpb_to_ps, participating,
                                            data_sizes, freqs, model_bits,
                                            lp, cp)
-    t_round = torch.where(participating, t_i, 0.0).max()
-    return t_round, (participating.float() * e_i).sum()
+    return round_of_members(t_i, e_i, participating)
 
 
 def routed_ground_round_costs(tpb_ps_to_gateway, gateway_gs_dist_km,

@@ -355,3 +355,51 @@ def test_weighted_agg_small_c_kernel_matches_plain(cuda_device, C, P, dt):
     tol = 1e-5 if dt == torch.float32 else 3e-2
     torch.testing.assert_close(got.float(), ref.weighted_agg_ref(s, w).float(),
                                rtol=tol, atol=tol)
+
+
+MESH_ONE_RANK = """
+import sys
+import torch
+import torch.distributed as dist
+from repro_torch import api
+from repro_torch.kernels import ops
+from repro_torch.launch import mesh as mesh_lib
+sc = api.Scenario(
+    method="fedhc",
+    data=api.DataSpec(samples_per_client=32, eval_size=128),
+    fleet=api.FleetSpec(num_clients=32, num_clusters=3, round_minutes=4.0,
+                        dropout_threshold=0.2),
+    train=api.TrainSpec(rounds=8, rounds_per_global=4, eval_every=4,
+                        local_steps=1, batch_size=16),
+    exec=api.ExecSpec(use_pallas_kernels=True))
+ops.reset_launches()
+single = api.run(sc, device="cuda")
+want = dict(ops.LAUNCHES)
+mesh_lib.init_process_group("cuda", init_method="file://" + sys.argv[1],
+                            rank=0, world_size=1)
+ops.reset_launches()
+res = api.run(sc.replace(exec=api.ExecSpec(use_pallas_kernels=True,
+                                           mesh_devices=0)), device="cuda")
+dist.destroy_process_group()
+assert res.mesh_shape == {"clients": 1}, res.mesh_shape
+assert res.to_history() == single.to_history()
+assert dict(ops.LAUNCHES) == want and want["weighted_agg_multi"] >= 8, want
+print("ok")
+"""
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_mesh_is_the_single_device_run(cuda_device, tmp_path):
+    """A client mesh of one NCCL rank gives the one-device history with
+    ``==`` and the same kernel launches (a fresh process: the process
+    group is global state)."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run(
+        [sys.executable, "-c", MESH_ONE_RANK, str(tmp_path / "store")],
+        cwd=root, env=dict(os.environ, PYTHONPATH=os.path.join(root, "src")),
+        capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().endswith("ok")

@@ -139,6 +139,11 @@ def _async_factorized():
                               contact_factorized=True), device="cpu")
 
 
+def _sweep_mesh():
+    tapi.run_sweep(tapi.Scenario(exec=tapi.ExecSpec(mesh_devices=0)), (0, 1),
+                   device="cpu")
+
+
 def _async_telemetry():
     _, (outs, telem) = tengine.simulate(
         FLRunConfig(method="fedbuff", num_clients=8, num_clusters=2,
@@ -153,13 +158,16 @@ def _async_telemetry():
     (_sweep_async, ValueError, "sync-only"),
     (_async_factorized, ValueError, "sync-engine-only"),
     (_async_telemetry, None, None),
-], ids=["run_sweep-async", "async-factorized", "async-telemetry"])
+    (_sweep_mesh, ValueError, "client mesh"),
+], ids=["run_sweep-async", "async-factorized", "async-telemetry",
+        "run_sweep-mesh"])
 def test_other_engines_name_their_roadmap_slice(call, exc, match):
-    """What the async engine (slice 11) still refuses, with the
-    reference's errors: a seed sweep of an async method and per-client-
-    clock routing on a factorized plan.  Telemetry (slice 13) is ported:
-    that case runs (``exc`` None) and returns the reference's
-    ``(AsyncOutput, Telemetry)`` pair."""
+    """What the engines still refuse, with the reference's errors: a seed
+    sweep of an async method, per-client-clock routing on a factorized
+    plan, and a seed sweep on a client mesh (slice 12 ported the mesh for
+    ``api.run``; the reference's ``run_sweep`` refuses one too).
+    Telemetry (slice 13) is ported: that case runs (``exc`` None) and
+    returns the reference's ``(AsyncOutput, Telemetry)`` pair."""
     if exc is None:
         call()
         return
@@ -167,13 +175,33 @@ def test_other_engines_name_their_roadmap_slice(call, exc, match):
         call()
 
 
-def test_mesh_and_telemetry_are_not_ported_yet():
-    """The client mesh (slice 12) still raises; telemetry (slice 13), once
-    refused here, now runs: the sync engine returns the reference's
-    ``(RoundOutput, Telemetry)`` pair, one row a round."""
+MESH_RUN = """
+from repro_torch import api
+sc = api.Scenario(
+    data=api.DataSpec(samples_per_client=16, eval_size=64),
+    fleet=api.FleetSpec(num_clients=8, num_clusters=2),
+    train=api.TrainSpec(rounds=2, eval_every=2, local_steps=1, batch_size=8),
+    exec=api.ExecSpec(mesh_devices=1))
+res = api.run(sc, device="cpu")
+result["mesh_shape"] = res.mesh_shape
+result["same"] = (res.to_history() == api.run(
+    sc.replace(exec=api.ExecSpec()), device="cpu").to_history())
+"""
+
+
+def test_mesh_and_telemetry_are_not_ported_yet(tmp_path):
+    """Both, once refused here, now run.  The client mesh (slice 12):
+    ``ExecSpec(mesh_devices=...)`` raises without a process group (naming
+    ``init_process_group``, never running unsharded in silence) and runs
+    in one (here one gloo rank: the one-device history, ``mesh_shape``
+    ``{"clients": 1}``).  Telemetry (slice 13): the sync engine returns
+    the reference's ``(RoundOutput, Telemetry)`` pair, one row a round."""
+    from torch_ranks import run_ranks
     sc = tapi.Scenario(exec=tapi.ExecSpec(mesh_devices=0))
-    with pytest.raises(NotImplementedError, match="slice 12"):
+    with pytest.raises(RuntimeError, match="init_process_group"):
         tapi.run(sc, device="cpu")
+    (rank,) = run_ranks(1, MESH_RUN, tmp_path, tag="mesh")
+    assert rank == {"mesh_shape": {"clients": 1}, "same": True}
     cfg = FLRunConfig(method="h-base", num_clients=8, num_clusters=2,
                       rounds=3, eval_every=3, samples_per_client=16,
                       batch_size=8, local_steps=1, eval_size=64,
