@@ -32,7 +32,12 @@ sharded bar), serves the full
 gemma2-2b (26 layers, bf16, random weights) through
 ``repro_torch.launch.serve.serve_batch`` with a prompt longer than its
 4096-token window, checks prefill + decode against a longer prefill,
-profiles one prefill, and prints one JSON line per phase.  The line
+profiles one prefill, trains the full gemma2-2b through
+``repro_torch.launch.train.train`` (4 clients stacked on the card, K = 2,
+4096-token sequences, 3 rounds with stage-2 in round 2; round 1's stage-1
+held against the plain version on its own stack and timed; one stage-1
+launch a round; rounds 1-2 again with the kernels off), and prints one
+JSON line per phase.  The line
 before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.  Any failure raises: nothing is caught,
 and the exit code is then not 0.  Without CUDA, or outside a checkout, it
@@ -44,6 +49,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -96,6 +102,24 @@ FLASH_CASES = [
     (1, 2, 2, 128, 128, 64, False, 0, 0.0),
     (2, 2, 2, 70, 70, 128, True, 0, 0.0),
 ]
+# transformer FL training (launch/train.py): gemma2-2b at full width and
+# depth, C = 4 clients of 4 rows (4 microbatches of 1) at 4096 tokens, K = 2,
+# stage-2 every 2 rounds, SGD at lr 0.01; the kernels-off rerun takes the
+# first TRAIN_RERUN rounds from the same start and batches
+TRAIN_ARCH, TRAIN_CLIENTS, TRAIN_CLUSTERS = "gemma2-2b", 4, 2
+TRAIN_ROUNDS, TRAIN_RPG, TRAIN_BATCH, TRAIN_RERUN = 3, 2, 16, 2
+# kernels on vs off, round 2's mean client CE: the two runs' round-1
+# stage-1 outputs may differ by one bf16 ulp (2^-8 relative) in some
+# elements, and round 2's forward rounds every activation to bf16 (8 bits)
+# through 26 layers: 1e-2 relative, the bar of the CPU tests' bf16 round.
+# That bar is wider than CE moves in three rounds, so the runs' client
+# stacks after rounds 1 and 2 are held too, element by element: stage-1
+# rounds an f32 sum to bf16 on both routes (the kernel's FMAs and the
+# plain f32 matmul), so from the same local updates the two land within
+# one bf16 ulp of each other
+TRAIN_CE_RTOL = 1e-2
+TRAIN_STACK_ULPS = 1.0
+TRAIN_CHUNK = 1 << 26         # columns a plain stage-1 takes at once
 SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 2, 8192, 32
 DECODE_STEPS = 8              # decode steps in the profile phase
 # gemma2-2b's attention layers: B, Hq, Hkv, S, D, soft-cap; window 4096
@@ -193,7 +217,8 @@ def check_weighted_agg(gen):
     LeNet's 10 leaves (C = 32 and 800, K = 1, 4, 16, f32 and bf16; C =
     10,000, K = 4, f32): one launch a tree, the same bits from two calls.
     Times one stage-1 (the 10 leaves, K = 4, f32) at C = 800 and 10,000,
-    beside the plain version and 10 ``torch.matmul``s."""
+    and at C = 8 and 9 either side of the small-C kernel's cut, beside the
+    plain version and 10 ``torch.matmul``s."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import weighted_agg as _wagg
@@ -305,6 +330,9 @@ def check_weighted_agg(gen):
     # the scale of 10,000 clients: one stage-1 reads 1.78 GB
     res["c10000"], stacks, w = stage1(10_000)
     del stacks, w
+    # either side of the small-C kernel's cut (C <= 8: a thread owns its
+    # rows; C = 9 takes the warp-per-rows kernel), at LeNet's leaves
+    res["small_c_cut"] = {f"C={c}": stage1(c)[0] for c in (8, 9)}
     gc.collect()
     torch.cuda.empty_cache()
     return res
@@ -1806,6 +1834,349 @@ def mesh_phase(tmp: Path) -> dict:
             "ranks_wall_s": wall_s, "backend": "gloo over CUDA tensors"}
 
 
+def events_ms(fn, reps: int = 5, warmup: int = 1) -> float:
+    """Median time of one call between CUDA events, each call's outputs
+    dropped before the next (a stage-1 of gemma2-2b makes 10.5 GB: a CUDA
+    graph of many calls would hold them all)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def bf16_ulp(x):
+    """One bf16 ulp at each element of the f32 tensor ``x``: 2^(e - 7)
+    for |x| in [2^e, 2^(e+1)), the normal range's floor below it."""
+    import torch
+    _, e = torch.frexp(x)
+    return torch.ldexp(torch.ones_like(x), (e - 8).clamp_min(-133))
+
+
+def plain_tree(leaves, wm):
+    """The plain stage-1 (``kernels/ref.py``) leaf by leaf, in column
+    chunks of TRAIN_CHUNK (the embedding's f32 copy would be 9.4 GB)."""
+    from repro_torch.kernels import ref
+    outs = []
+    for x in leaves:
+        flat = x.reshape(x.shape[0], -1)
+        outs.append([ref.weighted_agg_multi_ref(flat[:, a:a + TRAIN_CHUNK], wm)
+                     for a in range(0, flat.shape[1], TRAIN_CHUNK)])
+    return outs
+
+
+def rows_apart(leaves, rows, kept) -> dict:
+    """Rows ``rows`` of the (C, ...) leaves on the card against the same
+    rows of another run kept on the host, in column chunks: the largest
+    distance in bf16 ulps of the larger magnitude, and how many elements
+    differ at all."""
+    import torch
+    worst, n_diff, n = 0.0, 0, 0
+    for x, host in zip(leaves, kept):
+        for i, h in zip(rows, host):
+            a, b = x[i].reshape(-1), h.reshape(-1)
+            for s in range(0, a.numel(), TRAIN_CHUNK):
+                u = a[s:s + TRAIN_CHUNK].float()
+                v = b[s:s + TRAIN_CHUNK].to(DEV).float()
+                d = (u - v).abs()
+                worst = max(worst, float(
+                    (d / bf16_ulp(torch.maximum(u.abs(), v.abs()))).max()))
+                n_diff += int((d > 0).sum())
+            n += a.numel()
+    return {"max_ulps": worst, "elements_differing": n_diff,
+            "elements": n}
+
+
+def stage1_on_stack(stack, losses, data_sizes, assignment, k) -> dict:
+    """The round's stage-1 on its own stack: the kernel (one grouped
+    launch) against the plain version leaf by leaf and in column chunks,
+    every element within one bf16 ulp of the f32-accumulated sum; then the
+    kernel, the plain version and one bf16 ``torch.matmul`` a leaf timed
+    beside the byte bound.  The caller restores the launch counts."""
+    import torch
+    from repro_torch.core import aggregation
+    from repro_torch.kernels import ops, ref
+    from repro_torch.tree import tree_leaves
+    t0 = time.perf_counter()
+    one_hot = aggregation.membership_one_hot(assignment, k)
+    w = aggregation.cluster_weights(losses, data_sizes, assignment, k,
+                                    one_hot=one_hot)
+    wm = (one_hot * w.float()[:, None]).contiguous()
+    leaves = tree_leaves(stack)
+    c = leaves[0].shape[0]
+    got = ops.weighted_agg_multi_tree(tuple(leaves), wm)
+    torch.cuda.synchronize()
+    max_err, worst_ulps, n = 0.0, 0.0, 0
+    for g, x in zip(got, leaves):
+        assert g.dtype == x.dtype == torch.bfloat16, (g.dtype, x.dtype)
+        flat, gf = x.reshape(c, -1), g.reshape(k, -1)
+        for a in range(0, flat.shape[1], TRAIN_CHUNK):
+            xs = flat[:, a:a + TRAIN_CHUNK]
+            out = gf[:, a:a + TRAIN_CHUNK].float()
+            want = wm.float().T @ xs.float()       # f32 accumulation
+            ulps = float(((out - want).abs() / bf16_ulp(want)).max())
+            worst_ulps = max(worst_ulps, ulps)
+            max_err = max(max_err, float(
+                (out - ref.weighted_agg_multi_ref(xs, wm).float())
+                .abs().max()))
+        n += flat.shape[1]
+    assert worst_ulps <= 1.0, worst_ulps
+    del got
+    check_s = time.perf_counter() - t0
+    wmt = wm.T.contiguous().to(torch.bfloat16)
+    n_bytes = stage1_bytes(c, k, [x[0].numel() for x in leaves], 2)
+    n_ops = 2 * c * k * n
+    row = {"max_abs_err": max_err, "max_ulps_vs_f32": worst_ulps,
+           "ms": events_ms(lambda: ops.weighted_agg_multi_tree(
+               tuple(leaves), wm)),
+           "plain_ms": events_ms(lambda: plain_tree(leaves, wm), reps=3),
+           "library_ms": events_ms(lambda: [
+               torch.matmul(wmt, x.reshape(c, -1)) for x in leaves], reps=3),
+           "bound_ms": max(n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOPS)
+           * 1e3,
+           "bound_by": ("bytes" if n_bytes / HBM_BYTES_PER_S
+                        >= n_ops / F32_FLOPS else "operations"),
+           "bytes": n_bytes, "columns": n, "leaves": len(leaves),
+           "C": c, "K": k, "check_s": check_s}
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    row["timed_s"] = time.perf_counter() - t0 - check_s
+    return row
+
+
+def profile_training(cfg, round_s: float, microbatches: int) -> dict:
+    """Where a training round's time goes: one client's microbatch of the
+    train step (``loss_fn`` with remat, gradients of every leaf; 4096
+    tokens) under torch.profiler beside its unprofiled time, and the train
+    attention of one global and one local layer timed alone as a
+    microbatch runs it (the checkpoint's forward without autograd, then
+    the recompute and its backward); ``round_s`` and ``microbatches`` (a
+    round's) give attention's share of a round."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import attention as attn
+    from repro_torch.models import loss_fn
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    seq = 4096
+    model = train_lib.init_model(cfg, 0, DEV)
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    toks = torch.randint(0, 256, (1, seq), generator=gen, device=DEV)
+
+    def micro():
+        ps = [x.detach().requires_grad_(True) for x in tree_leaves(model)]
+        loss, _ = loss_fn(cfg, tree_unflatten(model, ps),
+                          {"tokens": toks, "labels": toks}, remat=True)
+        torch.autograd.grad(loss, ps)
+    micro_ms = events_ms(micro, reps=3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        micro()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    busy = sum(k[0] for k in kernels)
+    f32_gemm = sum(k[0] for k in kernels
+                   if "f32f32_f32f32" in k[1] or "sgemm" in k[1])
+    del model
+
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = torch.randn((1, seq, hq, d), generator=gen, device=DEV).bfloat16()
+    k, v = (torch.randn((1, seq, hkv, d), generator=gen, device=DEV)
+            .bfloat16() for _ in range(2))
+    pos = torch.arange(seq, dtype=torch.int32, device=DEV)
+
+    def layer(window):
+        def run(q, k, v):
+            if window:
+                return attn.windowed_full_attention(cfg, q, k, v, pos, pos,
+                                                    window)
+            return attn.chunk_attention(cfg, q, k, v, pos, pos, causal=True)
+
+        def once():
+            with torch.no_grad():
+                run(q, k, v)
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = run(*leaves)
+            torch.autograd.grad(out, leaves, torch.ones_like(out))
+        return events_ms(once, reps=3)
+    global_ms, local_ms = layer(0), layer(cfg.window_size)
+    half = cfg.num_layers // 2
+    att_ms = half * (global_ms + local_ms)
+    return {"microbatch_ms": micro_ms, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / micro_ms,
+            "f32_gemm_ms": f32_gemm,
+            "kernel_launches": sum(k[2] for k in kernels),
+            "attention_layer_ms": {"global": global_ms, "local": local_ms},
+            "attention_ms_per_microbatch": att_ms,
+            "attention_share_of_microbatch": att_ms / micro_ms,
+            "attention_share_of_round": microbatches * att_ms
+            / (round_s * 1e3),
+            "top": [{"name": k[1][:90], "device_ms": k[0], "count": k[2]}
+                    for k in kernels[:10]]}
+
+
+def train_phase(smi: str) -> tuple:
+    """gemma2-2b FL training through ``repro_torch.launch.train.train``:
+    three rounds with the kernels on (round 1's stage-1 held against the
+    plain version and timed on its own stack), one stage-1 launch a round,
+    then rounds 1-2 again with the kernels off from the same start and
+    batches, each round's aggregated clients held against the first run's
+    (``held``).  Returns the phase line and the kernels row."""
+    import torch
+    from repro_torch.configs import get_config, get_profile, replace
+    from repro_torch.core import aggregation
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_lib
+    from repro_torch.tree import tree_leaves
+    cfg = get_config(TRAIN_ARCH)
+    cfg = replace(cfg, dtype=get_profile(TRAIN_ARCH).param_dtype)
+    start = train_lib.init_model(cfg, 0, DEV)["embed"]["embedding"].clone()
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    stage1, per_round, changed, kept, apart = {}, [], [], [], []
+    check_s = {True: [], False: []}     # a round's seconds in the checks
+    unwrapped = aggregation.hierarchical_round
+
+    def held(stack, losses, data_sizes, assignment, k, *args, **kw):
+        """Each round's aggregation, in both runs.  Kernels on: round 1's
+        local updates not all rounded away (each client's embedding
+        against the start), its stage-1 held and timed on its own stack,
+        the launches a round counted, and the first member's row of each
+        cluster kept on the host for the first TRAIN_RERUN rounds.
+        Kernels off: those rows against the kept ones.  The checks' time
+        (synced) goes to ``check_s``: the round's own time is the rest."""
+        use_kernels = kw.get("use_kernels")
+        r = len(check_s[use_kernels])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if use_kernels and r == 0:
+            emb = stack["embed"]["embedding"]
+            changed.extend(int((emb[i] != start).sum())
+                           for i in range(emb.shape[0]))
+            counts = dict(ops.LAUNCHES)
+            stage1.update(stage1_on_stack(stack, losses, data_sizes,
+                                          assignment, k))
+            ops.LAUNCHES.update(counts)
+            gc.collect()
+            torch.cuda.empty_cache()
+        before = ops.LAUNCHES["weighted_agg_multi"]
+        spent = time.perf_counter() - t0
+        out = unwrapped(stack, losses, data_sizes, assignment, k, *args,
+                        **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = [int((assignment == j).nonzero()[0]) for j in range(k)]
+        if use_kernels:
+            per_round.append(ops.LAUNCHES["weighted_agg_multi"] - before)
+            if r < TRAIN_RERUN:
+                kept.append([[x[i].to("cpu", copy=True) for i in rows]
+                             for x in tree_leaves(out)])
+        else:
+            apart.append(rows_apart(tree_leaves(out), rows, kept[r]))
+        torch.cuda.synchronize()
+        check_s[use_kernels].append(spent + time.perf_counter() - t0)
+        return out
+
+    def run(rounds, use_kernels):
+        gc.collect()
+        torch.cuda.empty_cache()
+        ops.reset_launches()
+        return train_lib.train(
+            TRAIN_ARCH, rounds=rounds, clusters=TRAIN_CLUSTERS,
+            rounds_per_global=TRAIN_RPG, clients=TRAIN_CLIENTS,
+            global_batch=TRAIN_BATCH, seed=0, device=DEV,
+            use_kernels=use_kernels)
+
+    aggregation.hierarchical_round = held
+    try:
+        on = run(TRAIN_ROUNDS, True)
+        launches = dict(ops.LAUNCHES)
+        finite = all(bool(torch.isfinite(x).all())
+                     for x in tree_leaves(on.stack))
+        on = on._replace(stack=None)
+        off = run(TRAIN_RERUN, False)
+    finally:
+        aggregation.hierarchical_round = unwrapped
+    off_launches = dict(ops.LAUNCHES)
+    off = off._replace(stack=None)
+    del start, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    assert stage1, "round 1's stage-1 was not held"
+    assert per_round == [1] * TRAIN_ROUNDS, per_round
+    assert launches["weighted_agg_multi"] == TRAIN_ROUNDS, launches
+    assert launches["flash_attention"] == 0, launches   # train: chunked
+    assert set(off_launches.values()) == {0}, off_launches
+    assert finite, "the final client stack holds a non-finite value"
+    assert [r.did_global for r in on.rounds] == [
+        (r + 1) % TRAIN_RPG == 0 for r in range(TRAIN_ROUNDS)]
+    ces = [r.ce for r in on.rounds]
+    assert all(math.isfinite(x) for x in ces), ces
+    assert all(n > 0 for n in changed) and len(changed) == TRAIN_CLIENTS, \
+        changed
+    off_ces = [r.ce for r in off.rounds]
+    assert off_ces[0] == ces[0], (off_ces, ces)
+    assert abs(off_ces[1] - ces[1]) <= TRAIN_CE_RTOL * abs(ces[1]), \
+        (off_ces, ces)
+    assert len(apart) == TRAIN_RERUN and all(
+        a["max_ulps"] <= TRAIN_STACK_ULPS for a in apart), apart
+    emb_cols = cfg.vocab_padded * cfg.d_model
+    own_s = [r.s - c for r, c in zip(on.rounds, check_s[True])]
+    steady_s = statistics.median(own_s[1:])
+    where = profile_training(cfg, steady_s,
+                             TRAIN_CLIENTS * on.meta["accum"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    line = {
+        "phase": "train", "arch": cfg.name, "layers": cfg.num_layers,
+        "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+        "params": on.meta["params"], "dtype": on.meta["dtype"],
+        "clients": TRAIN_CLIENTS, "clusters": on.clusters,
+        "seq": on.meta["seq"], "global_batch": on.meta["global_batch"],
+        "accum": on.meta["accum"], "micro": on.meta["micro"],
+        "rounds_per_global": TRAIN_RPG, "lr": on.meta["lr"],
+        "nvidia_smi": smi, "ln_vocab": math.log(cfg.vocab_size),
+        "rounds": [r._asdict() for r in on.rounds],
+        "check_s": check_s[True], "rounds_less_checks_s": own_s,
+        "peak_device_mem_mb": on.peak_device_mem_mb,
+        "launches": launches, "launches_per_round": per_round,
+        "embedding_changed_after_round1": changed,
+        "embedding_changed_share": [n / emb_cols for n in changed],
+        "kernels_off": {"rounds": [r._asdict() for r in off.rounds],
+                        "check_s": check_s[False],
+                        "peak_device_mem_mb": off.peak_device_mem_mb,
+                        "launches": off_launches,
+                        "ce_rtol": TRAIN_CE_RTOL,
+                        "round1_ce_equal": off_ces[0] == ces[0],
+                        "round2_ce_rel_diff":
+                        abs(off_ces[1] - ces[1]) / abs(ces[1]),
+                        "stack_ulps_bar": TRAIN_STACK_ULPS,
+                        "stacks_apart": apart},
+        "stage1": stage1, "steady_round_s": steady_s,
+        "where_the_time_goes": where}
+    row = {"name": "weighted_agg_multi_train", "route": "cuda",
+           "source": "src/repro_torch/csrc/weighted_agg.cu",
+           "replaces": "src/repro/kernels/weighted_agg.py:76",
+           "launches": launches["weighted_agg_multi"],
+           **{key: stage1[key] for key in (
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")},
+           "shape": f"one stage-1 of the gemma2-2b FL round: "
+                    f"{stage1['leaves']} leaves, C={stage1['C']}, "
+                    f"K={stage1['K']}, bf16, {stage1['columns']} columns"}
+    return line, row
+
+
 def check_result(res, rounds: int, eval_every: int) -> None:
     import numpy as np
     want = sorted({r for r in range(eval_every, rounds + 1, eval_every)}
@@ -2054,7 +2425,15 @@ def main() -> int:
 
     # ---- 8. where the time goes: a gemma2-2b prefill and decode steps
     emit(profile_serving(cfg, params, prompts, second.prefill_s))
-    del params
+    del params, prompts, first, second, sgen
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 8b. transformer FL training: gemma2-2b, 4 clients on the card,
+    # stage-1 through the kernel; the counts are set to 0 before each run
+    # and read after it
+    train_line, train_row = train_phase(smi)
+    emit(train_line)
 
     emit({"phase": "elapsed", "script_s": time.perf_counter() - T_START})
 
@@ -2098,6 +2477,7 @@ def main() -> int:
                      "bound_by", "library_ms")},
                  "shape": "one stage-1: 10 LeNet leaves, C=800, K=32, f32, "
                           "two passes of 16 clusters"})
+    rows.append(train_row)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

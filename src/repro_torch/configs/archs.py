@@ -108,6 +108,12 @@ REGISTRY = {c.name: c for c in (
 
 ARCH_NAMES = tuple(REGISTRY)
 
+# Architectures too large for one-replica-per-data-index FL placement:
+# one FL client = one pod slice (the reference's placement).
+POD_CLIENT_ARCHS = {"grok-1-314b", "qwen2-72b", "mixtral-8x22b", "pixtral-12b",
+                    "granite-3-8b"}
+
+
 def get_config(name: str) -> ModelConfig:
     if name not in REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(REGISTRY)}")

@@ -3,15 +3,15 @@
 ``ModelConfig`` describes one transformer-family architecture (dense, MoE,
 SSM, hybrid, audio enc-dec, VLM backbone); the values and properties are
 the reference's, field for field, so a config means the same model in both
-packages.  ``smoke_variant`` gives the reduced CPU-testable variant.  The
-FL topology and training configs (``FLConfig``, ``TrainConfig``) come with
-the training slice.
+packages.  ``smoke_variant`` gives the reduced CPU-testable variant.
+``FLConfig`` (the FedHC topology and schedule) and ``TrainConfig`` (the
+local optimizer) are the reference's too, field for field.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 # Layer kinds used in ``ModelConfig.layer_pattern`` (cycled over depth):
 #   "attn"   - full causal self-attention
@@ -178,6 +178,39 @@ class ModelConfig:
         d, f = self.d_model, self.d_ff
         dead = (self.num_experts - self.experts_per_token) * 3 * d * f
         return total - self.num_layers * dead
+
+
+@dataclass(frozen=True)
+class FLConfig:
+    """FedHC topology + schedule (paper §III, Algorithm 1)."""
+
+    num_clients: int = 16             # satellites participating
+    num_clusters: int = 4             # K
+    client_axis: str = "data"         # "data" | "pod": mesh placement of clients
+    local_epochs: int = 1             # lambda: local SGD epochs per round
+    rounds_per_global: int = 5        # m: cluster rounds per ground-station agg
+    dropout_threshold: float = 0.3    # Z: re-cluster trigger (Alg.1 line 16)
+    loss_weighted: bool = True        # Eq. 12 weights vs plain FedAvg Eq. 5
+    # MAML re-clustering (Eq. 16-17)
+    maml_inner_lr: float = 1e-3       # alpha
+    maml_outer_lr: float = 1e-3       # beta
+    maml_inner_steps: int = 1
+    # k-means PS selection (Eq. 13-15)
+    kmeans_iters: int = 32
+    kmeans_tol: float = 1e-4
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    optimizer: str = "sgd"            # paper uses small-batch SGD
+    learning_rate: float = 0.01
+    momentum: float = 0.0
+    weight_decay: float = 0.0
+    grad_accum: int = 1               # microbatch accumulation steps
+    remat: bool = True                # activation checkpoint each layer
+    seed: int = 0
+    param_dtype: str = "float32"      # FL-sim default; large archs use bf16
+    logical_rules: Tuple[Tuple[str, Optional[str]], ...] = ()
 
 
 def replace(cfg, **kw):

@@ -71,6 +71,32 @@ def kmeans(positions: torch.Tensor, k: int, init_idx: torch.Tensor,
     return ClusterResult(c, a, ps_select(positions, c, a, k), it)
 
 
+def balanced_clusters(assignment, k: int, cap: int) -> torch.Tensor:
+    """Host helper: a k-means assignment (N,) as *static* equal-size groups
+    (k, cap) int32 on the CPU, N = k * cap, for the static collective
+    schedule of the transformer step (one process group a cluster).
+
+    Greedy: each cluster keeps its members in index order up to cap; the
+    spill goes to the least-full cluster (the first of equals)."""
+    a = torch.as_tensor(assignment).cpu().tolist()
+    n = len(a)
+    if n != k * cap:
+        raise ValueError(f"balanced_clusters: {n} clients are not {k} "
+                         f"groups of {cap}")
+    groups = [[] for _ in range(k)]
+    spill = []
+    for i, c in enumerate(a):
+        c = int(c)
+        if 0 <= c < k and len(groups[c]) < cap:
+            groups[c].append(i)
+        else:
+            spill.append(i)
+    for i in spill:
+        tgt = min(range(k), key=lambda j: len(groups[j]))
+        groups[tgt].append(i)
+    return torch.tensor(groups, dtype=torch.int32)
+
+
 def dropout_rate(participating: torch.Tensor, assignment: torch.Tensor,
                  k: int) -> torch.Tensor:
     """Alg. 1 line 15: d_r = C^d / C^k per cluster."""

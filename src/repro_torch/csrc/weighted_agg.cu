@@ -68,6 +68,22 @@
 // reach 82% of the byte bound at C = 800 and ~90% at C = 10,000 (PERF.md), so
 // a bulk-copy ring would buy at most the remaining tenth or two.
 //
+// A stack of few clients (C <= SMALL_C_ROWS = 8: the transformer FL round,
+// four gemma2-2b clients, 2.61e9 columns) leaves most of the design above
+// idle: at C = 4 half of a block's warps have no row, the other half issue
+// one 16-byte load each, and 10.2M blocks of 256 columns each pay a weight
+// stage and a reduction through shared memory for ~3 KB of traffic.  On an
+// H100 SXM at 700 W that stage-1 took 157 ms against its 9.36 ms byte bound
+// (PERF.md, row 1e).  So at C <= 8 a block's tile is THREADS lanes wide
+// instead of 32 (2048 bf16 or 1024 f32 columns), each thread owns its 16
+// bytes of columns in every row: it issues all C loads first, then for each
+// cluster sums its rows in row order in f32 (no shared memory, no
+// reduction across warps) and stores 16 bytes.  Same table, same grid rule
+// (a block a tile and pass), deterministic; wagg_grouped_rows_kernel, one
+// copy with its row loops unrolled to SMALL_C_ROWS.  On the same card the
+// gemma2-2b stage-1 then took 12.65 ms, 74% of the bound (one bf16
+// torch.matmul a leaf: 72.9 ms).
+//
 // weighted_agg (K = 1) with small C (kernels/weighted_agg.py::plan picks it
 // for C <= SMALL_C_MAX) replaces the Pallas TPU kernel
 // repro/kernels/weighted_agg.py::weighted_agg and is bound by bytes too.  At
@@ -90,6 +106,7 @@ constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int MAX_LEAVES = 64;     // descriptor table entries (kernel parameter)
 constexpr int CHUNK_FLOATS = 4096; // weights staged at once: 4096 / KMAX rows
+constexpr int SMALL_C_ROWS = 8;    // C at most this: a thread owns its rows
 
 struct Leaf {
   const void* in;   // (C, P) stack of the leaf
@@ -275,17 +292,93 @@ wagg_grouped_kernel(const __grid_constant__ Table tab,
     grouped_tile<T, KMAX, VW>(lf, tile - lf.first, C, w, K, k0, smem);
 }
 
+// One block at C <= SMALL_C_ROWS rows: column tile `tile` of leaf `lf`,
+// THREADS lanes of VEC columns, clusters k0 to k0 + KMAX - 1 (those below
+// K).  The row loops are unrolled to SMALL_C_ROWS and guarded by C.
+template <typename T, int KMAX, int VEC>
+__device__ __forceinline__ void rows_tile(const Leaf& lf, int tile, int C,
+                                          const float* __restrict__ w, int K,
+                                          int k0) {
+  const long long P = lf.P;
+  const long long col = ((long long)tile * THREADS + threadIdx.x) * VEC;
+  if (col >= P) return;
+  const T* in = static_cast<const T*>(lf.in) + col;
+  typename Row<T, VEC>::type x[SMALL_C_ROWS];
+#pragma unroll
+  for (int c = 0; c < SMALL_C_ROWS; ++c)
+    if (c < C) x[c] = load_row<T, VEC>(in + (long long)c * P);
+  T* out = static_cast<T*>(lf.out) + col;
+  // a leaf's outputs start on a 16-byte boundary unless a narrower leaf
+  // came before it in the buffer: then its lanes store element by element
+  const bool wide = VEC > 1 && ((uintptr_t)lf.out & 15) == 0;
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    if (k0 + k >= K) break;
+    float acc[VEC];
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) acc[v] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < SMALL_C_ROWS; ++c) {
+      if (c < C) {
+        const float wk = __ldg(w + (long long)c * K + k0 + k);
+        float e[VEC];
+        if constexpr (VEC == 1) e[0] = to_f32(x[c]);
+        else unpack16(x[c], e);
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) acc[v] = fmaf(wk, e[v], acc[v]);
+      }
+    }
+    T* o = out + (long long)(k0 + k) * P;
+    if constexpr (VEC > 1) {
+      if (wide) {
+        *reinterpret_cast<uint4*>(o) = pack16<T, VEC>(acc);
+        continue;
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) store(o + v, acc[v]);
+  }
+}
+
+// C <= SMALL_C_ROWS: block b takes column tile b / passes (THREADS lanes)
+// and clusters from (b % passes) * KMAX
+template <typename T, int KMAX>
+__global__ void __launch_bounds__(THREADS, 2)
+wagg_grouped_rows_kernel(const __grid_constant__ Table tab,
+                         const float* __restrict__ w, int C, int K,
+                         int passes) {
+  constexpr int VW = 16 / sizeof(T);
+  const int tile = blockIdx.x / passes;
+  const int k0 = (blockIdx.x - tile * passes) * KMAX;
+  int li = 0;
+  for (int i = 1; i < tab.n; ++i)
+    if (tab.leaf[i].first <= tile) li = i;
+  const Leaf& lf = tab.leaf[li];
+  if (lf.vec == 1)
+    rows_tile<T, KMAX, 1>(lf, tile - lf.first, C, w, K, k0);
+  else
+    rows_tile<T, KMAX, VW>(lf, tile - lf.first, C, w, K, k0);
+}
+
 template <typename T>
 cudaError_t launch_grouped(const Table& tab, const float* w, int C, int K,
                            int kmax, int tiles, cudaStream_t s) {
   const int passes = (K + kmax - 1) / kmax;
   const unsigned grid = (unsigned)tiles * (unsigned)passes;
-  if (kmax == 4)
+  if (C <= SMALL_C_ROWS) {
+    if (kmax == 4)
+      wagg_grouped_rows_kernel<T, 4><<<grid, THREADS, 0, s>>>(tab, w, C, K, passes);
+    else if (kmax == 8)
+      wagg_grouped_rows_kernel<T, 8><<<grid, THREADS, 0, s>>>(tab, w, C, K, passes);
+    else
+      wagg_grouped_rows_kernel<T, 16><<<grid, THREADS, 0, s>>>(tab, w, C, K, passes);
+  } else if (kmax == 4) {
     wagg_grouped_kernel<T, 4><<<grid, THREADS, 0, s>>>(tab, w, C, K, passes);
-  else if (kmax == 8)
+  } else if (kmax == 8) {
     wagg_grouped_kernel<T, 8><<<grid, THREADS, 0, s>>>(tab, w, C, K, passes);
-  else
+  } else {
     wagg_grouped_kernel<T, 16><<<grid, THREADS, 0, s>>>(tab, w, C, K, passes);
+  }
   return cudaGetLastError();
 }
 
@@ -350,8 +443,9 @@ extern "C" {
 // input (C, P_i) and output (K, P_i) pointers, P_i, the first column tile of
 // each leaf and its elements a lane (16 / sizeof(T) or 1; 16 needs P_i *
 // sizeof(T) % 16 == 0 and a 16-byte-aligned input).  Leaf i has
-// ceil(P_i / (32 * vec_i)) column tiles; the tiles of the leaves are
-// consecutive and number `tiles`.  kmax (4, 8 or 16) clusters a pass,
+// ceil(P_i / (lanes * vec_i)) column tiles, lanes = THREADS at C <=
+// SMALL_C_ROWS and 32 above; the tiles of the leaves are consecutive and
+// number `tiles`.  kmax (4, 8 or 16) clusters a pass,
 // ceil(K / kmax) passes (kmax 4 and 8 take one): one block for each (tile,
 // pass).  Returns cudaGetLastError() after the launch (0 =
 // cudaSuccess), or cudaErrorInvalidValue for arguments the kernel does not
@@ -370,6 +464,7 @@ int wagg_grouped(int dtype, int n, const void* const* ins, void* const* outs,
     return (int)cudaErrorInvalidValue;
   const int esize = dtype == 0 ? 4 : 2;
   const int vw = 16 / esize;
+  const long long lanes = C <= SMALL_C_ROWS ? THREADS : 32;
   Table tab;
   memset(&tab, 0, sizeof(tab));
   tab.n = n;
@@ -382,7 +477,7 @@ int wagg_grouped(int dtype, int n, const void* const* ins, void* const* outs,
     if (vec == vw && ((P * esize) % 16 != 0 || (uintptr_t)ins[i] % 16 != 0))
       return (int)cudaErrorInvalidValue;
     tab.leaf[i] = Leaf{ins[i], outs[i], P, firsts[i], vec};
-    next += (P + 32LL * vec - 1) / (32LL * vec);
+    next += (P + lanes * vec - 1) / (lanes * vec);
   }
   if (next != tiles) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;

@@ -1,8 +1,11 @@
-"""Synthetic federated datasets with MNIST / CIFAR-10 geometry.
+"""Synthetic federated datasets with MNIST / CIFAR-10 geometry, and the
+non-IID language-modelling token stream of the transformer FL run.
 
 Counterpart of ``repro/data/synthetic.py``: class-conditional images (a
 smooth random template per class + a smooth per-sample deformation +
-noise), split across clients by a Dirichlet non-IID partition.  Every draw
+noise), split across clients by a Dirichlet non-IID partition.
+:func:`synthetic_lm_batches` is the port's copy of the token stream that
+``examples/fl_transformer.py`` defines for itself.  Every draw
 comes from an explicit ``torch.Generator``, so the values differ from the
 JAX package's (its keys cannot be replayed here); the parity tests hand
 both packages the same arrays instead.
@@ -129,3 +132,17 @@ def client_batches(images: torch.Tensor, labels: torch.Tensor,
     ((C, B, H, W, ch), (C, B))."""
     flat = torch.gather(client_idx, 1, picks.long())
     return images[flat], labels[flat]
+
+
+def synthetic_lm_batches(gen: torch.Generator, n_clients: int, seq: int,
+                         batch: int, band: int = 256) -> torch.Tensor:
+    """Per-client token streams with client-specific skew (the non-IID
+    structure FL must average over): each client draws a mixture over a
+    shared ``band`` of token ids from Dirichlet(0.3) and its tokens i.i.d.
+    from that mixture.  Returns (n_clients, batch, seq + 1) int32 on the
+    generator's device."""
+    g = _gamma(gen, 0.3, (n_clients, band)).clamp_min(1e-30)
+    probs = g / g.sum(dim=1, keepdim=True)
+    toks = torch.multinomial(probs, batch * (seq + 1), replacement=True,
+                             generator=gen)
+    return toks.reshape(n_clients, batch, seq + 1).to(torch.int32)

@@ -87,16 +87,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale 1/sqrt(D), optional tanh soft-cap, causal and sliding-window masks
     with q tokens at the end of the kv axis (``q_pos = Sk - Sq + i``).
     On the card bf16 runs the tensor-core kernel and f32 the CUDA-core one
-    (``FLASH_ROUTES`` counts each).  Forward only: the kernel's output carries no gradient, so on the card a
-    call that autograd would differentiate raises."""
+    (``FLASH_ROUTES`` counts each).  Forward only: the kernel's output
+    carries no gradient, so on the card a call that autograd would
+    differentiate raises (training attention takes
+    ``models/attention.py``'s chunked route instead)."""
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        softcap=softcap)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
-            "flash_attention: the CUDA kernel is forward only; its backward "
-            "comes with the transformer training slice (ROADMAP queue 1, "
-            "item 16)")
+            "flash_attention: the CUDA kernel is forward only; training "
+            "takes models/attention.py's chunked route (mode='train'), and "
+            "a backward kernel is ROADMAP queue 2, item e")
     out, route = _flash.launch(q, k, v, causal=causal, window=window,
                                softcap=softcap)
     LAUNCHES["flash_attention"] += 1

@@ -30,15 +30,21 @@ WARPS = 8                 # warps of a block; warp w takes rows w, w + 8, ...
 MAX_LEAVES = 64           # entries of the kernel's descriptor table: a tree
 #                           of more leaves takes one launch a group of 64
 SMALL_C_MAX = 32          # K = 1 at C <= this streams (wagg_small_c_kernel)
+SMALL_C_ROWS = 8          # C <= this: a thread owns all rows of its columns
+#                           (wagg_grouped_rows_kernel; tiles THREADS wide)
+THREADS = WARPS * 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # codes of the C interface
 _SIZES = {torch.float32: 4, torch.bfloat16: 2}
 
 
 class GroupedPlan(NamedTuple):
-    """The launches over every leaf: one block for each column tile (32
-    lanes x ``vec`` columns) of each leaf and each pass of ``kmax``
-    clusters, all C rows, shared by the block's 8 warps (warp w takes rows
-    w, w + 8, ...).  One launch for every ``MAX_LEAVES`` leaves."""
+    """The launches over every leaf: one block for each column tile
+    (``lanes`` x ``vec`` columns) of each leaf and each pass of ``kmax``
+    clusters, all C rows: above ``SMALL_C_ROWS`` a tile is 32 lanes and
+    the block's 8 warps share the rows (warp w takes rows w, w + 8, ...);
+    at C <= ``SMALL_C_ROWS`` it is ``THREADS`` lanes and each thread sums
+    all C rows of its columns.  One launch for every ``MAX_LEAVES``
+    leaves."""
     order: Tuple[int, ...]    # leaves in work order (the narrowest first)
     vec: Tuple[int, ...]      # per leaf, in leaf order: elements a lane
     #                           loads from a row (16 bytes, or 1)
@@ -49,6 +55,7 @@ class GroupedPlan(NamedTuple):
     passes: int               # ceil(K / kmax)
     groups: Tuple[Tuple[int, ...], ...]   # leaves of each launch, in work
     #                                       order
+    lanes: int                # lanes of a column tile (THREADS at small C)
 
     @property
     def launches(self) -> int:
@@ -68,9 +75,10 @@ def plan_grouped(ps: Sequence[int], c: int, k: int, dtype: torch.dtype,
     leaf whose rows are 16-byte aligned (``aligned``) loads 16 bytes a
     lane.  The rows are not split over blocks: LeNet's leaves already make
     355 tiles, 2.7 blocks an SM of an H100, and the card measured every
-    split slower or no faster (``csrc/weighted_agg.cu``, PERF.md).  Leaves
-    go into launches of at most ``MAX_LEAVES`` (the kernel's table), in
-    work order."""
+    split slower or no faster (``csrc/weighted_agg.cu``, PERF.md).  At
+    C <= ``SMALL_C_ROWS`` a tile is ``THREADS`` lanes wide (a thread a
+    lane, all rows).  Leaves go into launches of at most ``MAX_LEAVES``
+    (the kernel's table), in work order."""
     if not ps or len(ps) != len(aligned):
         raise ValueError(f"weighted_agg_multi: {len(ps)} leaves and "
                          f"{len(aligned)} alignment flags")
@@ -85,7 +93,8 @@ def plan_grouped(ps: Sequence[int], c: int, k: int, dtype: torch.dtype,
     passes = -(-k // kmax)
     wide = 16 // _SIZES[dtype]
     vec = tuple(wide if a else 1 for a in aligned)
-    tiles = tuple(-(-p // (32 * v)) for p, v in zip(ps, vec))
+    lanes = THREADS if c <= SMALL_C_ROWS else 32
+    tiles = tuple(-(-p // (lanes * v)) for p, v in zip(ps, vec))
     order = tuple(sorted(range(len(ps)), key=lambda i: (ps[i], i)))
     groups = tuple(order[i:i + MAX_LEAVES]
                    for i in range(0, len(order), MAX_LEAVES))
@@ -99,7 +108,7 @@ def plan_grouped(ps: Sequence[int], c: int, k: int, dtype: torch.dtype,
             raise ValueError(f"weighted_agg_multi: {grid * passes} blocks do "
                              f"not fit a grid")
     return GroupedPlan(order, vec, tiles, tuple(first),
-                       sum(tiles) * passes, kmax, passes, groups)
+                       sum(tiles) * passes, kmax, passes, groups, lanes)
 
 
 def plan(c: int, p: int, *, vec4: bool, k: Optional[int] = None,

@@ -1,17 +1,26 @@
-"""GQA attention with sliding windows, logit soft-capping, QKV bias and
-ring-buffer KV caches.  Counterpart of ``repro/models/attention.py``.
+"""GQA attention with chunked (online-softmax) computation, sliding
+windows, logit soft-capping, QKV bias and ring-buffer KV caches.
+Counterpart of ``repro/models/attention.py``.
 
-Train and prefill self-attention go through ``kernels.ops.flash_attention``:
-the hand-written CUDA kernel on the card, its plain PyTorch version
-(``kernels/ref.py::flash_attention_ref``) on the CPU.  The reference spells
-the same function twice in portable jnp, ``chunk_attention`` (a chunked
-online softmax) and ``windowed_full_attention`` (its linear-cost form for
-sliding windows), and keeps its Pallas kernel beside them; in the port the
-kernel and its plain version take both places.  In prefill the positions
-are ``arange(S)`` and Sq == Sk, which is the kernel's contract
-(``q_pos = Sk - Sq + i``).  Decode attends over the ring-buffer cache with a
-``slot_pos`` mask, outside that contract, so ``direct_attention`` computes
-it in plain PyTorch (float32), as the reference computes it in one einsum.
+Three routes, as in the reference:
+
+* **train** goes through :func:`chunk_attention` (global layers) and
+  :func:`windowed_full_attention` (sliding-window layers), the reference's
+  portable attention ported op for op to torch ops that autograd
+  differentiates: scores and the weighted sum of values in float32 (the
+  reference's ``preferred_element_type``); its map over query chunks is a
+  batch dimension and its scan over key chunks a loop.  The reference
+  never trains through its Pallas kernel (it has no backward), and neither
+  does the port: ``kernels.ops.flash_attention`` refuses autograd on the
+  card.
+* **prefill** goes through ``kernels.ops.flash_attention``: the
+  hand-written CUDA kernel on the card, its plain PyTorch version
+  (``kernels/ref.py::flash_attention_ref``) on the CPU.  The positions are
+  ``arange(S)`` and Sq == Sk, which is the kernel's contract
+  (``q_pos = Sk - Sq + i``).
+* **decode** attends over the ring-buffer cache with a ``slot_pos`` mask,
+  outside that contract, so :func:`direct_attention` computes it in plain
+  PyTorch (float32), as the reference computes it in one einsum.
 
 Cache layout per attention layer::
 
@@ -33,6 +42,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.shapes import effective_cache_len
 from repro_torch.kernels import ops
@@ -76,6 +86,112 @@ def _project_kv(cfg, p, x):
     return k, v
 
 
+# --------------------------------------------------------------------------
+# Chunked (online-softmax) attention core: the train route
+# --------------------------------------------------------------------------
+
+def chunk_attention(cfg, q, k, v, q_pos, k_pos, *, causal: bool,
+                    window: int = 0, q_chunk: int = 512,
+                    kv_chunk: int = 1024) -> torch.Tensor:
+    """Memory-bounded attention.
+
+    q: (B, Sq, Hq, D); k/v: (B, Sk, Hkv, D); q_pos: (Sq,); k_pos: (Sk,).
+    Entries with k_pos < 0 are masked (empty cache slots).
+    Returns (B, Sq, Hq, D) in q's dtype.
+
+    The reference scans over query chunks with no carry (a map) and, inside,
+    over key chunks carrying the online softmax.  Here the query chunks are
+    a batch dimension and the key chunks a loop: each (query chunk, key
+    chunk) pair does the reference's arithmetic, in a launch a key chunk
+    instead of one a pair.
+    """
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+
+    q_chunk = min(q_chunk, Sq)
+    kv_chunk = min(kv_chunk, Sk)
+    # pad to chunk multiples
+    pq = (-Sq) % q_chunk
+    pk = (-Sk) % kv_chunk
+    if pq:
+        q = F.pad(q, (0, 0, 0, 0, 0, pq))
+        q_pos = F.pad(q_pos, (0, pq), value=2**30)
+    if pk:
+        k = F.pad(k, (0, 0, 0, 0, 0, pk))
+        v = F.pad(v, (0, 0, 0, 0, 0, pk))
+        k_pos = F.pad(k_pos, (0, pk), value=-1)
+    nq, nk = q.shape[1] // q_chunk, k.shape[1] // kv_chunk
+
+    # queries (B, Hkv, nq * G * qc, D), the rows ordered (chunk, group,
+    # position); keys and values (nk, B, Hkv, kc, D); scores and softmax
+    # state viewed as (B, Hkv, nq, G, qc, ...)
+    qf = (q.reshape(B, nq, q_chunk, Hkv, G, D).permute(0, 3, 1, 4, 2, 5)
+          .float().reshape(B, Hkv, nq * G * q_chunk, D))
+    qp = q_pos.reshape(nq, 1, q_chunk, 1)
+    kc = k.reshape(B, nk, kv_chunk, Hkv, D).permute(1, 0, 3, 2, 4).float()
+    vc = v.reshape(B, nk, kv_chunk, Hkv, D).permute(1, 0, 3, 2, 4)
+    kp = k_pos.reshape(nk, kv_chunk)
+    state = (B, Hkv, nq, G, q_chunk)
+
+    m = torch.full(state, NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros(state, dtype=torch.float32, device=q.device)
+    o = torch.zeros(state + (D,), dtype=torch.float32, device=q.device)
+    for j in range(nk):
+        kp_j = kp[j]
+        s = (qf @ kc[j].transpose(-1, -2)).view(state + (kv_chunk,)) * scale
+        if cfg.attn_softcap:
+            s = softcap(s, cfg.attn_softcap)
+        mask = kp_j >= 0                              # (nq, G=1, qc, kc)
+        if causal:
+            mask = mask & (kp_j <= qp)
+        if window:
+            mask = mask & (kp_j > qp - window)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p_ij = torch.exp(s - m_new[..., None])
+        l = l * alpha + p_ij.sum(-1)
+        pv = (p_ij.to(v.dtype).float().reshape(B, Hkv, -1, kv_chunk)
+              @ vc[j].float())
+        o = o * alpha[..., None] + pv.view(state + (D,))
+        m = m_new
+    out = o / l.clamp_min(1e-30)[..., None]           # (B, Hkv, nq, G, qc, D)
+    out = out.permute(0, 2, 4, 1, 3, 5).reshape(B, nq * q_chunk, Hq, D)
+    return out[:, :Sq].to(q.dtype)
+
+
+def windowed_full_attention(cfg, q, k, v, q_pos, k_pos, window: int,
+                            q_chunk: int = 512) -> torch.Tensor:
+    """Linear-cost sliding-window attention for full sequences: per query
+    chunk, only a static slice of K/V of length (window + q_chunk) is
+    attended.  Falls back to :func:`chunk_attention` when the sequence is
+    short."""
+    B, Sq, Hq, D = q.shape
+    Sk = k.shape[1]
+    span = window + q_chunk
+    if Sk <= span or Sk != Sq:
+        return chunk_attention(cfg, q, k, v, q_pos, k_pos, causal=True,
+                               window=window, q_chunk=q_chunk)
+    pq = (-Sq) % q_chunk
+    if pq:
+        q = F.pad(q, (0, 0, 0, 0, 0, pq))
+        q_pos = F.pad(q_pos, (0, pq), value=2**30)
+    nq = q.shape[1] // q_chunk
+    qc = q.reshape(B, nq, q_chunk, Hq, D)
+    qp = q_pos.reshape(nq, q_chunk)
+    outs = []
+    for i in range(nq):
+        st = min(max(i * q_chunk + q_chunk - span, 0), Sk - span)
+        outs.append(chunk_attention(
+            cfg, qc[:, i], k[:, st:st + span], v[:, st:st + span], qp[i],
+            k_pos[st:st + span], causal=True, window=window,
+            q_chunk=q_chunk, kv_chunk=min(1024, span)))
+    out = torch.stack(outs, 1).reshape(B, nq * q_chunk, Hq, D)
+    return out[:, :Sq]
+
+
 def direct_attention(cfg, q, k, v, q_pos, k_pos, *, causal: bool,
                      window: int = 0):
     """Unchunked attention for tiny Sq (decode): one contraction over the
@@ -108,7 +224,7 @@ def init_cache(cfg, kind: str, batch: int, max_len: int, dtype, device,
     if quantized:
         raise NotImplementedError(
             "int8 KV cache: not in the port's serving slice (ROADMAP queue "
-            "1, item 16, the rest of the transformer shelf)")
+            "1, item 16b, the rest of the transformer shelf)")
     L = effective_cache_len(cfg, kind, max_len)
     H, D = cfg.num_kv_heads, cfg.head_dim
     lead = tuple(lead)
@@ -166,7 +282,7 @@ def apply_attention(cfg, p, x, *, kind: str, mode: str,
     if kv_x is not None:
         raise NotImplementedError(
             "cross-attention (enc-dec): not in the port's serving slice "
-            "(ROADMAP queue 1, item 16, the rest of the transformer shelf)")
+            "(ROADMAP queue 1, item 16b, the rest of the transformer shelf)")
     window = cfg.window_size if kind in ("swa", "local") else 0
     q = _project_q(cfg, p, x)
     sin, cos = rope_frequencies(cfg, positions)
@@ -174,20 +290,27 @@ def apply_attention(cfg, p, x, *, kind: str, mode: str,
     k, v = _project_kv(cfg, p, x)
     k = apply_rope(k, sin, cos)
 
+    new_cache = None
     if mode == "decode":
         new_cache = _cache_write_decode(cache, k, v, positions)
         out = direct_attention(cfg, q, new_cache["k"], new_cache["v"],
                                positions, new_cache["slot_pos"],
                                causal=True, window=window)
-    else:                                     # train / prefill
+    elif mode == "train":
+        if window:
+            out = windowed_full_attention(cfg, q, k, v, positions, positions,
+                                          window)
+        else:
+            out = chunk_attention(cfg, q, k, v, positions, positions,
+                                  causal=True)
+    else:                                     # prefill
         # (B, S, H, D) -> (B, H, S, D) views; the kernel reads them through
         # their strides and returns its output in q's layout
         out = ops.flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=True, window=window,
             softcap=cfg.attn_softcap).transpose(1, 2)
-        new_cache = None
-        if mode == "prefill" and cache is not None:
+        if cache is not None:
             new_cache = cache_from_prefill(cache, k, v)
 
     B, S = x.shape[:2]

@@ -1,10 +1,10 @@
-"""Public model API for serving: init / prefill / decode for a
-``ModelConfig``.  Counterpart of ``repro/models/model.py``; ``cross_entropy``
-and ``loss_fn`` come with the training slice.
+"""Public model API: init / loss / prefill / decode for a ``ModelConfig``.
+Counterpart of ``repro/models/model.py``: the layer the FL step and the
+launchers consume.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -21,6 +21,34 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
                 device) -> dict:
     return T.init_caches(cfg, batch, max_len, dtype, device)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy in float32.  logits (B, S, V), labels
+    (B, S)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - ll
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: Dict, *,
+            dispatch: str = "dense", remat: bool = False,
+            aux_weight: float = 0.01) -> Tuple[torch.Tensor, dict]:
+    """Training loss: next-token CE of ``logits[:, :-1]`` against
+    ``labels[:, 1:]`` (+ the MoE aux loss, 0 until MoE is ported; so
+    ``dispatch`` selects nothing yet).  ``batch`` needs "tokens" and
+    "labels" (B, S).  A vision front end raises in ``T.forward``, as the
+    serving path does.  Returns (loss, {"ce", "aux"})."""
+    logits, _ = T.forward(cfg, params, batch, mode="train", remat=remat)
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    ce = cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 def _fresh_caches(cfg, params, tokens, max_len):

@@ -7,7 +7,10 @@ The parameter tree is the reference's: one stacked tree per position of
 unstacked in ``params["rem_layers"]``, then ``embed`` and ``final_norm``.
 The reference scans over the cycles; here a Python loop walks them through
 views of the stacked leaves, so caches written in place land in the stacked
-cache tensors.
+cache tensors.  In train mode with ``remat`` each cycle runs under
+``torch.utils.checkpoint`` (non-reentrant), the reference's
+``jax.checkpoint`` of its scan body: its activations are recomputed in the
+backward pass instead of kept.
 
 This slice covers the attention layer kinds (attn, swa, local, global) with
 a dense gated MLP and optional post-norms: gemma2-2b, h2o-danube-1.8b,
@@ -20,13 +23,14 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ATTN_KINDS, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
-_LATER = "(ROADMAP queue 1, item 16, the rest of the transformer shelf)"
+_LATER = "(ROADMAP queue 1, item 16b, the rest of the transformer shelf)"
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -142,14 +146,23 @@ def params_to_numpy(tree: Any) -> Any:
 # Forward pass
 # --------------------------------------------------------------------------
 
+def _cycles(tree: Any, n: int) -> list:
+    """The ``n`` per-cycle views of a tree stacked over cycles (one
+    ``unbind`` a leaf, so a gradient comes back as one stack)."""
+    parts = [t.unbind(0) for t in tree_leaves(tree)]
+    return [tree_unflatten(tree, [u[c] for u in parts]) for c in range(n)]
+
+
 def forward(cfg: ModelConfig, params: dict, batch: dict, *, mode: str,
-            caches: Optional[dict] = None, last_only: bool = False
-            ) -> Tuple[torch.Tensor, Optional[dict]]:
+            caches: Optional[dict] = None, last_only: bool = False,
+            remat: bool = False) -> Tuple[torch.Tensor, Optional[dict]]:
     """Run the stack.  Returns (logits, caches); the caches are the given
     ones, written in place (the reference's third value, the MoE aux loss,
-    comes with MoE).  ``batch`` holds "tokens" (B, S) and,
-    in decode, "pos" (the absolute position of the one token).
-    ``last_only`` unembeds just the final position (serving prefill)."""
+    comes with MoE; ``models.model.loss_fn`` adds 0).  ``batch`` holds
+    "tokens" (B, S) and, in decode, "pos" (the absolute position of the one
+    token).  ``last_only`` unembeds just the final position (serving
+    prefill).  ``remat`` checkpoints each cycle of the layer pattern in
+    train mode (the values are those of ``remat=False``)."""
     _check_supported(cfg)
     tokens = batch["tokens"]
     dev = tokens.device
@@ -161,14 +174,23 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *, mode: str,
                                  device=dev)
     positions = positions.to(torch.int32)
     pat = cfg.layer_pattern
+    n_cycles = cfg.num_layers // len(pat)
+    layers = [_cycles(lp, n_cycles) for lp in params["layers"]]
 
-    for c in range(cfg.num_layers // len(pat)):
+    def cycle(x, c):
         for j, kind in enumerate(pat):
-            lp = tree_map(lambda t: t[c], params["layers"][j])
             cache = (None if caches is None
                      else tree_map(lambda t: t[c], caches["layers"][j]))
-            x, _ = apply_block(cfg, kind, lp, x, mode=mode,
+            x, _ = apply_block(cfg, kind, layers[j][c], x, mode=mode,
                                positions=positions, cache=cache)
+        return x
+
+    for c in range(n_cycles):
+        if remat and mode == "train":
+            x = torch.utils.checkpoint.checkpoint(cycle, x, c,
+                                                  use_reentrant=False)
+        else:
+            x = cycle(x, c)
     for j, lp in enumerate(params["rem_layers"]):
         cache = None if caches is None else caches["rem_layers"][j]
         x, _ = apply_block(cfg, pat[j % len(pat)], lp, x, mode=mode,

@@ -148,6 +148,29 @@ def test_grouped_kernel_takes_65_leaves(cuda_device, K, dt):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 2, 4, 5, 8])
+@pytest.mark.parametrize("K", [2, 4, 16, 17])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_grouped_kernel_small_c_matches_plain(cuda_device, C, K, dt):
+    """C <= 8 (a thread sums all rows of its columns, tiles of 256 lanes):
+    LeNet's leaves (their outputs 16-byte aligned or not, as the buffer
+    lays them), an unaligned P = 4097 and a leaf 8 bytes past a 16-byte
+    boundary, in one launch; equal to plain, the same bits twice."""
+    leaves, w = _tree(LENET_P + [4097, 1024], C, K, dt, cuda_device, C + K)
+    offset = torch.empty((C * 1024 + 8,), dtype=dt, device=cuda_device)
+    shifted = offset[8 // offset.element_size():][:C * 1024].view(C, 1024)
+    shifted.copy_(leaves[-1])
+    leaves = leaves[:-1] + (shifted,)
+    before = ops.LAUNCHES["weighted_agg_multi"]
+    got = ops.weighted_agg_multi_tree(leaves, w)
+    again = ops.weighted_agg_multi_tree(leaves, w)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["weighted_agg_multi"] == before + 2
+    _assert_tree_close(got, leaves, w, dt)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
 def test_grouped_kernel_replays_in_a_cuda_graph(cuda_device):
     """The descriptor table is a kernel parameter: a captured launch
     replays to the eager call's bits."""
@@ -403,3 +426,44 @@ def test_one_rank_nccl_mesh_is_the_single_device_run(cuda_device, tmp_path):
         capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip().endswith("ok")
+
+
+@pytest.mark.cuda
+def test_grouped_kernel_past_2_31_stacked_elements(cuda_device):
+    """A tree whose big leaf holds more than 2^31 stacked elements (as
+    gemma2-2b's embedding over 4 clients does), bf16, C = 4, K = 2, in
+    column chunks (the plain version's f32 copy of the whole leaf would be
+    9 GB).  Every element within one bf16 ulp of the f32-accumulated plain
+    sum, plus the bound of a C-term f32 sum taken in another order (2 C
+    f32 ulps of sum |w x|): random rows cancel, and where a sum cancels to
+    near 0 its bf16 ulp is smaller than the f32 rounding of its terms."""
+    c, k, big = 4, 2, (1 << 29) + 4099          # 4 * big > 2^31
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    leaves = (torch.randn((c, 2304), generator=g, device=cuda_device)
+              .bfloat16(),
+              torch.randn((c, big), generator=g, device=cuda_device)
+              .bfloat16(),
+              torch.randn((c, 13), generator=g, device=cuda_device)
+              .bfloat16())
+    assert leaves[1].numel() > 2**31
+    w = torch.rand((c, k), generator=g, device=cuda_device)
+    w = (w / w.sum(0, keepdim=True)).contiguous()
+    before = ops.LAUNCHES["weighted_agg_multi"]
+    got = ops.weighted_agg_multi_tree(leaves, w)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["weighted_agg_multi"] == before + 1
+    chunk = 1 << 26
+    for out, x in zip(got, leaves):
+        assert out.shape == (k, x.shape[1]) and out.dtype == torch.bfloat16
+        for a in range(0, x.shape[1], chunk):
+            xs = x[:, a:a + chunk].float()
+            want = w.T @ xs
+            _, e = torch.frexp(want)
+            ulp = (torch.ldexp(torch.ones_like(want), (e - 8).clamp_min(-133))
+                   + 2 * c * 2.0**-24 * (w.T @ xs.abs()))
+            err = (out[:, a:a + chunk].float() - want).abs()
+            assert bool((err <= ulp).all()), float((err / ulp).max())
+            ref_out = ref.weighted_agg_multi_ref(x[:, a:a + chunk], w)
+            assert float((out[:, a:a + chunk].float()
+                          - ref_out.float()).abs().max()) <= float(
+                ulp.max())

@@ -154,20 +154,35 @@ def _async_telemetry():
     assert outs.flushes.tolist() == telem.flushes.tolist()
 
 
+def _transformer_train():
+    from repro_torch.launch import train
+    res = train.train(rounds=1, device="cpu", smoke=True)
+    assert len(res.rounds) == 1 and np.isfinite(res.rounds[0].ce)
+
+
+def _train_dry_run():
+    from repro_torch.launch import train
+    train.main(["--dry-run", "--device", "cpu"])
+
+
 @pytest.mark.parametrize("call,exc,match", [
     (_sweep_async, ValueError, "sync-only"),
     (_async_factorized, ValueError, "sync-engine-only"),
     (_async_telemetry, None, None),
     (_sweep_mesh, ValueError, "client mesh"),
+    (_transformer_train, None, None),
+    (_train_dry_run, NotImplementedError, "queue 1, item 16b"),
 ], ids=["run_sweep-async", "async-factorized", "async-telemetry",
-        "run_sweep-mesh"])
+        "run_sweep-mesh", "transformer-train", "train-dry-run"])
 def test_other_engines_name_their_roadmap_slice(call, exc, match):
     """What the engines still refuse, with the reference's errors: a seed
     sweep of an async method, per-client-clock routing on a factorized
     plan, and a seed sweep on a client mesh (slice 12 ported the mesh for
     ``api.run``; the reference's ``run_sweep`` refuses one too).
     Telemetry (slice 13) is ported: that case runs (``exc`` None) and
-    returns the reference's ``(AsyncOutput, Telemetry)`` pair."""
+    returns the reference's ``(AsyncOutput, Telemetry)`` pair.  Transformer
+    training (slice 16) is ported: a smoke round of the launcher runs; its
+    dry run (lower and compile) is slice 16b's and names it."""
     if exc is None:
         call()
         return
@@ -237,7 +252,7 @@ import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 sys.path.insert(0, "examples")
-for name in names + ["chip_smoke", "quickstart_torch"]:
+for name in names + ["chip_smoke", "quickstart_torch", "fl_transformer_torch"]:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))

@@ -208,7 +208,7 @@ def _blocks(pl, ps, k=None):
         for b in range(grid):
             tile, pas = divmod(b, pl.passes)
             leaf = group[max(j for j, f in enumerate(firsts) if f <= tile)]
-            width = 32 * pl.vec[leaf]
+            width = pl.lanes * pl.vec[leaf]
             t = tile - pl.first[leaf]
             yield (leaf, t * width, min(ps[leaf], (t + 1) * width),
                    pas * pl.kmax, min(k, (pas + 1) * pl.kmax))
@@ -251,7 +251,7 @@ def test_plan_grouped_covers_every_column_and_row_once(C, K, dtype):
     cols = [np.zeros((K, p), np.int64) for p in LENET_P]
     for leaf, lo, hi, k0, k1 in _blocks(pl, LENET_P, K):
         assert 0 <= lo < hi <= LENET_P[leaf] and 0 <= k0 < k1 <= K
-        assert hi - lo <= 32 * pl.vec[leaf] and k1 - k0 <= pl.kmax
+        assert hi - lo <= pl.lanes * pl.vec[leaf] and k1 - k0 <= pl.kmax
         cols[leaf][k0:k1, lo:hi] += 1
     for leaf, c in enumerate(cols):
         assert (c == 1).all(), leaf
@@ -265,6 +265,27 @@ def test_plan_grouped_covers_every_column_and_row_once(C, K, dtype):
     assert pl.vec == tuple(wide if a else 1 for a in _lenet_aligned(dtype))
     if dtype == torch.float32:                   # the FL stage-1
         assert pl.blocks >= 2 * 132
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [2, 16, 17])
+@pytest.mark.parametrize("C", [1, 4, 8, 9])
+def test_plan_grouped_small_c_gives_a_thread_every_row(C, K, dtype):
+    """At C <= SMALL_C_ROWS (8) a column tile is THREADS lanes wide and
+    each thread sums every row of its columns; at C = 9 the warps share
+    the rows again over 32-lane tiles.  Every (column, cluster) of every
+    leaf in exactly one block either way."""
+    pl = wagg_launcher.plan_grouped(LENET_P, C, K, dtype,
+                                    _lenet_aligned(dtype))
+    small = C <= wagg_launcher.SMALL_C_ROWS
+    assert pl.lanes == (wagg_launcher.THREADS if small else 32)
+    assert pl.tiles == tuple(-(-p // (pl.lanes * v))
+                             for p, v in zip(LENET_P, pl.vec))
+    cols = [np.zeros((K, p), np.int64) for p in LENET_P]
+    for leaf, lo, hi, k0, k1 in _blocks(pl, LENET_P, K):
+        assert hi - lo <= pl.lanes * pl.vec[leaf]
+        cols[leaf][k0:k1, lo:hi] += 1
+    assert all((c == 1).all() for c in cols)
 
 
 def test_plan_grouped_refuses_what_the_kernel_does_not_take():
@@ -296,8 +317,8 @@ def _emulate_grouped(stacks, w, pl):
     """The grouped kernel's arithmetic on the CPU: walk the plan's blocks
     (every launch, every pass); in a block, warp i accumulates its rows
     (i, i + 8, ...) in row order for the pass's clusters and the block sums
-    its warps in warp order.  f32 throughout, output in the stack's
-    dtype."""
+    its warps in warp order; at C <= 8 each thread sums all rows in row
+    order.  f32 throughout, output in the stack's dtype."""
     c, k = w.shape
     ps = [x.shape[1] for x in stacks]
     outs = [torch.zeros((k, p)) for p in ps]
@@ -305,6 +326,12 @@ def _emulate_grouped(stacks, w, pl):
     for leaf, lo, hi, k0, k1 in _blocks(pl, ps, k):
         x = stacks[leaf][:, lo:hi].float()
         wk = w[:, k0:k1]
+        if pl.lanes == wagg_launcher.THREADS:   # C <= 8: a thread, all rows
+            block = torch.zeros((k1 - k0, hi - lo))
+            for j in range(c):
+                block = block + wk[j, :, None] * x[j, None, :]
+            outs[leaf][k0:k1, lo:hi] = block
+            continue
         acc = torch.zeros((warps, k1 - k0, hi - lo))
         for j in range(0, c, warps):            # row j + i to warp i
             n = min(warps, c - j)
@@ -329,6 +356,10 @@ def _emulate_grouped(stacks, w, pl):
     (45, 40, "float32", LENET_P),            # three passes, the last of 8
     (24, 4, "float32", [40 + 3 * i for i in range(65)]),   # 2 launches
     (24, 17, "bfloat16", [8 * (i % 5 + 1) for i in range(65)]),
+    (4, 2, "bfloat16", LENET_P),             # C <= 8: a thread, all rows
+    (8, 17, "float32", LENET_P),
+    (1, 4, "float32", LENET_P),
+    (5, 16, "bfloat16", [8 * (i % 5 + 1) for i in range(65)]),
 ])
 def test_grouped_kernel_order_matches_plain(C, K, dt, ps):
     """The CPU emulation of the kernel's summation order equals the plain

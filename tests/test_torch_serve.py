@@ -125,7 +125,8 @@ def test_port_and_chip_smoke_import_no_jax():
     """Every module of the port imports with ``jax`` and ``repro`` blocked,
     and neither the port nor chip_smoke.py names them in an import."""
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    extra = [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
+    extra = [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
+             ROOT / "examples" / "fl_transformer_torch.py"]
     for f in files + extra:
         for line in f.read_text().splitlines():
             assert not re.match(_BLOCK, line), f"{f}: {line}"
@@ -141,7 +142,7 @@ class Block(importlib.abc.MetaPathFinder):
             raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, Block())
 sys.path.insert(0, "examples")
-for m in {mods!r} + ["quickstart_torch"]:
+for m in {mods!r} + ["quickstart_torch", "fl_transformer_torch"]:
     importlib.import_module(m)
 print(len({mods!r}))
 """
