@@ -32,7 +32,11 @@ sharded bar), serves the full
 gemma2-2b (26 layers, bf16, random weights) through
 ``repro_torch.launch.serve.serve_batch`` with a prompt longer than its
 4096-token window, checks prefill + decode against a longer prefill,
-profiles one prefill, trains the full gemma2-2b through
+profiles one prefill, serves the recurrent families the same way at full
+width and depth (mamba2-1.3b, 48 SSD layers; recurrentgemma-2b, whose 8
+local layers go through the bf16 flash kernel, held at that shape in
+``kernels_vs_plain``), with one decode step each at the published
+``decode_32k`` and ``long_500k`` shapes, trains the full gemma2-2b through
 ``repro_torch.launch.train.train`` (4 clients stacked on the card, K = 2,
 4096-token sequences, 3 rounds with stage-2 in round 2; round 1's stage-1
 held against the plain version on its own stack and timed; one stage-1
@@ -135,6 +139,30 @@ CONSIST_TOL_F32 = 1e-4
 # carries through 26 residual layers; two ulps of a bf16 logit near the
 # +-30 cap (0.125 each)
 CONSIST_TOL_BF16 = 0.25
+# the recurrent families (phase serve_recurrent): mamba2-1.3b (48 SSD
+# layers) and recurrentgemma-2b (8 cycles of rglru, rglru, local + 2 rglru),
+# each at full width and depth in bf16, served as gemma2-2b is; then one
+# pattern cycle in f32 (mamba2 2 layers, recurrentgemma 3) past the
+# 2048-token window, and one decode step at the published decode shapes
+RECURRENT_ARCHS = ("mamba2-1.3b", "recurrentgemma-2b")
+RECURRENT_F32_LAYERS = {"mamba2-1.3b": 2, "recurrentgemma-2b": 3}
+RECURRENT_F32_PROMPT = 2560   # > recurrentgemma's window 2048
+RECURRENT_DECODE_SHAPES = ("decode_32k", "long_500k")
+DECODE_SHAPE_STEPS = 5        # timed steps at each decode shape
+# recurrentgemma's local layers: B, Hq, Hkv, S, D, window; no soft-cap
+FLASH_RG_LOCAL = (SERVE_BATCH, 10, 1, SERVE_PROMPT, 256, 2048)
+# prefill + decode against a longer prefill for the recurrent models.  f32
+# over one cycle: the chunked SSD and the log-depth scan against their
+# one-step recurrences differ by float32 rounding (~1e-5 on logits of rms
+# ~1, measured on the CPU at full width), so the gemma2 bar, 1e-4, holds.
+# bf16 at full depth: logits have rms ~1 and no cap; each side rounds
+# activations to bf16 after differently ordered sums and the flips grow
+# with depth (on the CPU, mamba2 at full width: max 0.058 / 0.186 / 0.257
+# and rms 0.010 / 0.032 / 0.049 at 4 / 8 / 16 layers).  A stale state
+# gives errors of the logits' own size (rms ~1.4).  So: max <= 1.0 and
+# rms <= 0.25 of the logits' rms.
+CONSIST_REC_MAX_BF16 = 1.0
+CONSIST_REC_RMS_BF16 = 0.25
 
 
 def emit(obj) -> None:
@@ -476,9 +504,9 @@ def flash_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
 
 def flex_attention_call(s: int, window: int, cap: float):
     """The one PyTorch call that computes flash_attention's function:
-    ``flex_attention`` compiled with a soft-cap ``score_mod``, a causal /
-    window block mask and ``enable_gqa``.  A yardstick only: the port never
-    calls it."""
+    ``flex_attention`` compiled with a soft-cap ``score_mod`` (none at cap
+    0), a causal / window block mask and ``enable_gqa``.  A yardstick only:
+    the port never calls it."""
     import torch
     from torch.nn.attention.flex_attention import (create_block_mask,
                                                    flex_attention)
@@ -491,8 +519,57 @@ def flex_attention_call(s: int, window: int, cap: float):
         return live & (ki > qi - window) if window else live
     mask = create_block_mask(band, None, None, s, s, device=DEV)
     fn = torch.compile(flex_attention)
-    return lambda q, k, v: fn(q, k, v, score_mod=softcap, block_mask=mask,
+    mod = softcap if cap else None
+    return lambda q, k, v: fn(q, k, v, score_mod=mod, block_mask=mask,
                               enable_gqa=True)
+
+
+def bf16_flash_layer(q, k, v, window: int, cap: float, flex) -> dict:
+    """The bf16 flash kernel at one layer's shape (causal): one launch on
+    the tensor cores held against the plain version at the layer bars,
+    then timed beside the plain version, ``flex`` (the same function in one
+    PyTorch call) and the bound."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    b, hq, s, d = q.shape
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert ops.FLASH_ROUTES == {"tensor_cores": 1, "cuda_cores": 0}
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    want = ref.flash_attention_ref(q, k, v, window=window, softcap=cap)
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=FLASH_LAYER_RTOL_BF16,
+                               atol=FLASH_LAYER_ATOL_BF16)
+    diff = got.float() - want.float()
+    err = float(diff.abs().max())
+    rel_rms = float(diff.square().mean().sqrt()
+                    / want.float().square().mean().sqrt())
+    lib_err = float((flex(q, k, v).float() - want.float()).abs().max())
+    del got, want, diff
+    pairs = b * hq * flash_pairs(s, s, True, window)
+    n_ops = 4 * d * pairs
+    n_bytes = 2 * (2 * q.numel() + 2 * k.numel())
+    kernel_ms = device_ms(
+        lambda: ops.flash_attention(q, k, v, window=window, softcap=cap),
+        reps=2, samples=5)
+    bound_ms = max(n_bytes / HBM_BYTES_PER_S, n_ops / BF16_FLOPS) * 1e3
+    return {
+        "route": "tensor_cores", "max_abs_err": err, "rel_rms_err": rel_rms,
+        "ms": kernel_ms,
+        "plain_ms": device_ms(
+            lambda: ref.flash_attention_ref(q, k, v, window=window,
+                                            softcap=cap),
+            reps=1, samples=3),
+        "library_ms": device_ms(lambda: flex(q, k, v), reps=2, samples=5),
+        "library_max_abs_err": lib_err,
+        "bound_ms": bound_ms,
+        "bound_by": ("bytes" if n_bytes / HBM_BYTES_PER_S
+                     >= n_ops / BF16_FLOPS else "operations"),
+        "share_of_bound": bound_ms / kernel_ms,
+        "live_pairs": pairs, "gflop": n_ops / 1e9,
+        "tflop_per_s": n_ops / kernel_ms / 1e9,
+    }
 
 
 def check_flash(gen):
@@ -555,50 +632,17 @@ def check_flash(gen):
         f32_lib_ms = device_ms(lambda: flex(q, k, v), reps=1, samples=3)
         q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
         del got, want
-        ops.reset_launches()
-        got = ops.flash_attention(q, k, v, window=window, softcap=cap)
-        torch.cuda.synchronize()
-        assert ops.FLASH_ROUTES == {"tensor_cores": 1, "cuda_cores": 0}
-        want = ref.flash_attention_ref(q, k, v, window=window, softcap=cap)
-        torch.testing.assert_close(got.float(), want.float(),
-                                   rtol=FLASH_LAYER_RTOL_BF16,
-                                   atol=FLASH_LAYER_ATOL_BF16)
-        diff = got.float() - want.float()
-        err = float(diff.abs().max())
-        rel_rms = float(diff.square().mean().sqrt()
-                        / want.float().square().mean().sqrt())
-        lib_err = float((flex(q, k, v).float() - want.float()).abs().max())
-        del got, want, diff
-        pairs = b * hq * flash_pairs(s, s, True, window)
-        n_ops = 4 * d * pairs
-        n_bytes = 2 * (2 * q.numel() + 2 * k.numel())
-        kernel_ms = device_ms(
-            lambda: ops.flash_attention(q, k, v, window=window, softcap=cap),
-            reps=2, samples=5)
-        bound_ms = max(n_bytes / HBM_BYTES_PER_S, n_ops / BF16_FLOPS) * 1e3
+        row = bf16_flash_layer(q, k, v, window, cap, flex)
+        n_ops = 4 * d * row["live_pairs"]
         layers[kind] = {
-            "window": window, "route": "tensor_cores", "max_abs_err": err,
-            "rel_rms_err": rel_rms, "ms": kernel_ms,
-            "plain_ms": device_ms(
-                lambda: ref.flash_attention_ref(q, k, v, window=window,
-                                                softcap=cap),
-                reps=1, samples=3),
-            "library_ms": device_ms(lambda: flex(q, k, v), reps=2,
-                                    samples=5),
+            "window": window, **row,
             "library": "flex_attention (soft-cap score_mod, band block "
                        "mask, enable_gqa; torch.compile)",
-            "library_max_abs_err": lib_err,
             "sdpa_ms": device_ms(
                 lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=True, enable_gqa=True),
                 reps=2, samples=5),
             "sdpa": "a different function: causal, no soft-cap, no window",
-            "bound_ms": bound_ms,
-            "bound_by": ("bytes" if n_bytes / HBM_BYTES_PER_S
-                         >= n_ops / BF16_FLOPS else "operations"),
-            "share_of_bound": bound_ms / kernel_ms,
-            "live_pairs": pairs, "gflop": n_ops / 1e9,
-            "tflop_per_s": n_ops / kernel_ms / 1e9,
             "f32": {"route": "cuda_cores", "max_abs_err": err_f32,
                     "ms": f32_ms, "plain_ms": f32_plain_ms,
                     "library_ms": f32_lib_ms,
@@ -630,6 +674,31 @@ def check_flash(gen):
                  "(window 4096) layers of B=2, Hq=8, Hkv=4, S=8192, D=256, "
                  "bf16, soft-cap 50",
     }
+
+
+def check_flash_rg_local(gen) -> dict:
+    """The bf16 flash kernel at recurrentgemma-2b's local layer shape (B =
+    2, Hq = 10 over Hkv = 1, S = 8192, D = 256, window 2048, no soft-cap),
+    as the model hands it over: (B, S, H, D) activations as transposed
+    views, the size-1 head dimension included.  Held against the plain
+    version at gemma2's layer bars, which imply FLASH_TOL_BF16, and timed
+    (``bf16_flash_layer``), ``flex_attention`` with the same mask."""
+    import torch
+    b, hq, hkv, s, d, window = FLASH_RG_LOCAL
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device=DEV)
+               .bfloat16().transpose(1, 2) for h in (hq, hkv, hkv))
+    out = {**bf16_flash_layer(q, k, v, window, 0.0,
+                              flex_attention_call(s, window, 0.0)),
+           "tol": {"rtol": FLASH_LAYER_RTOL_BF16,
+                   "atol": FLASH_LAYER_ATOL_BF16},
+           "library": "flex_attention (band block mask, enable_gqa; "
+                      "torch.compile)",
+           "shape": "one recurrentgemma-2b local layer: B=2, Hq=10, Hkv=1, "
+                    "S=8192, D=256, window 2048, bf16, no soft-cap"}
+    del q, k, v
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def short_kernel_name(row: dict) -> dict:
@@ -676,7 +745,9 @@ def last_logits_consistency(cfg, params, prompts):
                                  s + 1)
         step, _ = decode_step(cfg, params, caches, prompts[:, s:], s)
         del caches
-    full, step = full.float(), step[:, 0].float()
+    # the real vocab: the padded entries are -1e30 on both sides
+    full = full[:, :cfg.vocab_size].float()
+    step = step[:, 0, :cfg.vocab_size].float()
     assert torch.isfinite(full).all() and torch.isfinite(step).all()
     diff = (full - step).abs()
     return {"max_abs_err": float(diff.max()),
@@ -741,6 +812,143 @@ def profile_serving(cfg, params, prompts, prefill_wall_s: float) -> dict:
             "prefill": summary(pre, prefill_wall_s * 1e3),
             "decode_steps": DECODE_STEPS,
             "decode": summary(dec, decode_wall_ms)}
+
+
+def decode_at_shape(cfg, params, shape_name: str, gen) -> dict:
+    """One decode step of ``cfg`` at a published decode shape through
+    ``launch/steps.py::build_decode_step``, on fresh caches from
+    ``init_caches`` at the shape's length, at its last position: logits
+    finite and of the bundle's shape, then DECODE_SHAPE_STEPS more steps
+    timed (host clock, synchronized; median), with the peak memory and the
+    caches' bytes."""
+    import torch
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.steps import build_decode_step
+    from repro_torch.models import init_caches
+    from repro_torch.tree import tree_leaves
+    shape = SHAPES[shape_name]
+    b, pos = shape.global_batch, shape.seq_len - 1
+    bundle = build_decode_step(cfg.name, shape)
+    assert bundle.meta["dtype"] == cfg.dtype, bundle.meta
+    torch.cuda.reset_peak_memory_stats()
+    caches = init_caches(cfg, b, shape.seq_len, getattr(torch, cfg.dtype),
+                         DEV)
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(caches))
+    token = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen,
+                          device=DEV)
+    times = []
+    with torch.inference_mode():
+        logits, caches = bundle.fn(params, caches, token, pos)
+        torch.cuda.synchronize()
+        assert logits.shape == (b, cfg.vocab_padded), logits.shape
+        assert torch.isfinite(logits[:, :cfg.vocab_size].float()).all()
+        for _ in range(DECODE_SHAPE_STEPS):
+            t0 = time.perf_counter()
+            bundle.fn(params, caches, token, pos)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    out = {"batch": b, "pos": pos, "ms_per_step": ms, "step_ms": times,
+           "tokens_per_s": b / ms * 1e3, "cache_bytes": cache_bytes,
+           "peak_device_mem_mb": torch.cuda.max_memory_allocated() / 1e6}
+    del caches, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_recurrent_phase(arch: str) -> tuple:
+    """A recurrent family at full width and depth in bf16, random weights
+    from a seeded generator: ``serve_batch`` twice (B = 2, an 8192-token
+    prompt, 32 new tokens; greedy tokens equal; flash launches counted from
+    0 around each run: recurrentgemma's 8 local layers on the tensor cores,
+    mamba2 none), prefill + decode against a longer prefill (bf16 at full
+    depth over 8191 + 1 tokens, f32 over one pattern cycle past the
+    window), one decode step at each published decode shape, and one
+    prefill and DECODE_STEPS decode steps under torch.profiler.  Returns
+    (the phase line, the profile line, the flash launches a prefill)."""
+    import torch
+    from repro_torch.configs import get_config, replace
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import init_params, param_count
+    cfg = get_config(arch)
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen)            # bf16, the config's dtype
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=gen, device=DEV)
+    n_local = sum(k == "local" for k in cfg.layer_kinds())
+    runs, launches, routes = [], [], []
+    for _ in range(2):
+        ops.reset_launches()
+        runs.append(serve_batch(cfg, params, prompts, SERVE_TOKENS,
+                                device=DEV))
+        launches.append(dict(ops.LAUNCHES))
+        routes.append(dict(ops.FLASH_ROUTES))
+    for count, route in zip(launches, routes):
+        # every local layer of the prefill on the tensor cores, once
+        assert route == {"tensor_cores": n_local, "cuda_cores": 0}, route
+        assert count == {**{key: 0 for key in count},
+                         "flash_attention": n_local}, count
+    for res in runs:
+        assert res.tokens.shape == (SERVE_BATCH, SERVE_TOKENS)
+        assert 0 <= int(res.tokens.min()) <= int(res.tokens.max()) \
+            < cfg.vocab_size
+    assert torch.equal(runs[0].tokens, runs[1].tokens), "greedy decode differs"
+
+    consist = {}
+    bf16 = last_logits_consistency(cfg, params, prompts)
+    bf16["rms_err_share"] = bf16["rms_err"] / bf16["logit_rms"]
+    assert bf16["max_abs_err"] <= CONSIST_REC_MAX_BF16, bf16
+    assert bf16["rms_err_share"] <= CONSIST_REC_RMS_BF16, bf16
+    consist[f"bf16_{cfg.num_layers}_layers"] = {
+        **bf16, "tol": {"max_abs_err": CONSIST_REC_MAX_BF16,
+                        "rms_err_share": CONSIST_REC_RMS_BF16},
+        "prompt": SERVE_PROMPT - 1}
+    decode = {name: decode_at_shape(cfg, params, name, gen)
+              for name in RECURRENT_DECODE_SHAPES}
+    profile = profile_serving(cfg, params, prompts, runs[1].prefill_s)
+    n_params = param_count(params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    n32 = RECURRENT_F32_LAYERS[arch]
+    cfg32 = replace(cfg, num_layers=n32, dtype="float32")
+    p32 = init_params(cfg32, gen)
+    ops.reset_launches()
+    f32 = last_logits_consistency(cfg32, p32,
+                                  prompts[:, :RECURRENT_F32_PROMPT + 1])
+    f32_routes = dict(ops.FLASH_ROUTES)      # two prefills of n32 layers
+    n32_local = sum(k == "local" for k in cfg32.layer_kinds())
+    assert f32_routes == {"tensor_cores": 0,
+                          "cuda_cores": 2 * n32_local}, f32_routes
+    assert f32["max_abs_err"] <= CONSIST_TOL_F32, f32
+    consist[f"f32_{n32}_layers"] = {**f32, "tol": CONSIST_TOL_F32,
+                                    "prompt": RECURRENT_F32_PROMPT,
+                                    "flash_routes": f32_routes}
+    del p32, prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+    line = {"phase": "serve_recurrent", "arch": cfg.name,
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "layer_kinds": {k: cfg.layer_kinds().count(k)
+                            for k in cfg.layer_pattern},
+            "params": n_params, "dtype": cfg.dtype, "batch": SERVE_BATCH,
+            "prompt": SERVE_PROMPT, "new_tokens": SERVE_TOKENS,
+            "init_s": init_s, "launches": launches[0],
+            "flash_routes": routes[0],
+            "runs": [{"prefill_s": r.prefill_s, "decode_s": r.decode_s,
+                      "decode_tokens_per_s": r.decode_tokens_per_s,
+                      "peak_device_mem_mb": r.peak_device_mem_mb}
+                     for r in runs],
+            "first_tokens": runs[0].tokens[:, :8].tolist(),
+            "consistency": consist, "decode_shapes": decode}
+    return line, profile, routes[0]["tensor_cores"]
 
 
 def profile_round_loop(sc) -> dict:
@@ -2237,9 +2445,11 @@ def main() -> int:
     km = check_kmeans(gen)
     wagg1 = check_weighted_agg_single(gen)
     flash = check_flash(gen)
+    flash_rg = check_flash_rg_local(gen)
     emit({"phase": "kernels_vs_plain", "weighted_agg_multi": wagg,
           "kmeans_assign": km, "weighted_agg": wagg1,
-          "flash_attention": flash, "launch_floor_ms": km["launch_floor_ms"]})
+          "flash_attention": flash, "flash_attention_rg_local": flash_rg,
+          "launch_floor_ms": km["launch_floor_ms"]})
     gc.collect()            # the checks' tensors and graphs: out of the
     torch.cuda.empty_cache()  # main path's peak-memory readings
 
@@ -2429,6 +2639,17 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---- 8a. the recurrent families at full width and depth: mamba2-1.3b
+    # (no flash launch) and recurrentgemma-2b (its 8 local layers through
+    # the bf16 flash kernel); the counts are set to 0 before each serving
+    # run and read after it
+    rec_flash = {}
+    for arch in RECURRENT_ARCHS:
+        line, prof, rec_flash[arch] = serve_recurrent_phase(arch)
+        emit(line)
+        emit(prof)
+    assert rec_flash == {"mamba2-1.3b": 0, "recurrentgemma-2b": 8}, rec_flash
+
     # ---- 8b. transformer FL training: gemma2-2b, 4 clients on the card,
     # stage-1 through the kernel; the counts are set to 0 before each run
     # and read after it
@@ -2477,6 +2698,15 @@ def main() -> int:
                      "bound_by", "library_ms")},
                  "shape": "one stage-1: 10 LeNet leaves, C=800, K=32, f32, "
                           "two passes of 16 clusters"})
+    # the same kernel at recurrentgemma-2b's local layers: 8 launches a
+    # prefill of its serving run
+    rows.append({"name": "flash_attention_rg_local", "route": "cuda",
+                 "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
+                 "replaces": "src/repro/kernels/flash_attention.py:88",
+                 "launches": rec_flash["recurrentgemma-2b"],
+                 **{key: flash_rg[key] for key in (
+                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                     "library_ms", "shape")}})
     rows.append(train_row)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

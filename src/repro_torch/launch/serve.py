@@ -7,8 +7,11 @@ decode with ring-buffer KV caches.
 The port's counterpart of ``examples/serve_batch.py`` and, on one card, of
 ``launch/serve.py``: the full-size config by default (``--smoke`` takes its
 ``smoke_variant``), random weights from ``--seed``, on ``cuda`` unless
-``--device cpu`` is asked for (no fallback).  Prints one JSON line with the
-timings and the first generated tokens.
+``--device cpu`` is asked for (no fallback).  Any arch the port's stack
+covers: the attention models and the recurrent ones, ``mamba2-1.3b`` (SSD
+state caches) and ``recurrentgemma-2b`` (RG-LRU states beside ring-buffer
+caches for its local layers).  Prints one JSON line with the timings and
+the first generated tokens.
 """
 from __future__ import annotations
 

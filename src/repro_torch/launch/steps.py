@@ -308,7 +308,8 @@ def cache_spec_tree(cache_structs, batch_axes, mesh):
             # (B, L, H, D) / (B, L, H)
             seq_ax = "model" if tree.shape[lead + 1] % msize == 0 else None
             return rules.P(*((None,) * lead), batch_axes, seq_ax)
-        # recurrent state (slice 16b): the batch dim only
+        # ssd "h" (B,H,P,N) / rglru "h" (B,W) / "conv" (B,K-1,C): the
+        # batch dim only
         return rules.P(*((None,) * lead), batch_axes)
 
     return walk(cache_structs, ())

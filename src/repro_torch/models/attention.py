@@ -33,8 +33,8 @@ whose arrays are immutable, the port writes prefill and decode results into
 the cache tensors in place (the caller's dict is updated and returned), so a
 decode step does not copy a 26-layer cache.
 
-Not in this slice: cross-attention (``kv_x``, enc-dec) and the int8 cache
-(``quantized=True``), which raise ``NotImplementedError``.
+Not in the port yet: cross-attention (``kv_x``, enc-dec) and the int8
+cache (``quantized=True``), which raise ``NotImplementedError``.
 """
 from __future__ import annotations
 

@@ -12,9 +12,12 @@ cache tensors.  In train mode with ``remat`` each cycle runs under
 ``jax.checkpoint`` of its scan body: its activations are recomputed in the
 backward pass instead of kept.
 
-This slice covers the attention layer kinds (attn, swa, local, global) with
-a dense gated MLP and optional post-norms: gemma2-2b, h2o-danube-1.8b,
-granite-3-8b, qwen2-72b and pixtral-12b's text stack.  RG-LRU, SSD, MoE and
+The port covers the attention layer kinds (attn, swa, local, global) with
+a dense gated MLP and optional post-norms (gemma2-2b, h2o-danube-1.8b,
+granite-3-8b, qwen2-72b and pixtral-12b's text stack), and the recurrent
+kinds: Mamba-2 SSD blocks (``models/ssm.py``; no MLP, no second norm:
+mamba2-1.3b) and RG-LRU blocks (``models/rglru.py``, with the MLP:
+recurrentgemma-2b, beside its local attention layers).  MoE and
 encoder-decoder models raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -28,17 +31,14 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ATTN_KINDS, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 _LATER = "(ROADMAP queue 1, item 16b, the rest of the transformer shelf)"
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    for kind in cfg.layer_pattern:
-        if kind not in ATTN_KINDS:
-            raise NotImplementedError(
-                f"{cfg.name}: layer kind {kind!r} (RG-LRU / SSD) is not in "
-                f"the port's serving slice {_LATER}")
     if cfg.num_experts:
         raise NotImplementedError(f"{cfg.name}: MoE is not in the port's "
                                   f"serving slice {_LATER}")
@@ -55,27 +55,46 @@ def _check_supported(cfg: ModelConfig) -> None:
 def init_block(cfg, kind: str, gen, dtype, device, lead=()) -> dict:
     """One block's parameters, with a leading ``lead`` shape (the cycle
     dimension of a stacked pattern position)."""
-    p: Dict[str, Any] = {"norm1": L.init_norm(cfg, dtype, device, lead),
-                         "attn": attn.init_attention(cfg, gen, dtype, device,
-                                                     lead),
-                         "norm2": L.init_norm(cfg, dtype, device, lead),
-                         "mlp": L.init_mlp(cfg, gen, dtype, device, lead)}
+    p: Dict[str, Any] = {"norm1": L.init_norm(cfg, dtype, device, lead)}
+    if kind in ATTN_KINDS:
+        p["attn"] = attn.init_attention(cfg, gen, dtype, device, lead)
+    elif kind == "rglru":
+        p["rglru"] = rglru_lib.init_rglru(cfg, gen, dtype, device, lead)
+    elif kind == "ssd":
+        p["ssd"] = ssm_lib.init_ssd(cfg, gen, dtype, device, lead)
+    else:
+        raise ValueError(kind)
+    if kind != "ssd":                                   # mamba2 has no MLP
+        p["norm2"] = L.init_norm(cfg, dtype, device, lead)
+        p["mlp"] = L.init_mlp(cfg, gen, dtype, device, lead)
     if cfg.post_norm:
         p["postnorm1"] = L.init_norm(cfg, dtype, device, lead)
-        p["postnorm2"] = L.init_norm(cfg, dtype, device, lead)
+        if kind != "ssd":
+            p["postnorm2"] = L.init_norm(cfg, dtype, device, lead)
     return p
 
 
 def apply_block(cfg, kind: str, p: dict, x, *, mode: str, positions,
                 cache=None):
-    """Returns (x, cache)."""
+    """Returns (x, cache), the cache written in place."""
     h = L.apply_norm(cfg, p["norm1"], x)
-    h, new_cache = attn.apply_attention(cfg, p["attn"], h, kind=kind,
-                                        mode=mode, positions=positions,
-                                        cache=cache)
+    if kind in ATTN_KINDS:
+        h, new_cache = attn.apply_attention(cfg, p["attn"], h, kind=kind,
+                                            mode=mode, positions=positions,
+                                            cache=cache)
+    elif kind == "rglru":
+        h, new_cache = rglru_lib.apply_rglru(cfg, p["rglru"], h, mode=mode,
+                                             cache=cache)
+    elif kind == "ssd":
+        h, new_cache = ssm_lib.apply_ssd(cfg, p["ssd"], h, mode=mode,
+                                         cache=cache)
+    else:
+        raise ValueError(kind)
     if cfg.post_norm:
         h = L.apply_norm(cfg, p["postnorm1"], h)
     x = x + h
+    if kind == "ssd":
+        return x, new_cache
     h = L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["norm2"], x))
     if cfg.post_norm:
         h = L.apply_norm(cfg, p["postnorm2"], h)
@@ -107,16 +126,23 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
                 device) -> dict:
-    """Cache tree matching the layer structure (stacked over cycles)."""
+    """Cache tree matching the layer structure (stacked over cycles): a
+    ring-buffer KV cache for an attention layer, the recurrent state for
+    an SSD or RG-LRU layer."""
     pat = cfg.layer_pattern
     n_cycles = cfg.num_layers // len(pat)
     rem = cfg.num_layers % len(pat)
-    return {"layers": tuple(attn.init_cache(cfg, kind, batch, max_len, dtype,
-                                            device, lead=(n_cycles,))
-                            for kind in pat),
-            "rem_layers": tuple(attn.init_cache(cfg, pat[j], batch, max_len,
-                                                dtype, device)
-                                for j in range(rem))}
+
+    def one(kind, lead=()):
+        if kind in ATTN_KINDS:
+            return attn.init_cache(cfg, kind, batch, max_len, dtype, device,
+                                   lead=lead)
+        if kind == "ssd":
+            return ssm_lib.init_ssd_cache(cfg, batch, dtype, device, lead)
+        return rglru_lib.init_rglru_cache(cfg, batch, dtype, device, lead)
+
+    return {"layers": tuple(one(kind, (n_cycles,)) for kind in pat),
+            "rem_layers": tuple(one(pat[j]) for j in range(rem))}
 
 
 def params_from_numpy(tree: Any, device) -> Any:

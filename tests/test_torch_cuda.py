@@ -467,3 +467,59 @@ def test_grouped_kernel_past_2_31_stacked_elements(cuda_device):
             assert float((out[:, a:a + chunk].float()
                           - ref_out.float()).abs().max()) <= float(
                 ulp.max())
+
+
+@pytest.mark.cuda
+def test_flash_attention_at_recurrentgemma_local_layers(cuda_device):
+    """recurrentgemma-2b's local layer shape at a shortened length: Hq = 10
+    over Hkv = 1 (group 10), D = 256, window 2048 < S, no soft-cap, from
+    the model's (B, S, H, D) layout (the size-1 head dimension's stride
+    set for TMA), on the tensor cores.  Held at chip_smoke's layer bars
+    (rtol 1e-2, atol 1e-3): outputs are ~0.02 here, so the sweep's 4e-2
+    would pass a dropped kv tile."""
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    q, k, v = (torch.randn((1, 2600, h, 256), generator=g,
+                           device=cuda_device).bfloat16().transpose(1, 2)
+               for h in (10, 1, 1))
+    before = dict(ops.FLASH_ROUTES)
+    got = ops.flash_attention(q, k, v, window=2048)
+    torch.cuda.synchronize()
+    assert ops.FLASH_ROUTES["tensor_cores"] == before["tensor_cores"] + 1
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    want = ref.flash_attention_ref(q, k, v, window=2048)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b"])
+def test_recurrent_serving_on_the_card_matches_the_cpu(cuda_device, arch):
+    """The smoke variant (f32) on the card against the same parameters on
+    the CPU: ``prefill_last`` past recurrentgemma's 64-token window, then
+    two decode steps, logits and caches at 1e-4 (float32 on both sides,
+    summed in other orders; the local layers' prefill runs the f32 flash
+    kernel on the card, its plain version on the CPU)."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models import decode_step, init_params
+    from repro_torch.models.model import prefill_last
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = smoke_variant(get_config(arch))
+    gen = torch.Generator().manual_seed(9)
+    cpu = init_params(cfg, gen)
+    card = tree_map(lambda t: t.to(cuda_device), cpu)
+    toks = torch.randint(0, cfg.vocab_size, (2, 100), generator=gen)
+    outs = {}
+    with torch.inference_mode():
+        for name, params, dev in (("cpu", cpu, "cpu"),
+                                  ("card", card, cuda_device)):
+            t = toks.to(dev)
+            logits, caches = prefill_last(cfg, params, {"tokens": t}, 104)
+            seq = [logits]
+            for step in range(2):
+                logits, caches = decode_step(cfg, params, caches,
+                                             toks[:, step:step + 1].to(dev),
+                                             100 + step)
+                seq.append(logits[:, 0])
+            outs[name] = [x.cpu() for x in seq + tree_leaves(caches)]
+    for a, b in zip(outs["card"], outs["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

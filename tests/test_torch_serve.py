@@ -1,12 +1,13 @@
 """The port's serving path within itself, on the CPU: decode after prefill
 equals the full forward at the next position (the checks of
-``tests/test_decode_consistency.py``, for the layer kinds this slice
-covers), ``serve_batch`` end to end, and the guard that no module of the
+``tests/test_decode_consistency.py``, for the attention and recurrent
+layer kinds), ``serve_batch`` end to end, and the guard that no module of the
 port imports JAX or the JAX package.
 
 Both sides of each consistency check run in float32 through the same
-functions, so they differ only in how attention is split (the flash path
-over S + 1 tokens against the cached decode path): 1e-4 on the logits.
+functions, so they differ only in how attention and the recurrences are
+split (the flash path, the chunked SSD and the log-depth scan over S + 1
+tokens against the cached one-step decode path): 1e-4 on the logits.
 """
 import json
 import os
@@ -39,7 +40,8 @@ def _setup(arch, seed=0, B=2, S=48):
 
 @torch.inference_mode()
 @pytest.mark.parametrize("arch", ["gemma2-2b", "h2o-danube-1.8b",
-                                  "qwen2-72b"])
+                                  "qwen2-72b", "mamba2-1.3b",
+                                  "recurrentgemma-2b"])
 def test_decode_matches_full_forward(arch):
     cfg, params, toks = _setup(arch)
     S = toks.shape[1]
@@ -76,6 +78,29 @@ def test_ring_buffer_wraps_beyond_window():
                                atol=TOL)
 
 
+@torch.inference_mode()
+def test_recurrent_ring_buffer_wraps_beyond_window():
+    """recurrentgemma (rglru, rglru, local): prefill past the local
+    layers' window (S = 100 > 64), then two decode steps, each equal to the
+    full forward; the RG-LRU states and the ring caches carry it."""
+    cfg, params, toks = _setup("recurrentgemma-2b", seed=2, B=1, S=100)
+    assert cfg.window_size == 64
+    S = toks.shape[1]
+    logits_pf, caches = prefill(cfg, params, {"tokens": toks}, max_len=S + 8)
+    local, rec = caches["layers"][2], caches["layers"][0]
+    assert local["k"].shape[2] == 64                    # (cycles, B, L, H, D)
+    assert set(rec) == {"h", "conv"} and rec["h"].dtype == torch.float32
+    seq = toks
+    nxt = logits_pf[:, -1:].argmax(-1)
+    for step in range(2):
+        logits_dec, caches = decode_step(cfg, params, caches, nxt, S + step)
+        seq = torch.cat([seq, nxt], 1)
+        full, _ = forward(cfg, params, {"tokens": seq}, mode="train")
+        torch.testing.assert_close(logits_dec[:, 0], full[:, -1], rtol=TOL,
+                                   atol=TOL)
+        nxt = logits_dec[:, -1:].argmax(-1)
+
+
 # ------------------------------------------------------------ serve_batch
 
 def test_serve_batch_smoke_is_deterministic():
@@ -97,6 +122,15 @@ def test_serve_cli_runs_on_cpu(capsys):
     assert len(out["first_tokens"]) == 1 and len(out["first_tokens"][0]) == 3
 
 
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b"])
+def test_serve_cli_runs_recurrent_archs_on_cpu(arch, capsys):
+    serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
+                "--prompt-len", "70", "--tokens", "3"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["arch"] == arch + "-smoke" and out["device"] == "cpu"
+    assert [len(t) for t in out["first_tokens"]] == [3, 3]
+
+
 def test_serving_defaults_to_cuda_and_refuses_to_fall_back(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg, params, prompts = _setup("gemma2-2b", S=8)
@@ -107,8 +141,7 @@ def test_serving_defaults_to_cuda_and_refuses_to_fall_back(monkeypatch):
 def test_unported_model_parts_name_their_slice():
     from repro_torch.models.attention import init_cache
     cfg = smoke_variant(get_config("gemma2-2b"))
-    for arch in ("mamba2-1.3b", "recurrentgemma-2b", "mixtral-8x22b",
-                 "whisper-large-v3"):
+    for arch in ("mixtral-8x22b", "whisper-large-v3"):
         with pytest.raises(NotImplementedError, match="queue 1, item 16"):
             init_params(smoke_variant(get_config(arch)),
                         torch.Generator().manual_seed(0))

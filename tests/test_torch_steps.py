@@ -14,7 +14,10 @@ against the JAX package, on the CPU, in float32.
 * The bundles' functions on the reference's parameters: prefill's
   last-position logits and caches, then two decode steps after a shorter
   prefill, at 1e-4 (logits) and 1e-5 (caches), the bars of
-  ``tests/test_torch_transformer.py``'s whole-model serving test.
+  ``tests/test_torch_transformer.py``'s whole-model serving test; for
+  gemma2-2b and for the recurrent families (mamba2-1.3b, recurrentgemma-2b),
+  whose bundles' in_specs, cache structs and placements are also held at
+  the full configs at ``prefill_32k``, ``decode_32k`` and ``long_500k``.
 * ``build_step`` routes by the shape's mode; ``build_train_step``'s
   ``in_specs`` equal the reference's on a 4-client mesh.
 * ``shape_applicable`` equals the reference's for every arch and shape.
@@ -48,16 +51,16 @@ ARCH = "gemma2-2b"
 SEQ = 80            # smoke variant: local caches 64 (the window), global 80
 
 
-def _both(monkeypatch):
+def _both(monkeypatch, arch=ARCH):
     """The smoke variant and an f32 profile, in both packages (the
     reference's builders read ``get_config``/``get_profile`` by arch)."""
-    jcfg = jconfigs.smoke_variant(jconfigs.get_config(ARCH))
-    jprof = dataclasses.replace(jconfigs.get_profile(ARCH),
+    jcfg = jconfigs.smoke_variant(jconfigs.get_config(arch))
+    jprof = dataclasses.replace(jconfigs.get_profile(arch),
                                 param_dtype="float32")
     monkeypatch.setattr(jsteps, "get_config", lambda arch: jcfg)
     monkeypatch.setattr(jsteps, "get_profile", lambda arch: jprof)
-    tcfg = tconfigs.smoke_variant(tconfigs.get_config(ARCH))
-    tprof = dataclasses.replace(tconfigs.get_profile(ARCH),
+    tcfg = tconfigs.smoke_variant(tconfigs.get_config(arch))
+    tprof = dataclasses.replace(tconfigs.get_profile(arch),
                                 param_dtype="float32")
     return jcfg, dict(cfg=tcfg, profile=tprof)
 
@@ -173,23 +176,24 @@ def _close_caches(got, want, tol):
                                    rtol=tol, atol=tol, err_msg=k)
 
 
-def test_serving_bundle_functions_match_reference(monkeypatch):
+def _bundle_functions_match(monkeypatch, arch, seed):
     """Prefill over SEQ tokens, then two decode steps after a prefill of
-    SEQ - 2 tokens into caches of SEQ, through the bundles' functions."""
-    jcfg, kw = _both(monkeypatch)
+    SEQ - 2 tokens into caches of SEQ, through the bundles' functions of
+    the smoke variant of ``arch``."""
+    jcfg, kw = _both(monkeypatch, arch)
     mesh = {"data": 2, "model": 4}
     jmesh = AbstractMesh(tuple(mesh.values()), tuple(mesh))
     B = 2
-    jparams = jmodel.init_params(jcfg, jax.random.PRNGKey(4), jnp.float32)
+    jparams = jmodel.init_params(jcfg, jax.random.PRNGKey(seed), jnp.float32)
     tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
                                 CPU)
-    toks = np.random.default_rng(5).integers(0, jcfg.vocab_size, (B, SEQ)
-                                             ).astype(np.int32)
+    toks = np.random.default_rng(seed + 1).integers(
+        0, jcfg.vocab_size, (B, SEQ)).astype(np.int32)
 
     jpre = jsteps.build_prefill_step(
-        ARCH, jshapes.InputShape("p", SEQ, B, "prefill"), jmesh)
+        arch, jshapes.InputShape("p", SEQ, B, "prefill"), jmesh)
     tpre = tsteps.build_prefill_step(
-        ARCH, tshapes.InputShape("p", SEQ, B, "prefill"), None, **kw)
+        arch, tshapes.InputShape("p", SEQ, B, "prefill"), None, **kw)
     jl, jc = jpre.fn(jparams, {"tokens": jnp.asarray(toks)})
     with torch.inference_mode():
         tl, tc = tpre.fn(tparams, {"tokens": torch.from_numpy(toks).long()})
@@ -198,9 +202,9 @@ def test_serving_bundle_functions_match_reference(monkeypatch):
     _close_caches(tc, jc, 1e-5)
 
     jdec = jsteps.build_decode_step(
-        ARCH, jshapes.InputShape("d", SEQ, B, "decode"), jmesh)
+        arch, jshapes.InputShape("d", SEQ, B, "decode"), jmesh)
     tdec = tsteps.build_decode_step(
-        ARCH, tshapes.InputShape("d", SEQ, B, "decode"), None, **kw)
+        arch, tshapes.InputShape("d", SEQ, B, "decode"), None, **kw)
     n = SEQ - 2
     jl, jc = jmodel.prefill_last(jcfg, jparams,
                                  {"tokens": jnp.asarray(toks[:, :n])}, SEQ)
@@ -218,6 +222,59 @@ def test_serving_bundle_functions_match_reference(monkeypatch):
         _close(tl, jl, 1e-4)
         tok = np.array(jnp.argmax(jl, -1), np.int32)[:, None]
     _close_caches(tc, jc, 1e-5)
+
+
+def test_serving_bundle_functions_match_reference(monkeypatch):
+    _bundle_functions_match(monkeypatch, ARCH, 4)
+
+
+RECURRENT = ("mamba2-1.3b", "recurrentgemma-2b")
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k", "long_500k"])
+def test_recurrent_serving_bundles_match_reference(arch, shape):
+    """The full configs at the published serving shapes (nothing is
+    allocated: meta tensors against ``jax.eval_shape``): in_specs, the
+    recurrent and ring caches' structs (recurrentgemma's local caches hold
+    2048 slots at any length; mamba2's state does not depend on it), and
+    every placement, on a ("data", "model") mesh."""
+    mesh = {"data": 2, "model": 4}
+    jmesh = AbstractMesh(tuple(mesh.values()), tuple(mesh))
+    tmesh = FakeMesh(mesh)
+    jshape, tshape = jshapes.SHAPES[shape], tshapes.SHAPES[shape]
+    assert tshapes.shape_applicable(tconfigs.get_config(arch), tshape) == (
+        True, "")
+    build_j = (jsteps.build_prefill_step if jshape.mode == "prefill"
+               else jsteps.build_decode_step)
+    build_t = (tsteps.build_prefill_step if tshape.mode == "prefill"
+               else tsteps.build_decode_step)
+    want, got = build_j(arch, jshape, jmesh), build_t(arch, tshape, tmesh)
+    assert got.meta["batch_axes"] == want.meta["batch_axes"]
+    for g, w in zip(got.in_specs, want.in_specs):
+        _same_specs(g, w)
+    for g, w in zip(got.in_shardings + (got.out_shardings,),
+                    want.in_shardings + (want.out_shardings,)):
+        _same_placements(g, w, tmesh)
+    cfg = tconfigs.get_config(arch)
+    caches = tsteps._cache_structs(cfg, tconfigs.get_profile(arch),
+                                   tshape.global_batch, tshape.seq_len)
+    if arch == "recurrentgemma-2b":
+        assert caches["layers"][2]["k"].shape == (
+            8, tshape.global_batch, 2048, 1, 256)
+        assert caches["layers"][0]["h"].shape == (8, tshape.global_batch,
+                                                  2560)
+    else:
+        assert caches["layers"][0]["h"].shape == (
+            48, tshape.global_batch, 64, 64, 128)
+    assert all(set(c) == {"h", "conv"} for c in caches["rem_layers"])
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_bundle_functions_match_reference(arch, monkeypatch):
+    """The recurrent smoke variants through the bundles' functions (the
+    decode steps past recurrentgemma's 64-token window)."""
+    _bundle_functions_match(monkeypatch, arch, 6)
 
 
 def test_build_step_routes_by_mode_and_train_specs_match(monkeypatch):

@@ -156,7 +156,10 @@ def test_attention_prefill_and_decode_match(kind, kv_heads):
 
 # ------------------------------------------------------------------- model
 
-def _assert_caches_close(tcaches, jcaches, tol):
+def _assert_caches_close(tcaches, jcaches, tol, h_atol_frac=None):
+    """Leaf by leaf at ``tol``; with ``h_atol_frac``, a recurrent state
+    "h" at rtol ``tol`` and an atol of that fraction of its largest
+    magnitude."""
     got = params_to_numpy(tcaches)
     want = _np(jcaches)
     assert len(got["layers"]) == len(want["layers"])
@@ -165,11 +168,15 @@ def _assert_caches_close(tcaches, jcaches, tol):
                     want["layers"] + want["rem_layers"]):
         assert set(g) == set(w)
         for key in g:
-            np.testing.assert_allclose(g[key], np.asarray(w[key], np.float32),
-                                       rtol=tol, atol=tol)
+            want = np.asarray(w[key], np.float32)
+            atol = tol
+            if key == "h" and h_atol_frac is not None:
+                atol = h_atol_frac * float(np.abs(want).max())
+            np.testing.assert_allclose(g[key], want, rtol=tol, atol=atol)
 
 
-def _serve_both(jc, tc, dtype, tol_logits, tol_cache, B=2, S=100):
+def _serve_both(jc, tc, dtype, tol_logits, tol_cache, B=2, S=100,
+                h_atol_frac=None):
     """prefill_last then two decode steps in both packages, on the
     reference's parameters; the greedy tokens are the reference's."""
     jparams = jmodel.init_params(jc, jax.random.PRNGKey(0), dtype)
@@ -185,7 +192,7 @@ def _serve_both(jc, tc, dtype, tol_logits, tol_cache, B=2, S=100):
     assert tl.shape == (B, jc.vocab_padded) and tl.dtype == tparams[
         "embed"]["embedding"].dtype
     _close(tl, jl, tol_logits)
-    _assert_caches_close(tcaches, jcaches, tol_cache)
+    _assert_caches_close(tcaches, jcaches, tol_cache, h_atol_frac)
     tok = np.array(jnp.argmax(jl, -1), np.int32)[:, None]
     for step in range(2):
         jl, jcaches = jmodel.decode_step(jc, jparams, jcaches,
@@ -195,7 +202,7 @@ def _serve_both(jc, tc, dtype, tol_logits, tol_cache, B=2, S=100):
                 tc, tparams, tcaches, torch.from_numpy(tok).long(), S + step)
         _close(tl, jl, tol_logits)
         tok = np.array(jnp.argmax(jl[:, 0], -1), np.int32)[:, None]
-    _assert_caches_close(tcaches, jcaches, tol_cache)
+    _assert_caches_close(tcaches, jcaches, tol_cache, h_atol_frac)
 
 
 @pytest.mark.parametrize("arch,kw", [
@@ -203,6 +210,9 @@ def _serve_both(jc, tc, dtype, tol_logits, tol_cache, B=2, S=100):
     ("gemma2-2b", {"num_kv_heads": 2}),      # the same with GQA 4/2
     ("h2o-danube-1.8b", {}),                 # SWA, untied unembed
     ("qwen2-72b", {}),                       # QKV bias, rope_theta 1e6
+    ("mamba2-1.3b", {}),                     # SSD blocks, no MLP
+    ("recurrentgemma-2b", {}),               # rglru, rglru, local (MQA)
+    ("recurrentgemma-2b", {"num_layers": 5}),  # + two remainder rglru
 ])
 def test_model_prefill_and_decode_match_reference(arch, kw):
     jc, tc = _cfgs(arch, **kw)
@@ -214,6 +224,17 @@ def test_model_bf16_matches_reference():
     across through a 16-bit view."""
     jc, tc = _cfgs("gemma2-2b", num_kv_heads=2)
     _serve_both(jc, tc, jnp.bfloat16, 0.1, 0.05)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b"])
+def test_recurrent_model_bf16_matches_reference(arch):
+    """The recurrent smoke models in bfloat16, at gemma2's bars (logits
+    0.1, bf16 caches 0.05).  The f32 recurrent states are sums over the
+    prompt of products of bf16 activations, which the two packages may
+    round one ulp (2^-8) apart: their atol is 2^-5 of the leaf's largest
+    magnitude, the bar of ``test_torch_train.py``'s bf16 round."""
+    jc, tc = _cfgs(arch)
+    _serve_both(jc, tc, jnp.bfloat16, 0.1, 0.05, h_atol_frac=2.0 ** -5)
 
 
 def test_params_carry_across_bf16_exactly():
