@@ -36,12 +36,20 @@ profiles one prefill, serves the recurrent families the same way at full
 width and depth (mamba2-1.3b, 48 SSD layers; recurrentgemma-2b, whose 8
 local layers go through the bf16 flash kernel, held at that shape in
 ``kernels_vs_plain``), with one decode step each at the published
-``decode_32k`` and ``long_500k`` shapes, trains the full gemma2-2b through
+``decode_32k`` and ``long_500k`` shapes, serves the mixtures of experts
+at full width with their depth cut to fit the card (grok-1-314b at 4 of
+64 layers with its int8 KV cache, mixtral-8x22b at 8 of 56 with its
+4096-token window; the scan dispatch; every layer's prefill through the
+bf16 flash kernel at D = 128, group 6, held in ``kernels_vs_plain`` as rows
+4c and 4d), with one grok-1 decode step at ``decode_32k`` on a 2-layer
+build, trains the full gemma2-2b through
 ``repro_torch.launch.train.train`` (4 clients stacked on the card, K = 2,
 4096-token sequences, 3 rounds with stage-2 in round 2; round 1's stage-1
 held against the plain version on its own stack and timed; one stage-1
-launch a round; rounds 1-2 again with the kernels off), and prints one
-JSON line per phase.  The line
+launch a round; rounds 1-2 again with the kernels off), then mamba2-1.3b
+and recurrentgemma-2b the same way for 2 rounds (round 1 again with the
+kernels off; one stage-1 launch a round for each dtype of their leaves),
+and prints one JSON line per phase.  The line
 before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.  Any failure raises: nothing is caught,
 and the exit code is then not 0.  Without CUDA, or outside a checkout, it
@@ -112,6 +120,11 @@ FLASH_CASES = [
 # first TRAIN_RERUN rounds from the same start and batches
 TRAIN_ARCH, TRAIN_CLIENTS, TRAIN_CLUSTERS = "gemma2-2b", 4, 2
 TRAIN_ROUNDS, TRAIN_RPG, TRAIN_BATCH, TRAIN_RERUN = 3, 2, 16, 2
+# the recurrent families train the same way (their profiles: bf16
+# parameters with f32 A_log/D/dt_bias and RG-LRU gates, f32 accumulation,
+# remat; grad_accum 8 and 4, so 4 microbatches of 1 row), 2 rounds with
+# stage-2 in round 2, round 1 again with the kernels off
+REC_TRAIN_ROUNDS, REC_TRAIN_RERUN = 2, 1
 # kernels on vs off, round 2's mean client CE: the two runs' round-1
 # stage-1 outputs may differ by one bf16 ulp (2^-8 relative) in some
 # elements, and round 2's forward rounds every activation to bf16 (8 bits)
@@ -163,6 +176,34 @@ FLASH_RG_LOCAL = (SERVE_BATCH, 10, 1, SERVE_PROMPT, 256, 2048)
 # rms <= 0.25 of the logits' rms.
 CONSIST_REC_MAX_BF16 = 1.0
 CONSIST_REC_RMS_BF16 = 0.25
+# the mixtures of experts (phase serve_moe): grok-1-314b and mixtral-8x22b
+# at full width with their depth cut to fit the card (bf16: grok 4 of 64
+# layers, 20.5e9 parameters; mixtral 8 of 56, 20.4e9), random weights,
+# each with its profile's dispatch (scan) and KV cache (grok int8, mixtral
+# bf16), served as gemma2-2b is; then one layer in f32 over MOE_F32_PROMPT
+# + 1 tokens (past mixtral's 4096-token window), and one grok decode step
+# at decode_32k on a MOE_DECODE_LAYERS-layer build
+MOE_ARCHS = ("grok-1-314b", "mixtral-8x22b")
+MOE_LAYERS = {"grok-1-314b": 4, "mixtral-8x22b": 8}
+MOE_F32_PROMPT = 4097
+MOE_DECODE_LAYERS = 2
+# the MoE layers' attention: B, Hq, Hkv, S, D, window (causal, no soft-cap);
+# rows 4c (grok-1) and 4d (mixtral)
+FLASH_MOE = {"grok-1-314b": (SERVE_BATCH, 48, 8, SERVE_PROMPT, 128, 0),
+             "mixtral-8x22b": (SERVE_BATCH, 48, 8, SERVE_PROMPT, 128, 4096)}
+# prefill + decode against a longer prefill for the MoE models, fixed
+# before their first run on the card (PERF.md section 6).  f32 on
+# one layer with an unquantized cache: float32 rounding, the gemma2 bar
+# 1e-4.  bf16 at the cut depth, and the int8 cache (against the longer
+# prefill and against the same run with a bf16 cache): each side rounds
+# activations to bf16 after differently ordered sums, the int8 cache adds
+# up to amax / 254 an element to K and V (~0.6% rms), and a near tie of
+# the router's bf16 logits may pick another expert for the last token in
+# a layer: a different function of that token, not a broken cache, whose
+# errors are the logits' own size (rms share ~1.4).  So: max <= 2.0 and
+# rms <= 0.5 of the logits' rms
+CONSIST_MOE_MAX = 2.0
+CONSIST_MOE_RMS = 0.5
 
 
 def emit(obj) -> None:
@@ -524,20 +565,38 @@ def flex_attention_call(s: int, window: int, cap: float):
                               enable_gqa=True)
 
 
-def bf16_flash_layer(q, k, v, window: int, cap: float, flex) -> dict:
+def plain_by_kv_heads(q, k, v, window: int = 0, cap: float = 0.0):
+    """The plain version one kv head (and its query group) at a time: the
+    same function, with (B, G, S, S) f32 scores at a time instead of (B,
+    Hq, S, S) (25.8 GB at the MoE layers' 48 heads and 8192 tokens)."""
+    import torch
+    from repro_torch.kernels import ref
+    g = q.shape[1] // k.shape[1]
+    return torch.cat([ref.flash_attention_ref(
+        q[:, j * g:(j + 1) * g], k[:, j:j + 1], v[:, j:j + 1],
+        window=window, softcap=cap) for j in range(k.shape[1])], 1)
+
+
+def bf16_flash_layer(q, k, v, window: int, cap: float, flex,
+                     plain=None) -> dict:
     """The bf16 flash kernel at one layer's shape (causal): one launch on
     the tensor cores held against the plain version at the layer bars,
     then timed beside the plain version, ``flex`` (the same function in one
-    PyTorch call) and the bound."""
+    PyTorch call) and the bound.  ``plain`` replaces the plain version
+    (``plain_by_kv_heads`` where the whole scores would not fit; it is then
+    timed between CUDA events, outside a graph)."""
     import torch
     from repro_torch.kernels import ops, ref
     b, hq, s, d = q.shape
+    chunked = plain is not None
+    plain = plain or ref.flash_attention_ref
     ops.reset_launches()
     got = ops.flash_attention(q, k, v, window=window, softcap=cap)
     torch.cuda.synchronize()
     assert ops.FLASH_ROUTES == {"tensor_cores": 1, "cuda_cores": 0}
     assert got.shape == q.shape and got.dtype == torch.bfloat16
-    want = ref.flash_attention_ref(q, k, v, window=window, softcap=cap)
+    want = plain(q, k, v, window=window, cap=cap) if chunked else plain(
+        q, k, v, window=window, softcap=cap)
     torch.testing.assert_close(got.float(), want.float(),
                                rtol=FLASH_LAYER_RTOL_BF16,
                                atol=FLASH_LAYER_ATOL_BF16)
@@ -557,10 +616,12 @@ def bf16_flash_layer(q, k, v, window: int, cap: float, flex) -> dict:
     return {
         "route": "tensor_cores", "max_abs_err": err, "rel_rms_err": rel_rms,
         "ms": kernel_ms,
-        "plain_ms": device_ms(
+        "plain_ms": (events_ms(lambda: plain(q, k, v, window=window,
+                                              cap=cap), reps=2)
+                     if chunked else device_ms(
             lambda: ref.flash_attention_ref(q, k, v, window=window,
                                             softcap=cap),
-            reps=1, samples=3),
+            reps=1, samples=3)),
         "library_ms": device_ms(lambda: flex(q, k, v), reps=2, samples=5),
         "library_max_abs_err": lib_err,
         "bound_ms": bound_ms,
@@ -701,6 +762,51 @@ def check_flash_rg_local(gen) -> dict:
     return out
 
 
+def check_flash_moe(gen) -> dict:
+    """The bf16 flash kernel at grok-1-314b's layer (row 4c: B = 2, Hq =
+    48 over Hkv = 8, S = 8192, D = 128, causal) and mixtral-8x22b's (row
+    4d: the same with window 4096), from the model's (B, S, H, D) layout,
+    held against the plain version (a kv head at a time) at gemma2's layer
+    bars and timed (``bf16_flash_layer``).  The library call: for 4c SDPA
+    (``is_causal``, ``enable_gqa``: the same function, no soft-cap or
+    window), ``flex_attention`` beside it; for 4d ``flex_attention`` with
+    the band mask."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    rows = {}
+    for arch, (b, hq, hkv, s, d, window) in FLASH_MOE.items():
+        q, k, v = (torch.randn((b, s, h, d), generator=gen, device=DEV)
+                   .bfloat16().transpose(1, 2) for h in (hq, hkv, hkv))
+        flex = flex_attention_call(s, window, 0.0)
+        row = bf16_flash_layer(q, k, v, window, 0.0, flex,
+                               plain=plain_by_kv_heads)
+        row.update(flex_ms=row["library_ms"],
+                   tol={"rtol": FLASH_LAYER_RTOL_BF16,
+                        "atol": FLASH_LAYER_ATOL_BF16},
+                   library="flex_attention (band block mask, enable_gqa; "
+                           "torch.compile)",
+                   shape=f"one {arch} layer: B={b}, Hq={hq}, Hkv={hkv}, "
+                         f"S={s}, D={d}, window {window}, bf16, causal, no "
+                         f"soft-cap")
+        if not window:
+            def sdpa():
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                      enable_gqa=True)
+            got = ops.flash_attention(q, k, v)
+            err = float((sdpa().float() - got.float()).abs().max())
+            del got
+            row.update(library_ms=device_ms(sdpa, reps=2, samples=5),
+                       library="F.scaled_dot_product_attention (is_causal, "
+                               "enable_gqa): the same function",
+                       library_max_abs_err_vs_kernel=err)
+        rows[arch] = row
+        del q, k, v
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
 def short_kernel_name(row: dict) -> dict:
     """A ptxas row with its mangled name cut to the kernel's name and
     template arguments (``flash_fwd_sm90_kernel<256>``)."""
@@ -732,29 +838,35 @@ def short_kernel_name(row: dict) -> dict:
     return {**row, "kernel": short}
 
 
-def last_logits_consistency(cfg, params, prompts):
+def last_logits_consistency(cfg, params, prompts, with_step=False, **serve):
     """prefill_last over S + 1 tokens vs prefill over S tokens then one
-    decode_step of token S + 1: the last position's logits, (B, V) each."""
+    decode_step of token S + 1: the last position's logits, (B, V) each.
+    ``serve`` passes the MoE ``dispatch`` and ``quantized_cache``; with
+    ``with_step`` the decode step's (B, V) f32 logits come back too."""
     import torch
     from repro_torch.models import decode_step
     from repro_torch.models.model import prefill_last
     s = prompts.shape[1] - 1
+    dispatch = serve.get("dispatch", "dense")
     with torch.inference_mode():
-        full, _ = prefill_last(cfg, params, {"tokens": prompts}, s + 1)
+        full, _ = prefill_last(cfg, params, {"tokens": prompts}, s + 1,
+                               **serve)
         _, caches = prefill_last(cfg, params, {"tokens": prompts[:, :s]},
-                                 s + 1)
-        step, _ = decode_step(cfg, params, caches, prompts[:, s:], s)
+                                 s + 1, **serve)
+        step, _ = decode_step(cfg, params, caches, prompts[:, s:], s,
+                              dispatch=dispatch)
         del caches
     # the real vocab: the padded entries are -1e30 on both sides
     full = full[:, :cfg.vocab_size].float()
     step = step[:, 0, :cfg.vocab_size].float()
     assert torch.isfinite(full).all() and torch.isfinite(step).all()
     diff = (full - step).abs()
-    return {"max_abs_err": float(diff.max()),
-            "rms_err": float(diff.square().mean().sqrt()),
-            "logit_rms": float(full.square().mean().sqrt()),
-            "argmax_agree": float((full.argmax(-1) == step.argmax(-1))
-                                  .float().mean())}
+    out = {"max_abs_err": float(diff.max()),
+           "rms_err": float(diff.square().mean().sqrt()),
+           "logit_rms": float(full.square().mean().sqrt()),
+           "argmax_agree": float((full.argmax(-1) == step.argmax(-1))
+                                 .float().mean())}
+    return (out, step) if with_step else out
 
 
 def device_kernels(prof):
@@ -766,28 +878,33 @@ def device_kernels(prof):
     return sorted(kernels, reverse=True)
 
 
-def profile_serving(cfg, params, prompts, prefill_wall_s: float) -> dict:
+def profile_serving(cfg, params, prompts, prefill_wall_s: float,
+                    **serve) -> dict:
     """Device time by kernel over one full prefill, and over DECODE_STEPS
     decode steps after it, under torch.profiler; each beside the same
-    work's unprofiled wall time."""
+    work's unprofiled wall time.  ``serve`` passes the MoE ``dispatch``
+    and ``quantized_cache``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import decode_step
     from repro_torch.models.model import prefill_last
     s = prompts.shape[1]
+    dispatch = serve.get("dispatch", "dense")
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with torch.inference_mode():
         with profile(activities=acts) as prof:
-            prefill_last(cfg, params, {"tokens": prompts}, s + SERVE_TOKENS)
+            prefill_last(cfg, params, {"tokens": prompts}, s + SERVE_TOKENS,
+                         **serve)
             torch.cuda.synchronize()
         pre = device_kernels(prof)
         logits, caches = prefill_last(cfg, params, {"tokens": prompts},
-                                      s + SERVE_TOKENS)
+                                      s + SERVE_TOKENS, **serve)
         tok = logits.argmax(-1)[:, None]
 
         def steps(first):
             for i in range(first, first + DECODE_STEPS):
-                decode_step(cfg, params, caches, tok, s + i)
+                decode_step(cfg, params, caches, tok, s + i,
+                            dispatch=dispatch)
             torch.cuda.synchronize()
         steps(0)                                  # warm
         t0 = time.perf_counter()
@@ -800,7 +917,10 @@ def profile_serving(cfg, params, prompts, prefill_wall_s: float) -> dict:
     def summary(kernels, wall_ms):
         busy = sum(k[0] for k in kernels)
         flash = sum(k[0] for k in kernels if "flash_fwd" in k[1])
+        gemm = sum(k[0] for k in kernels if "flash_fwd" not in k[1] and any(
+            g in k[1].lower() for g in ("gemm", "xmma", "cutlass", "nvjet")))
         return {"wall_ms": wall_ms, "device_busy_ms": busy,
+                "gemm_ms": gemm, "gemm_share_of_busy": gemm / busy,
                 "device_idle_share": 1.0 - busy / wall_ms,
                 "flash_attention_ms": flash,
                 "flash_attention_share_of_busy": flash / busy,
@@ -822,17 +942,17 @@ def decode_at_shape(cfg, params, shape_name: str, gen) -> dict:
     timed (host clock, synchronized; median), with the peak memory and the
     caches' bytes."""
     import torch
-    from repro_torch.configs import SHAPES
+    from repro_torch.configs import SHAPES, get_profile
     from repro_torch.launch.steps import build_decode_step
     from repro_torch.models import init_caches
     from repro_torch.tree import tree_leaves
     shape = SHAPES[shape_name]
     b, pos = shape.global_batch, shape.seq_len - 1
-    bundle = build_decode_step(cfg.name, shape)
+    bundle = build_decode_step(cfg.name, shape, cfg=cfg)
     assert bundle.meta["dtype"] == cfg.dtype, bundle.meta
     torch.cuda.reset_peak_memory_stats()
     caches = init_caches(cfg, b, shape.seq_len, getattr(torch, cfg.dtype),
-                         DEV)
+                         DEV, quantized=get_profile(cfg.name).kv_int8)
     cache_bytes = sum(t.numel() * t.element_size()
                       for t in tree_leaves(caches))
     token = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen,
@@ -849,8 +969,13 @@ def decode_at_shape(cfg, params, shape_name: str, gen) -> dict:
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
     ms = statistics.median(times)
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params))
     out = {"batch": b, "pos": pos, "ms_per_step": ms, "step_ms": times,
            "tokens_per_s": b / ms * 1e3, "cache_bytes": cache_bytes,
+           "param_bytes": param_bytes,
+           "read_once_bound_ms": (param_bytes + cache_bytes)
+           / HBM_BYTES_PER_S * 1e3,
            "peak_device_mem_mb": torch.cuda.max_memory_allocated() / 1e6}
     del caches, logits
     gc.collect()
@@ -948,6 +1073,157 @@ def serve_recurrent_phase(arch: str) -> tuple:
                      for r in runs],
             "first_tokens": runs[0].tokens[:, :8].tolist(),
             "consistency": consist, "decode_shapes": decode}
+    return line, profile, routes[0]["tensor_cores"]
+
+
+def serve_moe_phase(arch: str) -> tuple:
+    """A mixture of experts at full width, its depth cut to MOE_LAYERS, in
+    bf16, random weights from a seeded generator, with its profile's
+    dispatch (scan) and KV cache (grok-1 int8): ``serve_batch`` twice (B =
+    2, an 8192-token prompt, 32 new tokens; greedy tokens equal; flash
+    launches counted from 0 around each run: every layer's prefill on the
+    tensor cores), prefill + decode against a longer prefill (bf16 at the
+    cut depth over 8191 + 1 tokens, with the profile's cache and, for
+    grok-1, with a bf16 cache, the two decode steps held against each
+    other; f32 on one layer over MOE_F32_PROMPT + 1 tokens), one prefill
+    and DECODE_STEPS decode steps under torch.profiler, and for grok-1 one
+    decode step at decode_32k on a MOE_DECODE_LAYERS-layer build.  Returns
+    (the phase line, the profile line, the flash launches a prefill)."""
+    import torch
+    from repro_torch.configs import get_config, get_profile, replace
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import init_caches, init_params, param_count
+    from repro_torch.tree import tree_leaves
+    full = get_config(arch)
+    prof = get_profile(arch)
+    serve = dict(dispatch=prof.moe_dispatch, quantized_cache=prof.kv_int8)
+    cfg = replace(full, num_layers=MOE_LAYERS[arch])
+    gen = torch.Generator(device=DEV).manual_seed(14)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen)            # bf16, the config's dtype
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=gen, device=DEV)
+    runs, launches, routes = [], [], []
+    for _ in range(2):
+        gc.collect()
+        torch.cuda.empty_cache()
+        ops.reset_launches()
+        runs.append(serve_batch(cfg, params, prompts, SERVE_TOKENS,
+                                device=DEV, **serve))
+        launches.append(dict(ops.LAUNCHES))
+        routes.append(dict(ops.FLASH_ROUTES))
+    for count, route in zip(launches, routes):
+        # every layer's prefill attention on the tensor cores, once
+        assert route == {"tensor_cores": cfg.num_layers,
+                         "cuda_cores": 0}, route
+        assert count == {**{key: 0 for key in count},
+                         "flash_attention": cfg.num_layers}, count
+    for res in runs:
+        assert res.tokens.shape == (SERVE_BATCH, SERVE_TOKENS)
+        assert 0 <= int(res.tokens.min()) <= int(res.tokens.max()) \
+            < cfg.vocab_size
+    assert torch.equal(runs[0].tokens, runs[1].tokens), "greedy decode differs"
+    # the same caches in bf16 (meta tensors: shapes only)
+    bf16_cache = sum(t.numel() * t.element_size() for t in tree_leaves(
+        init_caches(cfg, SERVE_BATCH, SERVE_PROMPT + SERVE_TOKENS,
+                    torch.bfloat16, "meta")))
+
+    def held(stats, what):
+        stats["rms_err_share"] = stats["rms_err"] / stats["logit_rms"]
+        assert stats["max_abs_err"] <= CONSIST_MOE_MAX, (what, stats)
+        assert stats["rms_err_share"] <= CONSIST_MOE_RMS, (what, stats)
+        return {**stats, "tol": {"max_abs_err": CONSIST_MOE_MAX,
+                                 "rms_err_share": CONSIST_MOE_RMS}}
+    consist = {}
+    cache = "int8" if prof.kv_int8 else "bf16"
+    stats, step = last_logits_consistency(cfg, params, prompts,
+                                          with_step=True, **serve)
+    consist[f"bf16_{cfg.num_layers}_layers_{cache}_cache"] = {
+        **held(stats, cache), "prompt": SERVE_PROMPT - 1}
+    if prof.kv_int8:
+        stats, step16 = last_logits_consistency(
+            cfg, params, prompts, with_step=True, dispatch=prof.moe_dispatch)
+        consist[f"bf16_{cfg.num_layers}_layers_bf16_cache"] = {
+            **held(stats, "bf16 cache"), "prompt": SERVE_PROMPT - 1}
+        diff = (step - step16).abs()
+        consist["int8_vs_bf16_cache_step"] = held(
+            {"max_abs_err": float(diff.max()),
+             "rms_err": float(diff.square().mean().sqrt()),
+             "logit_rms": float(step16.square().mean().sqrt()),
+             "argmax_agree": float((step.argmax(-1) == step16.argmax(-1))
+                                   .float().mean())}, "int8 vs bf16")
+        del step16
+    del step
+    profile = profile_serving(cfg, params, prompts, runs[1].prefill_s,
+                              **serve)
+    # the experts' products (gate, up, down) of a prefill: E / k = 4x the
+    # routed FLOP under the scan dispatch
+    t = SERVE_BATCH * SERVE_PROMPT
+    expert_flop = (cfg.num_layers * cfg.num_experts * 3 * 2 * t
+                   * cfg.d_model * cfg.d_ff)
+    profile["prefill"]["expert_gemm_flop"] = expert_flop
+    profile["prefill"]["expert_gemm_share_of_gemm_flop"] = expert_flop / (
+        expert_flop + cfg.num_layers * 2 * t * cfg.d_model
+        * (2 * cfg.q_dim + 2 * cfg.kv_dim))
+    gemm_ms = profile["prefill"]["gemm_ms"]
+    profile["prefill"]["expert_tflop_per_s_if_gemm_ms"] = (
+        expert_flop / gemm_ms / 1e9 if gemm_ms else None)
+    n_params = param_count(params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    decode = {}
+    if prof.kv_int8:
+        cut = replace(full, num_layers=MOE_DECODE_LAYERS)
+        p2 = init_params(cut, gen)
+        decode["decode_32k"] = {"layers": MOE_DECODE_LAYERS,
+                                **decode_at_shape(cut, p2, "decode_32k",
+                                                  gen)}
+        del p2
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    cfg32 = replace(full, num_layers=1, dtype="float32")
+    p32 = init_params(cfg32, gen)
+    ops.reset_launches()
+    f32 = last_logits_consistency(cfg32, p32,
+                                  prompts[:, :MOE_F32_PROMPT + 1],
+                                  dispatch=prof.moe_dispatch)
+    f32_routes = dict(ops.FLASH_ROUTES)      # two prefills of one layer
+    assert f32_routes == {"tensor_cores": 0, "cuda_cores": 2}, f32_routes
+    assert f32["max_abs_err"] <= CONSIST_TOL_F32, f32
+    consist["f32_1_layer_f32_cache"] = {**f32, "tol": CONSIST_TOL_F32,
+                                        "prompt": MOE_F32_PROMPT,
+                                        "flash_routes": f32_routes}
+    del p32, prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+    line = {"phase": "serve_moe", "arch": cfg.name,
+            "layers": cfg.num_layers, "layers_published": full.num_layers,
+            "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+            "experts": cfg.num_experts, "top_k": cfg.experts_per_token,
+            "params": n_params, "dtype": cfg.dtype,
+            "dispatch": prof.moe_dispatch, "kv_cache": cache,
+            "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
+            "new_tokens": SERVE_TOKENS, "init_s": init_s,
+            "launches": launches[0], "flash_routes": routes[0],
+            "cache_bytes": runs[0].cache_bytes,
+            "bf16_cache_bytes": bf16_cache,
+            "cache_share_of_bf16": runs[0].cache_bytes / bf16_cache,
+            "runs": [{"prefill_s": r.prefill_s, "decode_s": r.decode_s,
+                      "decode_tokens_per_s": r.decode_tokens_per_s,
+                      "peak_device_mem_mb": r.peak_device_mem_mb}
+                     for r in runs],
+            "first_tokens": runs[0].tokens[:, :8].tolist(),
+            "consistency": consist, "decode_shapes": decode,
+            "reduced": {"num_layers": f"{full.num_layers} -> "
+                                      f"{cfg.num_layers} (bf16 weights of "
+                                      f"the full model do not fit one card)",
+                        "weights": "random, seeded"}}
     return line, profile, routes[0]["tensor_cores"]
 
 
@@ -2105,10 +2381,11 @@ def rows_apart(leaves, rows, kept) -> dict:
 
 def stage1_on_stack(stack, losses, data_sizes, assignment, k) -> dict:
     """The round's stage-1 on its own stack: the kernel (one grouped
-    launch) against the plain version leaf by leaf and in column chunks,
-    every element within one bf16 ulp of the f32-accumulated sum; then the
-    kernel, the plain version and one bf16 ``torch.matmul`` a leaf timed
-    beside the byte bound.  The caller restores the launch counts."""
+    launch a dtype) against the plain version leaf by leaf and in column
+    chunks, every bf16 element within one bf16 ulp of the f32-accumulated
+    sum (f32 leaves, as the recurrent families' ``A_log``, at WAGG_TOL);
+    then the kernel, the plain version and one ``torch.matmul`` a leaf
+    timed beside the byte bound.  The caller restores the launch counts."""
     import torch
     from repro_torch.core import aggregation
     from repro_torch.kernels import ops, ref
@@ -2120,18 +2397,25 @@ def stage1_on_stack(stack, losses, data_sizes, assignment, k) -> dict:
     wm = (one_hot * w.float()[:, None]).contiguous()
     leaves = tree_leaves(stack)
     c = leaves[0].shape[0]
+    before = ops.LAUNCHES["weighted_agg_multi"]
     got = ops.weighted_agg_multi_tree(tuple(leaves), wm)
     torch.cuda.synchronize()
+    n_launches = ops.LAUNCHES["weighted_agg_multi"] - before
     max_err, worst_ulps, n = 0.0, 0.0, 0
     for g, x in zip(got, leaves):
-        assert g.dtype == x.dtype == torch.bfloat16, (g.dtype, x.dtype)
+        assert g.dtype == x.dtype, (g.dtype, x.dtype)
         flat, gf = x.reshape(c, -1), g.reshape(k, -1)
         for a in range(0, flat.shape[1], TRAIN_CHUNK):
             xs = flat[:, a:a + TRAIN_CHUNK]
             out = gf[:, a:a + TRAIN_CHUNK].float()
             want = wm.float().T @ xs.float()       # f32 accumulation
-            ulps = float(((out - want).abs() / bf16_ulp(want)).max())
-            worst_ulps = max(worst_ulps, ulps)
+            if x.dtype == torch.bfloat16:
+                ulps = float(((out - want).abs() / bf16_ulp(want)).max())
+                worst_ulps = max(worst_ulps, ulps)
+            else:
+                assert x.dtype == torch.float32, x.dtype
+                torch.testing.assert_close(out, want, rtol=WAGG_TOL,
+                                           atol=WAGG_TOL)
             max_err = max(max_err, float(
                 (out - ref.weighted_agg_multi_ref(xs, wm).float())
                 .abs().max()))
@@ -2139,21 +2423,24 @@ def stage1_on_stack(stack, losses, data_sizes, assignment, k) -> dict:
     assert worst_ulps <= 1.0, worst_ulps
     del got
     check_s = time.perf_counter() - t0
-    wmt = wm.T.contiguous().to(torch.bfloat16)
-    n_bytes = stage1_bytes(c, k, [x[0].numel() for x in leaves], 2)
+    wmt = {dt: wm.T.contiguous().to(dt) for dt in {x.dtype for x in leaves}}
+    n_bytes = sum(stage1_bytes(c, k, [x[0].numel()], x.element_size())
+                  for x in leaves)
     n_ops = 2 * c * k * n
     row = {"max_abs_err": max_err, "max_ulps_vs_f32": worst_ulps,
            "ms": events_ms(lambda: ops.weighted_agg_multi_tree(
                tuple(leaves), wm)),
            "plain_ms": events_ms(lambda: plain_tree(leaves, wm), reps=3),
            "library_ms": events_ms(lambda: [
-               torch.matmul(wmt, x.reshape(c, -1)) for x in leaves], reps=3),
+               torch.matmul(wmt[x.dtype], x.reshape(c, -1))
+               for x in leaves], reps=3),
            "bound_ms": max(n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOPS)
            * 1e3,
            "bound_by": ("bytes" if n_bytes / HBM_BYTES_PER_S
                         >= n_ops / F32_FLOPS else "operations"),
            "bytes": n_bytes, "columns": n, "leaves": len(leaves),
-           "C": c, "K": k, "check_s": check_s}
+           "dtypes": sorted(str(dt)[6:] for dt in wmt),
+           "launches": n_launches, "C": c, "K": k, "check_s": check_s}
     row["share_of_bound"] = row["bound_ms"] / row["ms"]
     row["timed_s"] = time.perf_counter() - t0 - check_s
     return row
@@ -2162,16 +2449,20 @@ def stage1_on_stack(stack, losses, data_sizes, assignment, k) -> dict:
 def profile_training(cfg, round_s: float, microbatches: int) -> dict:
     """Where a training round's time goes: one client's microbatch of the
     train step (``loss_fn`` with remat, gradients of every leaf; 4096
-    tokens) under torch.profiler beside its unprofiled time, and the train
-    attention of one global and one local layer timed alone as a
-    microbatch runs it (the checkpoint's forward without autograd, then
-    the recompute and its backward); ``round_s`` and ``microbatches`` (a
-    round's) give attention's share of a round."""
+    tokens) under torch.profiler beside its unprofiled time, and the layer
+    cores timed alone as a microbatch runs them (the checkpoint's forward
+    without autograd, then the recompute and its backward): the train
+    attention of a global and a local layer (gemma2-2b; recurrentgemma-2b's
+    local layers), the SSD's chunked core with its (B, nc, H, Q, Q) f32
+    decay matrices (mamba2-1.3b) and the RG-LRU's log-depth scan
+    (recurrentgemma-2b); ``round_s`` and ``microbatches`` (a round's) give
+    their shares of a round."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import train as train_lib
     from repro_torch.models import attention as attn
     from repro_torch.models import loss_fn
+    from repro_torch.models import rglru, ssm
     from repro_torch.tree import tree_leaves, tree_unflatten
     seq = 4096
     model = train_lib.init_model(cfg, 0, DEV)
@@ -2194,58 +2485,102 @@ def profile_training(cfg, round_s: float, microbatches: int) -> dict:
                    if "f32f32_f32f32" in k[1] or "sgemm" in k[1])
     del model
 
-    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = torch.randn((1, seq, hq, d), generator=gen, device=DEV).bfloat16()
-    k, v = (torch.randn((1, seq, hkv, d), generator=gen, device=DEV)
-            .bfloat16() for _ in range(2))
-    pos = torch.arange(seq, dtype=torch.int32, device=DEV)
-
-    def layer(window):
-        def run(q, k, v):
-            if window:
-                return attn.windowed_full_attention(cfg, q, k, v, pos, pos,
-                                                    window)
-            return attn.chunk_attention(cfg, q, k, v, pos, pos, causal=True)
-
+    def remat_ms(fn, *inputs):
+        """``fn`` as a remat'd microbatch runs it: forward without
+        autograd, then the recompute and its backward."""
         def once():
             with torch.no_grad():
-                run(q, k, v)
-            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-            out = run(*leaves)
-            torch.autograd.grad(out, leaves, torch.ones_like(out))
+                fn(*inputs)
+            leaves = [t.detach().requires_grad_(t.is_floating_point())
+                      for t in inputs]
+            out = fn(*leaves)
+            out = out[0] if isinstance(out, tuple) else out
+            torch.autograd.grad(out, [t for t in leaves if t.requires_grad],
+                                torch.ones_like(out))
         return events_ms(once, reps=3)
-    global_ms, local_ms = layer(0), layer(cfg.window_size)
-    half = cfg.num_layers // 2
-    att_ms = half * (global_ms + local_ms)
-    return {"microbatch_ms": micro_ms, "device_busy_ms": busy,
-            "device_idle_share": 1.0 - busy / micro_ms,
-            "f32_gemm_ms": f32_gemm,
-            "kernel_launches": sum(k[2] for k in kernels),
-            "attention_layer_ms": {"global": global_ms, "local": local_ms},
-            "attention_ms_per_microbatch": att_ms,
-            "attention_share_of_microbatch": att_ms / micro_ms,
-            "attention_share_of_round": microbatches * att_ms
-            / (round_s * 1e3),
-            "top": [{"name": k[1][:90], "device_ms": k[0], "count": k[2]}
-                    for k in kernels[:10]]}
+
+    kinds = cfg.layer_kinds()
+    cores = {}
+    pos = torch.arange(seq, dtype=torch.int32, device=DEV)
+    if any(kd in ("attn", "global", "local", "swa") for kd in kinds):
+        hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        q = torch.randn((1, seq, hq, d), generator=gen, device=DEV).bfloat16()
+        k, v = (torch.randn((1, seq, hkv, d), generator=gen, device=DEV)
+                .bfloat16() for _ in range(2))
+        for kind in ("global", "local"):
+            if kind not in kinds:
+                continue
+            if kind == "local":
+                cores["attention_local"] = (kinds.count(kind), remat_ms(
+                    lambda q, k, v: attn.windowed_full_attention(
+                        cfg, q, k, v, pos, pos, cfg.window_size), q, k, v))
+            else:
+                cores["attention_global"] = (kinds.count(kind), remat_ms(
+                    lambda q, k, v: attn.chunk_attention(
+                        cfg, q, k, v, pos, pos, causal=True), q, k, v))
+    if "ssd" in kinds:
+        h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        x = torch.randn((1, seq, h, p), generator=gen, device=DEV).bfloat16()
+        dt = torch.rand((1, seq, h), generator=gen, device=DEV) * 0.1
+        bm, cm = (torch.randn((1, seq, n), generator=gen, device=DEV)
+                  .bfloat16() for _ in range(2))
+        a = -torch.linspace(1.0, 16.0, h, device=DEV)
+        cores["ssd_chunked"] = (kinds.count("ssd"), remat_ms(
+            lambda x, dt, bm, cm, a: ssm._ssd_chunked(cfg, x, dt, bm, cm,
+                                                      a), x, dt, bm, cm, a))
+    if "rglru" in kinds:
+        w = cfg.lru_width
+        a = torch.rand((1, seq, w), generator=gen, device=DEV)
+        b = torch.randn((1, seq, w), generator=gen, device=DEV)
+        cores["rglru_scan"] = (kinds.count("rglru"),
+                               remat_ms(rglru.linear_scan, a, b))
+    per_micro = {name: n * ms for name, (n, ms) in cores.items()}
+    out = {"microbatch_ms": micro_ms, "device_busy_ms": busy,
+           "device_idle_share": 1.0 - busy / micro_ms,
+           "f32_gemm_ms": f32_gemm,
+           "kernel_launches": sum(k[2] for k in kernels),
+           "layer_core_ms": {name: ms for name, (_, ms) in cores.items()},
+           "layer_core_ms_per_microbatch": per_micro,
+           "layer_core_share_of_round": {
+               name: microbatches * ms / (round_s * 1e3)
+               for name, ms in per_micro.items()},
+           "top": [{"name": k[1][:90], "device_ms": k[0], "count": k[2]}
+                   for k in kernels[:10]]}
+    att = [ms for name, ms in per_micro.items()
+           if name.startswith("attention")]
+    if att:             # the attention readings under their earlier keys
+        out["attention_layer_ms"] = {
+            name.split("_")[1]: ms for name, (_, ms) in cores.items()
+            if name.startswith("attention")}
+        out["attention_ms_per_microbatch"] = sum(att)
+        out["attention_share_of_microbatch"] = sum(att) / micro_ms
+        out["attention_share_of_round"] = (microbatches * sum(att)
+                                           / (round_s * 1e3))
+    return out
 
 
-def train_phase(smi: str) -> tuple:
-    """gemma2-2b FL training through ``repro_torch.launch.train.train``:
-    three rounds with the kernels on (round 1's stage-1 held against the
-    plain version and timed on its own stack), one stage-1 launch a round,
-    then rounds 1-2 again with the kernels off from the same start and
-    batches, each round's aggregated clients held against the first run's
-    (``held``).  Returns the phase line and the kernels row."""
+def train_phase(smi: str, arch: str = TRAIN_ARCH, rounds: int = TRAIN_ROUNDS,
+                rerun: int = TRAIN_RERUN) -> tuple:
+    """FL training of ``arch`` at full width and depth through
+    ``repro_torch.launch.train.train``: ``rounds`` rounds with the kernels
+    on (round 1's stage-1 held against the plain version and timed on its
+    own stack), one stage-1 launch a round for each dtype of the model's
+    leaves, then the first ``rerun`` rounds again with the kernels off from
+    the same start and batches, each round's aggregated clients held
+    against the first run's (``held``).  Returns the phase line and the
+    kernels row."""
     import torch
     from repro_torch.configs import get_config, get_profile, replace
     from repro_torch.core import aggregation
     from repro_torch.kernels import ops
     from repro_torch.launch import train as train_lib
     from repro_torch.tree import tree_leaves
-    cfg = get_config(TRAIN_ARCH)
-    cfg = replace(cfg, dtype=get_profile(TRAIN_ARCH).param_dtype)
-    start = train_lib.init_model(cfg, 0, DEV)["embed"]["embedding"].clone()
+    cfg = get_config(arch)
+    cfg = replace(cfg, dtype=get_profile(arch).param_dtype)
+    model = train_lib.init_model(cfg, 0, DEV)
+    start = model["embed"]["embedding"].clone()
+    groups = len(ops.dtype_groups(tree_leaves(model)))
+    del model
     torch.cuda.synchronize()
     gc.collect()
     torch.cuda.empty_cache()
@@ -2259,7 +2594,7 @@ def train_phase(smi: str) -> tuple:
         local updates not all rounded away (each client's embedding
         against the start), its stage-1 held and timed on its own stack,
         the launches a round counted, and the first member's row of each
-        cluster kept on the host for the first TRAIN_RERUN rounds.
+        cluster kept on the host for the first ``rerun`` rounds.
         Kernels off: those rows against the kept ones.  The checks' time
         (synced) goes to ``check_s``: the round's own time is the rest."""
         use_kernels = kw.get("use_kernels")
@@ -2285,7 +2620,7 @@ def train_phase(smi: str) -> tuple:
         rows = [int((assignment == j).nonzero()[0]) for j in range(k)]
         if use_kernels:
             per_round.append(ops.LAUNCHES["weighted_agg_multi"] - before)
-            if r < TRAIN_RERUN:
+            if r < rerun:
                 kept.append([[x[i].to("cpu", copy=True) for i in rows]
                              for x in tree_leaves(out)])
         else:
@@ -2294,24 +2629,24 @@ def train_phase(smi: str) -> tuple:
         check_s[use_kernels].append(spent + time.perf_counter() - t0)
         return out
 
-    def run(rounds, use_kernels):
+    def run(n_rounds, use_kernels):
         gc.collect()
         torch.cuda.empty_cache()
         ops.reset_launches()
         return train_lib.train(
-            TRAIN_ARCH, rounds=rounds, clusters=TRAIN_CLUSTERS,
+            arch, rounds=n_rounds, clusters=TRAIN_CLUSTERS,
             rounds_per_global=TRAIN_RPG, clients=TRAIN_CLIENTS,
             global_batch=TRAIN_BATCH, seed=0, device=DEV,
             use_kernels=use_kernels)
 
     aggregation.hierarchical_round = held
     try:
-        on = run(TRAIN_ROUNDS, True)
+        on = run(rounds, True)
         launches = dict(ops.LAUNCHES)
         finite = all(bool(torch.isfinite(x).all())
                      for x in tree_leaves(on.stack))
         on = on._replace(stack=None)
-        off = run(TRAIN_RERUN, False)
+        off = run(rerun, False)
     finally:
         aggregation.hierarchical_round = unwrapped
     off_launches = dict(ops.LAUNCHES)
@@ -2321,22 +2656,22 @@ def train_phase(smi: str) -> tuple:
     torch.cuda.empty_cache()
 
     assert stage1, "round 1's stage-1 was not held"
-    assert per_round == [1] * TRAIN_ROUNDS, per_round
-    assert launches["weighted_agg_multi"] == TRAIN_ROUNDS, launches
+    assert per_round == [groups] * rounds, per_round
+    assert launches["weighted_agg_multi"] == groups * rounds, launches
     assert launches["flash_attention"] == 0, launches   # train: chunked
     assert set(off_launches.values()) == {0}, off_launches
     assert finite, "the final client stack holds a non-finite value"
     assert [r.did_global for r in on.rounds] == [
-        (r + 1) % TRAIN_RPG == 0 for r in range(TRAIN_ROUNDS)]
+        (r + 1) % TRAIN_RPG == 0 for r in range(rounds)]
     ces = [r.ce for r in on.rounds]
     assert all(math.isfinite(x) for x in ces), ces
     assert all(n > 0 for n in changed) and len(changed) == TRAIN_CLIENTS, \
         changed
     off_ces = [r.ce for r in off.rounds]
     assert off_ces[0] == ces[0], (off_ces, ces)
-    assert abs(off_ces[1] - ces[1]) <= TRAIN_CE_RTOL * abs(ces[1]), \
-        (off_ces, ces)
-    assert len(apart) == TRAIN_RERUN and all(
+    assert all(abs(a - b) <= TRAIN_CE_RTOL * abs(b)
+               for a, b in zip(off_ces[1:], ces[1:])), (off_ces, ces)
+    assert len(apart) == rerun and all(
         a["max_ulps"] <= TRAIN_STACK_ULPS for a in apart), apart
     emb_cols = cfg.vocab_padded * cfg.d_model
     own_s = [r.s - c for r, c in zip(on.rounds, check_s[True])]
@@ -2366,22 +2701,27 @@ def train_phase(smi: str) -> tuple:
                         "launches": off_launches,
                         "ce_rtol": TRAIN_CE_RTOL,
                         "round1_ce_equal": off_ces[0] == ces[0],
-                        "round2_ce_rel_diff":
-                        abs(off_ces[1] - ces[1]) / abs(ces[1]),
+                        "ce_rel_diff": [abs(a - b) / abs(b) for a, b
+                                        in zip(off_ces, ces)],
                         "stack_ulps_bar": TRAIN_STACK_ULPS,
                         "stacks_apart": apart},
         "stage1": stage1, "steady_round_s": steady_s,
         "where_the_time_goes": where}
-    row = {"name": "weighted_agg_multi_train", "route": "cuda",
+    line["stage1_launches_per_round"] = groups
+    row = {"name": "weighted_agg_multi_train" + (
+               "" if arch == TRAIN_ARCH else "_" + arch.split("-")[0]),
+           "route": "cuda",
            "source": "src/repro_torch/csrc/weighted_agg.cu",
            "replaces": "src/repro/kernels/weighted_agg.py:76",
            "launches": launches["weighted_agg_multi"],
            **{key: stage1[key] for key in (
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")},
-           "shape": f"one stage-1 of the gemma2-2b FL round: "
+           "shape": f"one stage-1 of the {arch} FL round: "
                     f"{stage1['leaves']} leaves, C={stage1['C']}, "
-                    f"K={stage1['K']}, bf16, {stage1['columns']} columns"}
+                    f"K={stage1['K']}, {'+'.join(stage1['dtypes'])}, "
+                    f"{stage1['columns']} columns, {groups} launch"
+                    f"{'es' if groups > 1 else ''}"}
     return line, row
 
 
@@ -2446,9 +2786,11 @@ def main() -> int:
     wagg1 = check_weighted_agg_single(gen)
     flash = check_flash(gen)
     flash_rg = check_flash_rg_local(gen)
+    flash_moe = check_flash_moe(gen)
     emit({"phase": "kernels_vs_plain", "weighted_agg_multi": wagg,
           "kmeans_assign": km, "weighted_agg": wagg1,
           "flash_attention": flash, "flash_attention_rg_local": flash_rg,
+          "flash_attention_moe": flash_moe,
           "launch_floor_ms": km["launch_floor_ms"]})
     gc.collect()            # the checks' tensors and graphs: out of the
     torch.cuda.empty_cache()  # main path's peak-memory readings
@@ -2650,11 +2992,27 @@ def main() -> int:
         emit(prof)
     assert rec_flash == {"mamba2-1.3b": 0, "recurrentgemma-2b": 8}, rec_flash
 
-    # ---- 8b. transformer FL training: gemma2-2b, 4 clients on the card,
-    # stage-1 through the kernel; the counts are set to 0 before each run
-    # and read after it
+    # ---- 8b. the mixtures of experts at full width, depth cut: grok-1-314b
+    # (4 layers, int8 cache) and mixtral-8x22b (8 layers, window 4096), every
+    # layer's prefill through the bf16 flash kernel at D = 128, group 6; the
+    # counts are set to 0 before each serving run and read after it
+    moe_flash = {}
+    for arch in MOE_ARCHS:
+        line, prof, moe_flash[arch] = serve_moe_phase(arch)
+        emit(line)
+        emit(prof)
+    assert moe_flash == MOE_LAYERS, moe_flash
+
+    # ---- 8c. transformer FL training: gemma2-2b, then the recurrent
+    # families, 4 clients on the card, stage-1 through the kernel; the
+    # counts are set to 0 before each run and read after it
     train_line, train_row = train_phase(smi)
     emit(train_line)
+    train_rows = [train_row]
+    for arch in RECURRENT_ARCHS:
+        line, row = train_phase(smi, arch, REC_TRAIN_ROUNDS, REC_TRAIN_RERUN)
+        emit(line)
+        train_rows.append(row)
 
     emit({"phase": "elapsed", "script_s": time.perf_counter() - T_START})
 
@@ -2707,7 +3065,17 @@ def main() -> int:
                  **{key: flash_rg[key] for key in (
                      "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                      "library_ms", "shape")}})
-    rows.append(train_row)
+    # the same kernel at the MoE layers: one launch a layer of a prefill
+    for kname, arch in (("flash_attention_grok", "grok-1-314b"),
+                        ("flash_attention_mixtral", "mixtral-8x22b")):
+        rows.append({"name": kname, "route": "cuda",
+                     "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
+                     "replaces": "src/repro/kernels/flash_attention.py:88",
+                     "launches": moe_flash[arch],
+                     **{key: flash_moe[arch][key] for key in (
+                         "max_abs_err", "ms", "plain_ms", "bound_ms",
+                         "bound_by", "library_ms", "shape")}})
+    rows.extend(train_rows)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -45,20 +45,34 @@ def weighted_agg_multi(stack: torch.Tensor,
 
 def weighted_agg_multi_tree(tree: Any, weights: torch.Tensor) -> Any:
     """(C, ...) tree + (C, K) weights -> (K, ...) tree, leaf by leaf as
-    the reference's tree form; on the card the leaves go into one grouped
-    launch for every 64 (one for LeNet's 10 leaves: one a stage-1), any
-    K."""
+    the reference's tree form; on the card the leaves of each dtype go into
+    one grouped launch for every 64 (one for LeNet's 10 leaves: one a
+    stage-1; a bf16 model with f32 leaves, as the recurrent families'
+    ``A_log``/``D``/``dt_bias``, one for each dtype), any K."""
     leaves = tree_leaves(tree)
+    k = weights.shape[1]
     if not leaves or leaves[0].device.type == "cpu":
-        k = weights.shape[1]
         outs = [ref.weighted_agg_multi_ref(x.reshape(x.shape[0], -1),
                                            weights).reshape((k,) + x.shape[1:])
                 for x in leaves]
-    else:                         # (C, ...) leaves go in as they are
-        outs = _wagg.launch_grouped([x.contiguous() for x in leaves],
-                                    weights)
-        LAUNCHES["weighted_agg_multi"] += _wagg.launches(len(leaves))
+        return tree_unflatten(tree, outs)
+    outs = [None] * len(leaves)
+    for group in dtype_groups(leaves):     # (C, ...) leaves go in as they are
+        got = _wagg.launch_grouped([leaves[i].contiguous() for i in group],
+                                   weights)
+        LAUNCHES["weighted_agg_multi"] += _wagg.launches(len(group))
+        for i, out in zip(group, got):
+            outs[i] = out
     return tree_unflatten(tree, outs)
+
+
+def dtype_groups(leaves) -> Tuple[Tuple[int, ...], ...]:
+    """The leaves' indices grouped by dtype, groups in the order of each
+    dtype's first leaf: one grouped launch takes one dtype."""
+    groups: Dict[torch.dtype, list] = {}
+    for i, x in enumerate(leaves):
+        groups.setdefault(x.dtype, []).append(i)
+    return tuple(tuple(g) for g in groups.values())
 
 
 def weighted_agg(stack: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:

@@ -2,16 +2,22 @@
 decode with ring-buffer KV caches.
 
     python -m repro_torch.launch.serve --arch gemma2-2b \
-        [--smoke] [--batch 2] [--prompt-len 64] [--tokens 16] [--device cpu]
+        [--smoke] [--batch 2] [--prompt-len 64] [--tokens 16] \
+        [--kv-int8 | --no-kv-int8] [--device cpu]
 
 The port's counterpart of ``examples/serve_batch.py`` and, on one card, of
 ``launch/serve.py``: the full-size config by default (``--smoke`` takes its
 ``smoke_variant``), random weights from ``--seed``, on ``cuda`` unless
 ``--device cpu`` is asked for (no fallback).  Any arch the port's stack
-covers: the attention models and the recurrent ones, ``mamba2-1.3b`` (SSD
+covers: the attention models, the recurrent ones, ``mamba2-1.3b`` (SSD
 state caches) and ``recurrentgemma-2b`` (RG-LRU states beside ring-buffer
-caches for its local layers).  Prints one JSON line with the timings and
-the first generated tokens.
+caches for its local layers), and the mixtures of experts,
+``grok-1-314b`` and ``mixtral-8x22b`` (a full-size one fits no single
+card: serve its smoke variant, or a depth cut from Python).  The MoE
+dispatch and the KV cache's type come from the arch's profile (grok-1:
+scan dispatch, int8 cache; mixtral: scan, bf16); ``--kv-int8`` and
+``--no-kv-int8`` override the cache.  Prints one JSON line with the
+timings, the cache's bytes and the first generated tokens.
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch import device as device_lib
-from repro_torch.configs import get_config, smoke_variant
+from repro_torch.configs import get_config, get_profile, smoke_variant
 from repro_torch.models import decode_step, init_params, param_count
 from repro_torch.models.model import prefill_last
 from repro_torch.tree import tree_leaves
@@ -35,6 +41,7 @@ class ServeResult(NamedTuple):
     decode_s: float             # the new_tokens - 1 decode steps
     decode_tokens_per_s: float  # B * (new_tokens - 1) / decode_s
     peak_device_mem_mb: Optional[float]
+    cache_bytes: int            # the caches prefill made
 
 
 def _sync(dev: torch.device) -> None:
@@ -43,10 +50,12 @@ def _sync(dev: torch.device) -> None:
 
 
 def serve_batch(cfg, params: dict, prompts: torch.Tensor, new_tokens: int,
-                *, device=None) -> ServeResult:
+                *, device=None, dispatch: str = "dense",
+                quantized_cache: bool = False) -> ServeResult:
     """Greedy continuation of ``prompts`` (B, S) by ``new_tokens`` tokens:
     one prefill (which gives the first new token), then ``new_tokens - 1``
-    decode steps.  Every timing ends in a device synchronize."""
+    decode steps, with the MoE ``dispatch`` and, if ``quantized_cache``,
+    int8 KV caches.  Every timing ends in a device synchronize."""
     dev = device_lib.resolve(device)
     if new_tokens < 1:
         raise ValueError(f"new_tokens={new_tokens} must be >= 1")
@@ -62,13 +71,15 @@ def serve_batch(cfg, params: dict, prompts: torch.Tensor, new_tokens: int,
         _sync(dev)
         t0 = time.perf_counter()
         logits, caches = prefill_last(cfg, params, {"tokens": prompts},
-                                      max_len)
+                                      max_len, dispatch=dispatch,
+                                      quantized_cache=quantized_cache)
         tok = logits.argmax(-1)[:, None]
         _sync(dev)
         t1 = time.perf_counter()
         out = [tok]
         for i in range(new_tokens - 1):
-            logits, caches = decode_step(cfg, params, caches, tok, s + i)
+            logits, caches = decode_step(cfg, params, caches, tok, s + i,
+                                         dispatch=dispatch)
             tok = logits[:, 0].argmax(-1)[:, None]
             out.append(tok)
         _sync(dev)
@@ -79,7 +90,9 @@ def serve_batch(cfg, params: dict, prompts: torch.Tensor, new_tokens: int,
         tokens=torch.cat(out, dim=1).cpu(), prefill_s=t1 - t0,
         decode_s=decode_s,
         decode_tokens_per_s=steps / decode_s if steps else 0.0,
-        peak_device_mem_mb=device_lib.peak_device_mem_mb(dev))
+        peak_device_mem_mb=device_lib.peak_device_mem_mb(dev),
+        cache_bytes=sum(t.numel() * t.element_size()
+                        for t in tree_leaves(caches)))
 
 
 def main(argv=None) -> None:
@@ -91,23 +104,31 @@ def main(argv=None) -> None:
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--tokens", type=int, default=16)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--kv-int8", action=argparse.BooleanOptionalAction,
+                    default=None,
+                    help="int8 KV cache (default: the arch's profile)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
     dev = device_lib.resolve(args.device)
     cfg = get_config(args.arch)
+    prof = get_profile(args.arch)
+    kv_int8 = prof.kv_int8 if args.kv_int8 is None else args.kv_int8
     if args.smoke:
         cfg = smoke_variant(cfg)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_params(cfg, gen)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen, device=dev)
-    res = serve_batch(cfg, params, prompts, args.tokens, device=dev)
+    res = serve_batch(cfg, params, prompts, args.tokens, device=dev,
+                      dispatch=prof.moe_dispatch, quantized_cache=kv_int8)
     print(json.dumps({
         "arch": cfg.name, "device": str(dev),
         "kind": torch.cuda.get_device_name(dev) if dev.type == "cuda"
         else "cpu",
         "params": param_count(params), "dtype": cfg.dtype,
+        "moe_dispatch": prof.moe_dispatch if cfg.num_experts else None,
+        "kv_int8": kv_int8, "cache_bytes": res.cache_bytes,
         "batch": args.batch, "prompt_len": args.prompt_len,
         "new_tokens": args.tokens, "prefill_s": res.prefill_s,
         "decode_s": res.decode_s,

@@ -108,7 +108,7 @@ def default_clusters(num_clients: int, k: int) -> Tuple[Tuple[int, ...], ...]:
 # ==========================================================================
 
 def _local_update(cfg, p, b, *, accum: int, micro: int, lr: float,
-                  acc_dt: torch.dtype, remat: bool):
+                  acc_dt: torch.dtype, remat: bool, dispatch: str):
     """One client's local SGD step with gradient accumulation (reference
     ``local_update``): ``accum`` microbatches of ``micro`` rows, each loss
     differentiated by autograd and its gradient summed into an ``acc_dt``
@@ -124,7 +124,8 @@ def _local_update(cfg, p, b, *, accum: int, micro: int, lr: float,
     for i in range(accum):
         ps = [x.detach().requires_grad_(True) for x in leaves]
         loss = M.loss_fn(cfg, tree_unflatten(p, ps),
-                         {k: x[i] for k, x in mbs.items()}, remat=remat)[0]
+                         {k: x[i] for k, x in mbs.items()},
+                         dispatch=dispatch, remat=remat)[0]
         for a, g in zip(g_acc, torch.autograd.grad(loss, ps)):
             a.add_(g)
         l_acc = l_acc + loss.detach()
@@ -198,7 +199,8 @@ def build_train_step(arch: str, shape: InputShape, mesh=None, *,
 
     def local(p, b):
         return _local_update(cfg, p, b, accum=accum, micro=micro, lr=lr,
-                             acc_dt=acc_dt, remat=prof.remat)
+                             acc_dt=acc_dt, remat=prof.remat,
+                             dispatch=prof.moe_dispatch)
 
     def do_global(round_idx) -> bool:
         return (int(round_idx) + 1) % rounds_per_global == 0
@@ -316,14 +318,12 @@ def cache_spec_tree(cache_structs, batch_axes, mesh):
 
 
 def _cache_structs(cfg, prof, batch: int, max_len: int):
-    if prof.kv_int8:
-        raise NotImplementedError(
-            f"{cfg.name}: the int8 KV cache is not in the port (ROADMAP "
-            f"queue 1, item 16b, the rest of the transformer shelf)")
+    """The cache tree (int8 with scales under ``prof.kv_int8``) as meta
+    tensors."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     with FakeTensorMode():
         caches = T.init_caches(cfg, batch, max_len, getattr(torch, cfg.dtype),
-                               torch.device("cpu"))
+                               torch.device("cpu"), quantized=prof.kv_int8)
     return _as_meta(caches)
 
 
@@ -331,7 +331,8 @@ def build_prefill_step(arch: str, shape: InputShape, mesh=None, *,
                        cfg: Optional[ModelConfig] = None,
                        profile: Optional[RunProfile] = None) -> StepBundle:
     """``fn(params, batch) -> (last-position logits (B, V), caches)`` over
-    caches of ``shape.seq_len``."""
+    caches of ``shape.seq_len``, with the profile's MoE dispatch and KV
+    cache (int8 under ``kv_int8``)."""
     cfg, prof = _resolve(arch, cfg, profile)
     B, S = shape.global_batch, shape.seq_len
     batch_axes = _batch_axes(mesh, B, "data")
@@ -340,7 +341,9 @@ def build_prefill_step(arch: str, shape: InputShape, mesh=None, *,
     batch_structs = {"tokens": _spec((B, S), torch.int32)}
 
     def prefill_step(params, batch):
-        return M.prefill_last(cfg, params, batch, S)
+        return M.prefill_last(cfg, params, batch, S,
+                              dispatch=prof.moe_dispatch,
+                              quantized_cache=prof.kv_int8)
 
     if mesh is None:
         in_sh, out_sh = (None, None), (None, None)
@@ -361,7 +364,8 @@ def build_decode_step(arch: str, shape: InputShape, mesh=None, *,
                       cfg: Optional[ModelConfig] = None,
                       profile: Optional[RunProfile] = None) -> StepBundle:
     """``fn(params, caches, token (B, 1), pos) -> (logits (B, V),
-    caches)``, the caches written in place."""
+    caches)``, the caches written in place, with the profile's MoE
+    dispatch; the caches are int8 under ``kv_int8``."""
     cfg, prof = _resolve(arch, cfg, profile)
     B, S = shape.global_batch, shape.seq_len
     # long_500k has batch 1: the batch dim replicated
@@ -370,7 +374,8 @@ def build_decode_step(arch: str, shape: InputShape, mesh=None, *,
     cache_structs = _cache_structs(cfg, prof, B, S)
 
     def decode_step(params, caches, token, pos):
-        logits, caches = M.decode_step(cfg, params, caches, token, pos)
+        logits, caches = M.decode_step(cfg, params, caches, token, pos,
+                                       dispatch=prof.moe_dispatch)
         return logits[:, 0], caches
 
     if mesh is None:

@@ -20,21 +20,30 @@ Three routes, as in the reference:
   (``q_pos = Sk - Sq + i``).
 * **decode** attends over the ring-buffer cache with a ``slot_pos`` mask,
   outside that contract, so :func:`direct_attention` computes it in plain
-  PyTorch (float32), as the reference computes it in one einsum.
+  PyTorch (float32), as the reference computes it in one einsum, over
+  blocks of cache slots so that no float32 copy of a whole cache exists.
 
 Cache layout per attention layer::
 
     {"k": (B, L, Hkv, D), "v": (B, L, Hkv, D), "slot_pos": (L,) int32}
 
+or, int8-quantized (``init_cache(quantized=True)``, the profiles with
+``kv_int8``: grok-1-314b, qwen2-72b)::
+
+    {"k", "v": (B, L, Hkv, D) int8, "k_scale", "v_scale": (B, L, Hkv) f32,
+     "slot_pos": (L,) int32}
+
 ``slot_pos[s]`` is the absolute position held in slot ``s`` (-1 = empty).
 Sliding-window layers use L = window_size as a ring buffer (slot = pos % L);
-full-attention layers use L = max sequence length.  Unlike the reference,
+full-attention layers use L = max sequence length.  Prefill attends over
+the unquantized K/V and quantizes only what it writes; decode folds the
+scales into the scores and the probabilities.  Unlike the reference,
 whose arrays are immutable, the port writes prefill and decode results into
 the cache tensors in place (the caller's dict is updated and returned), so a
 decode step does not copy a 26-layer cache.
 
-Not in the port yet: cross-attention (``kv_x``, enc-dec) and the int8
-cache (``quantized=True``), which raise ``NotImplementedError``.
+Not in the port yet: cross-attention (``kv_x``, enc-dec), which raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -192,16 +201,48 @@ def windowed_full_attention(cfg, q, k, v, q_pos, k_pos, window: int,
     return out[:, :Sq]
 
 
+DECODE_BLOCK_BYTES = 256 << 20   # float32 bytes of K (or V) a block of slots
+
+
+def _slot_block(B: int, L: int, Hkv: int, D: int) -> int:
+    """Cache slots a block of :func:`direct_attention` takes: its float32
+    K (or V) stays under DECODE_BLOCK_BYTES."""
+    return max(1, min(L, DECODE_BLOCK_BYTES // (4 * B * Hkv * D)))
+
+
+def _f32_heads(x: torch.Tensor, a: int, b: int) -> torch.Tensor:
+    """Slots [a, b) of a (B, L, H, D) cache as a float32 (B, H, b - a, D)
+    tensor, cast and laid out for a batched product in one pass."""
+    B, _, H, D = x.shape
+    out = torch.empty((B, H, b - a, D), dtype=torch.float32, device=x.device)
+    return out.copy_(x[:, a:b].permute(0, 2, 1, 3))
+
+
 def direct_attention(cfg, q, k, v, q_pos, k_pos, *, causal: bool,
-                     window: int = 0):
-    """Unchunked attention for tiny Sq (decode): one contraction over the
-    whole cache, in float32.  q (B, Sq, Hq, D), k/v (B, L, Hkv, D), q_pos
-    (Sq,), k_pos (L,); entries with k_pos < 0 are masked (empty slots)."""
+                     window: int = 0, k_scale=None, v_scale=None,
+                     block: Optional[int] = None):
+    """Unchunked attention for tiny Sq (decode), in float32: the scores
+    over the whole cache, one softmax, the weighted sum of values.  q (B,
+    Sq, Hq, D), k/v (B, L, Hkv, D), q_pos (Sq,), k_pos (L,); entries with
+    k_pos < 0 are masked (empty slots).
+
+    int8 caches: the per-slot scales (B, L, Hkv) fold into the dots,
+    score = (q . k_int8) * k_scale[slot] and out = sum (p * v_scale) v_int8,
+    in the reference's order.  K and V are cast to float32 ``block`` slots
+    at a time (default :func:`_slot_block`), so a 32k-slot cache never has
+    a float32 copy; the scores (B, Hkv, G, Sq, L) are whole."""
     B, Sq, Hq, D = q.shape
-    Hkv = k.shape[2]
+    L, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
-    qg = q.float().reshape(B, Sq, Hkv, G, D)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * (1.0 / math.sqrt(D))
+    block = block or _slot_block(B, L, Hkv, D)
+    # (B, Hkv, G * Sq, D): a kv head's queries, its group then positions
+    qh = (q.float().reshape(B, Sq, Hkv, G, D).permute(0, 2, 3, 1, 4)
+          .reshape(B, Hkv, G * Sq, D))
+    s = torch.cat([qh @ _f32_heads(k, a, min(a + block, L)).transpose(-1, -2)
+                   for a in range(0, L, block)], -1)
+    s = s.view(B, Hkv, G, Sq, L) * (1.0 / math.sqrt(D))
+    if k_scale is not None:
+        s = s * k_scale.permute(0, 2, 1)[:, :, None, None, :]
     if cfg.attn_softcap:
         s = softcap(s, cfg.attn_softcap)
     mask = k_pos[None, :] >= 0
@@ -209,9 +250,15 @@ def direct_attention(cfg, q, k, v, q_pos, k_pos, *, causal: bool,
         mask = mask & (k_pos[None, :] <= q_pos[:, None])
     if window:
         mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
-    s = s.masked_fill(~mask, NEG_INF)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(s, dim=-1),
-                       v.float())
+    p = torch.softmax(s.masked_fill(~mask, NEG_INF), dim=-1)
+    if v_scale is not None:
+        p = p * v_scale.permute(0, 2, 1)[:, :, None, None, :]
+    p = p.reshape(B, Hkv, G * Sq, L)
+    out = None
+    for a in range(0, L, block):
+        o = p[..., a:a + block] @ _f32_heads(v, a, min(a + block, L))
+        out = o if out is None else out + o
+    out = out.reshape(B, Hkv, G, Sq, D).permute(0, 3, 1, 2, 4)
     return out.reshape(B, Sq, Hq, D).to(q.dtype)
 
 
@@ -221,25 +268,46 @@ def direct_attention(cfg, q, k, v, q_pos, k_pos, *, causal: bool,
 
 def init_cache(cfg, kind: str, batch: int, max_len: int, dtype, device,
                quantized: bool = False, lead=()) -> dict:
-    if quantized:
-        raise NotImplementedError(
-            "int8 KV cache: not in the port's serving slice (ROADMAP queue "
-            "1, item 16b, the rest of the transformer shelf)")
+    """KV cache of one layer, with a leading ``lead`` shape (the cycles of
+    a stacked pattern position).  ``quantized`` stores int8 K/V with
+    per-(B, slot, head) f32 scales: half the bytes of a bf16 cache."""
     L = effective_cache_len(cfg, kind, max_len)
     H, D = cfg.num_kv_heads, cfg.head_dim
     lead = tuple(lead)
-    return {"k": torch.zeros(lead + (batch, L, H, D), dtype=dtype,
-                             device=device),
-            "v": torch.zeros(lead + (batch, L, H, D), dtype=dtype,
-                             device=device),
-            "slot_pos": torch.full(lead + (L,), -1, dtype=torch.int32,
-                                   device=device)}
+    kv_dtype = torch.int8 if quantized else dtype
+    c = {"k": torch.zeros(lead + (batch, L, H, D), dtype=kv_dtype,
+                          device=device),
+         "v": torch.zeros(lead + (batch, L, H, D), dtype=kv_dtype,
+                          device=device),
+         "slot_pos": torch.full(lead + (L,), -1, dtype=torch.int32,
+                                device=device)}
+    if quantized:
+        for name in ("k_scale", "v_scale"):
+            c[name] = torch.zeros(lead + (batch, L, H), dtype=torch.float32,
+                                  device=device)
+    return c
+
+
+def _quantize_kv(x):
+    """x (..., D) -> (int8 values, f32 scale over D): the scale is
+    ``max(amax, 1e-6) / 127``, the values rounded half to even and clipped
+    to +-127."""
+    xf = x.float()
+    scale = xf.abs().amax(-1).clamp_min(1e-6) / 127.0
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
 
 
 def _cache_write_decode(cache, k_new, v_new, pos: torch.Tensor):
-    """Write one token (B, 1, Hkv, D) at ring slot pos % L, in place.
-    ``pos`` is a (1,) tensor on the cache's device: no host sync."""
+    """Write one token (B, 1, Hkv, D) at ring slot pos % L, in place
+    (quantized first for an int8 cache).  ``pos`` is a (1,) tensor on the
+    cache's device: no host sync."""
     slot = torch.remainder(pos, cache["k"].shape[1]).long()
+    if "k_scale" in cache:
+        k_new, ks = _quantize_kv(k_new)
+        v_new, vs = _quantize_kv(v_new)
+        cache["k_scale"].index_copy_(1, slot, ks)
+        cache["v_scale"].index_copy_(1, slot, vs)
     cache["k"].index_copy_(1, slot, k_new)
     cache["v"].index_copy_(1, slot, v_new)
     cache["slot_pos"].index_copy_(0, slot, pos.to(torch.int32))
@@ -248,20 +316,24 @@ def _cache_write_decode(cache, k_new, v_new, pos: torch.Tensor):
 
 def cache_from_prefill(cache, k, v):
     """Fill a cache from full-sequence K/V (B, S, Hkv, D), ring-consistent,
-    in place."""
+    in place (quantized first for an int8 cache)."""
     L = cache["k"].shape[1]
     S = k.shape[1]
+    new = {"k": k, "v": v}
+    if "k_scale" in cache:
+        new["k"], new["k_scale"] = _quantize_kv(k)
+        new["v"], new["v_scale"] = _quantize_kv(v)
     if L >= S:
-        cache["k"][:, :S] = k
-        cache["v"][:, :S] = v
+        for name, x in new.items():
+            cache[name][:, :S] = x
         cache["slot_pos"][:S] = torch.arange(S, dtype=torch.int32,
                                              device=k.device)
         return cache
     # ring layout: position p lives at slot p % L, so the last L positions
     # [S - L, S) land at a roll of the tail
     shift = (S - L) % L
-    cache["k"].copy_(torch.roll(k[:, S - L:], shift, dims=1))
-    cache["v"].copy_(torch.roll(v[:, S - L:], shift, dims=1))
+    for name, x in new.items():
+        cache[name].copy_(torch.roll(x[:, S - L:], shift, dims=1))
     cache["slot_pos"].copy_(torch.roll(
         torch.arange(S - L, S, dtype=torch.int32, device=k.device), shift))
     return cache
@@ -295,7 +367,9 @@ def apply_attention(cfg, p, x, *, kind: str, mode: str,
         new_cache = _cache_write_decode(cache, k, v, positions)
         out = direct_attention(cfg, q, new_cache["k"], new_cache["v"],
                                positions, new_cache["slot_pos"],
-                               causal=True, window=window)
+                               causal=True, window=window,
+                               k_scale=new_cache.get("k_scale"),
+                               v_scale=new_cache.get("v_scale"))
     elif mode == "train":
         if window:
             out = windowed_full_attention(cfg, q, k, v, positions, positions,

@@ -14,11 +14,17 @@ backward pass instead of kept.
 
 The port covers the attention layer kinds (attn, swa, local, global) with
 a dense gated MLP and optional post-norms (gemma2-2b, h2o-danube-1.8b,
-granite-3-8b, qwen2-72b and pixtral-12b's text stack), and the recurrent
-kinds: Mamba-2 SSD blocks (``models/ssm.py``; no MLP, no second norm:
-mamba2-1.3b) and RG-LRU blocks (``models/rglru.py``, with the MLP:
-recurrentgemma-2b, beside its local attention layers).  MoE and
-encoder-decoder models raise ``NotImplementedError``.
+granite-3-8b, qwen2-72b and pixtral-12b's text stack) or a
+mixture-of-experts layer in its place (``models/moe.py``: grok-1-314b,
+mixtral-8x22b; ``dispatch`` picks dense, capacity or scan, and the
+layers' load-balance losses are summed into ``forward``'s third value),
+and the recurrent kinds: Mamba-2 SSD blocks (``models/ssm.py``; no MLP,
+no second norm: mamba2-1.3b) and RG-LRU blocks (``models/rglru.py``, with
+the MLP: recurrentgemma-2b, beside its local attention layers).  An
+attention layer's cache may be int8 with per-row scales
+(``init_caches(quantized=True)``, ``models/attention.py``).
+Encoder-decoder models and modality front ends (whisper-large-v3,
+pixtral-12b's vision input) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ATTN_KINDS, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -39,9 +46,6 @@ _LATER = "(ROADMAP queue 1, item 16b, the rest of the transformer shelf)"
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.num_experts:
-        raise NotImplementedError(f"{cfg.name}: MoE is not in the port's "
-                                  f"serving slice {_LATER}")
     if cfg.is_enc_dec or cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder and modality front ends are not in "
@@ -66,7 +70,10 @@ def init_block(cfg, kind: str, gen, dtype, device, lead=()) -> dict:
         raise ValueError(kind)
     if kind != "ssd":                                   # mamba2 has no MLP
         p["norm2"] = L.init_norm(cfg, dtype, device, lead)
-        p["mlp"] = L.init_mlp(cfg, gen, dtype, device, lead)
+        if cfg.num_experts:
+            p["moe"] = moe_lib.init_moe(cfg, gen, dtype, device, lead)
+        else:
+            p["mlp"] = L.init_mlp(cfg, gen, dtype, device, lead)
     if cfg.post_norm:
         p["postnorm1"] = L.init_norm(cfg, dtype, device, lead)
         if kind != "ssd":
@@ -75,8 +82,11 @@ def init_block(cfg, kind: str, gen, dtype, device, lead=()) -> dict:
 
 
 def apply_block(cfg, kind: str, p: dict, x, *, mode: str, positions,
-                cache=None):
-    """Returns (x, cache), the cache written in place."""
+                cache=None, dispatch: str = "dense"):
+    """Returns (x, cache, aux): the cache written in place, ``aux`` the MoE
+    layer's f32 load-balance loss, or None without one (the reference's 0,
+    which ``forward`` does not add)."""
+    aux = None
     h = L.apply_norm(cfg, p["norm1"], x)
     if kind in ATTN_KINDS:
         h, new_cache = attn.apply_attention(cfg, p["attn"], h, kind=kind,
@@ -94,11 +104,15 @@ def apply_block(cfg, kind: str, p: dict, x, *, mode: str, positions,
         h = L.apply_norm(cfg, p["postnorm1"], h)
     x = x + h
     if kind == "ssd":
-        return x, new_cache
-    h = L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["norm2"], x))
+        return x, new_cache, aux
+    h = L.apply_norm(cfg, p["norm2"], x)
+    if cfg.num_experts:
+        h, aux = moe_lib.apply_moe(cfg, p["moe"], h, dispatch)
+    else:
+        h = L.apply_mlp(cfg, p["mlp"], h)
     if cfg.post_norm:
         h = L.apply_norm(cfg, p["postnorm2"], h)
-    return x + h, new_cache
+    return x + h, new_cache, aux
 
 
 # --------------------------------------------------------------------------
@@ -125,10 +139,10 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                device) -> dict:
+                device, quantized: bool = False) -> dict:
     """Cache tree matching the layer structure (stacked over cycles): a
-    ring-buffer KV cache for an attention layer, the recurrent state for
-    an SSD or RG-LRU layer."""
+    ring-buffer KV cache for an attention layer (int8 with f32 scales if
+    ``quantized``), the recurrent state for an SSD or RG-LRU layer."""
     pat = cfg.layer_pattern
     n_cycles = cfg.num_layers // len(pat)
     rem = cfg.num_layers % len(pat)
@@ -136,7 +150,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
     def one(kind, lead=()):
         if kind in ATTN_KINDS:
             return attn.init_cache(cfg, kind, batch, max_len, dtype, device,
-                                   lead=lead)
+                                   quantized=quantized, lead=lead)
         if kind == "ssd":
             return ssm_lib.init_ssd_cache(cfg, batch, dtype, device, lead)
         return rglru_lib.init_rglru_cache(cfg, batch, dtype, device, lead)
@@ -180,11 +194,14 @@ def _cycles(tree: Any, n: int) -> list:
 
 
 def forward(cfg: ModelConfig, params: dict, batch: dict, *, mode: str,
-            caches: Optional[dict] = None, last_only: bool = False,
-            remat: bool = False) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Run the stack.  Returns (logits, caches); the caches are the given
-    ones, written in place (the reference's third value, the MoE aux loss,
-    comes with MoE; ``models.model.loss_fn`` adds 0).  ``batch`` holds
+            caches: Optional[dict] = None, dispatch: str = "dense",
+            last_only: bool = False, remat: bool = False
+            ) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
+    """Run the stack.  Returns (logits, caches, aux): the caches are the
+    given ones, written in place; ``aux`` is the f32 sum over layers of the
+    MoE load-balance losses (0 without MoE), in layer order as the
+    reference's scan carry sums it.  ``dispatch`` is the MoE dispatch
+    (``models/moe.py``).  ``batch`` holds
     "tokens" (B, S) and, in decode, "pos" (the absolute position of the one
     token).  ``last_only`` unembeds just the final position (serving
     prefill).  ``remat`` checkpoints each cycle of the layer pattern in
@@ -203,27 +220,34 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *, mode: str,
     n_cycles = cfg.num_layers // len(pat)
     layers = [_cycles(lp, n_cycles) for lp in params["layers"]]
 
-    def cycle(x, c):
+    def cycle(x, aux, c):
         for j, kind in enumerate(pat):
             cache = (None if caches is None
                      else tree_map(lambda t: t[c], caches["layers"][j]))
-            x, _ = apply_block(cfg, kind, layers[j][c], x, mode=mode,
-                               positions=positions, cache=cache)
-        return x
+            x, _, a = apply_block(cfg, kind, layers[j][c], x, mode=mode,
+                                  positions=positions, cache=cache,
+                                  dispatch=dispatch)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
     for c in range(n_cycles):
         if remat and mode == "train":
-            x = torch.utils.checkpoint.checkpoint(cycle, x, c,
-                                                  use_reentrant=False)
+            x, aux = torch.utils.checkpoint.checkpoint(cycle, x, aux, c,
+                                                       use_reentrant=False)
         else:
-            x = cycle(x, c)
+            x, aux = cycle(x, aux, c)
     for j, lp in enumerate(params["rem_layers"]):
         cache = None if caches is None else caches["rem_layers"][j]
-        x, _ = apply_block(cfg, pat[j % len(pat)], lp, x, mode=mode,
-                           positions=positions, cache=cache)
+        x, _, a = apply_block(cfg, pat[j % len(pat)], lp, x, mode=mode,
+                              positions=positions, cache=cache,
+                              dispatch=dispatch)
+        if a is not None:
+            aux = aux + a
 
     x = L.apply_norm(cfg, params["final_norm"], x)
     if last_only:
         x = x[:, -1:]
     logits = L.unembed(cfg, params["embed"], x)
-    return logits, caches
+    return logits, caches, aux

@@ -523,3 +523,119 @@ def test_recurrent_serving_on_the_card_matches_the_cpu(cuda_device, arch):
             outs[name] = [x.cpu() for x in seq + tree_leaves(caches)]
     for a, b in zip(outs["card"], outs["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 300])
+def test_flash_attention_at_moe_layers(cuda_device, window):
+    """grok-1-314b's and mixtral-8x22b's layer shape at a shortened
+    length: Hq = 48 over Hkv = 8 (group 6), D = 128, causal, window 0
+    (grok-1) or shorter than S (mixtral's 4096, scaled), bf16, from the
+    model's (B, S, H, D) layout, on the tensor cores, at chip_smoke's
+    layer bars (rtol 1e-2, atol 1e-3)."""
+    g = torch.Generator(device=cuda_device).manual_seed(10 + window)
+    q, k, v = (torch.randn((2, 700, h, 128), generator=g,
+                           device=cuda_device).bfloat16().transpose(1, 2)
+               for h in (48, 8, 8))
+    before = dict(ops.FLASH_ROUTES)
+    got = ops.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert ops.FLASH_ROUTES["tensor_cores"] == before["tensor_cores"] + 1
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    want = ref.flash_attention_ref(q, k, v, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_stage1_tree_of_two_dtypes_on_the_card(cuda_device):
+    """A bf16 tree with f32 leaves (the recurrent families' ``A_log``,
+    ``D``, ``dt_bias``): one grouped launch a dtype, each leaf against the
+    plain version in its own dtype."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    leaves = tuple(torch.randn((4, p), generator=g, device=cuda_device)
+                   .to(dt) for p, dt in ((5000, torch.bfloat16),
+                                         (64, torch.float32),
+                                         (3000, torch.bfloat16),
+                                         (48, torch.float32)))
+    w = torch.rand((4, 2), generator=g, device=cuda_device)
+    w = (w / w.sum(0, keepdim=True)).contiguous()
+    before = ops.LAUNCHES["weighted_agg_multi"]
+    got = ops.weighted_agg_multi_tree(leaves, w)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["weighted_agg_multi"] == before + 2
+    for out, x in zip(got, leaves):
+        assert out.dtype == x.dtype and out.shape == (2, x.shape[1])
+        tol = 2e-5 if x.dtype == torch.float32 else 3e-2
+        torch.testing.assert_close(out.float(), ref.weighted_agg_multi_ref(
+            x, w).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dispatch", ["scan", "capacity", "dense"])
+def test_moe_dispatch_on_the_card_matches_the_cpu(cuda_device, dispatch):
+    """The smoke mixtral-8x22b's MoE layer (f32, TF32 off) on the card
+    against the same parameters and input on the CPU: output and aux at
+    1e-5."""
+    from repro_torch import device as device_lib
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models import moe
+    from repro_torch.tree import tree_map
+    device_lib.resolve("cuda")                  # TF32 off
+    cfg = smoke_variant(get_config("mixtral-8x22b"))
+    gen = torch.Generator().manual_seed(12)
+    p = moe.init_moe(cfg, gen, torch.float32, "cpu")
+    x = 0.5 * torch.randn((2, 40, cfg.d_model), generator=gen)
+    want = moe.apply_moe(cfg, p, x, dispatch)
+    got = moe.apply_moe(cfg, tree_map(lambda t: t.to(cuda_device), p),
+                        x.to(cuda_device), dispatch)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_int8_decode_on_the_card_matches_the_cpu(cuda_device):
+    """The smoke grok-1-314b (f32 weights, int8 KV cache, scan dispatch)
+    on the card against the CPU.  ``prefill_last``: logits and the
+    caches' scales at 1e-4, their int8 values at most 4 a leaf one step
+    apart (the K/V the two devices quantize are summed in other orders,
+    and a value within an f32 ulp of a half rounds either way).  Then two
+    decode steps, each from the same (the CPU's) caches on both devices,
+    so that a flipped int8 value, which moves every logit of its sequence
+    by ~1e-4, does not carry over: logits at 1e-4."""
+    from repro_torch import device as device_lib
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models import decode_step, init_params
+    from repro_torch.models.model import prefill_last
+    from repro_torch.tree import tree_leaves, tree_map
+    device_lib.resolve("cuda")
+    cfg = smoke_variant(get_config("grok-1-314b"))
+    gen = torch.Generator().manual_seed(13)
+    cpu = init_params(cfg, gen)
+    card = tree_map(lambda t: t.to(cuda_device), cpu)
+    toks = torch.randint(0, cfg.vocab_size, (2, 100), generator=gen)
+    with torch.inference_mode():
+        lc, cc = prefill_last(cfg, cpu, {"tokens": toks}, 104,
+                              dispatch="scan", quantized_cache=True)
+        lg, cg = prefill_last(cfg, card, {"tokens": toks.to(cuda_device)},
+                              104, dispatch="scan", quantized_cache=True)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+        n_int8 = 0
+        for a, b in zip(tree_leaves(cg), tree_leaves(cc)):
+            a = a.cpu()
+            if a.dtype == torch.int8:
+                n_int8 += 1
+                d = (a.int() - b.int()).abs()
+                assert int(d.max()) <= 1 and int((d > 0).sum()) <= 4
+            else:
+                torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        assert n_int8 == 2             # k and v, stacked over the 2 layers
+        for step in range(2):
+            cg = tree_map(lambda t: t.to(cuda_device), cc)
+            tok = toks[:, step:step + 1]
+            lc, cc = decode_step(cfg, cpu, cc, tok, 100 + step,
+                                 dispatch="scan")
+            lg, cg = decode_step(cfg, card, cg, tok.to(cuda_device),
+                                 100 + step, dispatch="scan")
+            torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4,
+                                       msg=f"decode step {step}")

@@ -17,6 +17,7 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import ref as ref_torch
 from repro_torch.kernels import weighted_agg as wagg_launcher
+from repro_torch.tree import tree_leaves
 
 
 torch.set_num_threads(1)        # see test_torch_jaxref.py
@@ -436,3 +437,36 @@ def test_ptxas_info_reads_registers_and_spills(monkeypatch, tmp_path):
                        "static_smem": 1024, "spill_stores": 8,
                        "spill_loads": 4}
     assert "setmaxnreg ignored" in rows[1]["warnings"][0]
+
+
+def test_stage1_tree_of_two_dtypes_takes_one_launch_a_dtype(monkeypatch):
+    """A bf16 model with f32 leaves (mamba2's ``A_log``, ``D``,
+    ``dt_bias``; recurrentgemma's RG-LRU gates): the grouped launch takes
+    one dtype (``launch_grouped`` raises on two), so the tree goes in as
+    one launch a dtype, each output back in its leaf's place.  Meta
+    tensors reach the card's branch; the launcher is a stand-in that
+    refuses as the real one does."""
+    calls = []
+
+    def fake(leaves, weights):
+        assert len({x.dtype for x in leaves}) == 1, "one dtype a launch"
+        calls.append([tuple(x.shape) for x in leaves])
+        return [torch.empty((weights.shape[1],) + tuple(x.shape[1:]),
+                            dtype=x.dtype, device=x.device) for x in leaves]
+    monkeypatch.setattr(ops._wagg, "launch_grouped", fake)
+    meta = torch.device("meta")
+    tree = {"a": torch.empty((4, 6, 8), dtype=torch.bfloat16, device=meta),
+            "A_log": torch.empty((4, 6), dtype=torch.float32, device=meta),
+            "b": (torch.empty((4, 5), dtype=torch.bfloat16, device=meta),
+                  torch.empty((4, 3), dtype=torch.float32, device=meta))}
+    w = torch.empty((4, 2), dtype=torch.float32, device=meta)
+    assert ops.dtype_groups(tree_leaves(tree)) == ((0, 2), (1, 3))
+    ops.reset_launches()
+    out = ops.weighted_agg_multi_tree(tree, w)
+    assert ops.LAUNCHES["weighted_agg_multi"] == 2
+    assert calls == [[(4, 6, 8), (4, 5)], [(4, 6), (4, 3)]]
+    assert out["a"].shape == (2, 6, 8) and out["a"].dtype == torch.bfloat16
+    assert out["A_log"].shape == (2, 6)
+    assert out["A_log"].dtype == torch.float32
+    assert out["b"][1].shape == (2, 3) and out["b"][1].dtype == torch.float32
+    ops.reset_launches()

@@ -41,20 +41,20 @@ def _setup(arch, seed=0, B=2, S=48):
 @torch.inference_mode()
 @pytest.mark.parametrize("arch", ["gemma2-2b", "h2o-danube-1.8b",
                                   "qwen2-72b", "mamba2-1.3b",
-                                  "recurrentgemma-2b"])
+                                  "recurrentgemma-2b", "mixtral-8x22b"])
 def test_decode_matches_full_forward(arch):
     cfg, params, toks = _setup(arch)
     S = toks.shape[1]
     logits_pf, caches = prefill(cfg, params, {"tokens": toks}, max_len=S + 4)
     nxt = logits_pf[:, -1:].argmax(-1)
     logits_dec, caches = decode_step(cfg, params, caches, nxt, S)
-    full, _ = forward(cfg, params, {"tokens": torch.cat([toks, nxt], 1)},
-                      mode="train")
+    full, _, _ = forward(cfg, params,
+                         {"tokens": torch.cat([toks, nxt], 1)}, mode="train")
     torch.testing.assert_close(logits_dec[:, 0], full[:, -1], rtol=TOL,
                                atol=TOL)
     nxt2 = logits_dec[:, -1:].argmax(-1)
     logits_dec2, _ = decode_step(cfg, params, caches, nxt2, S + 1)
-    full2, _ = forward(cfg, params,
+    full2, _, _ = forward(cfg, params,
                        {"tokens": torch.cat([toks, nxt, nxt2], 1)},
                        mode="train")
     torch.testing.assert_close(logits_dec2[:, 0], full2[:, -1], rtol=TOL,
@@ -72,8 +72,8 @@ def test_ring_buffer_wraps_beyond_window():
     assert caches["layers"][0]["k"].shape[2] == 64      # (cycles, B, L, H, D)
     nxt = logits_pf[:, -1:].argmax(-1)
     logits_dec, _ = decode_step(cfg, params, caches, nxt, S)
-    full, _ = forward(cfg, params, {"tokens": torch.cat([toks, nxt], 1)},
-                      mode="train")
+    full, _, _ = forward(cfg, params,
+                         {"tokens": torch.cat([toks, nxt], 1)}, mode="train")
     torch.testing.assert_close(logits_dec[:, 0], full[:, -1], rtol=TOL,
                                atol=TOL)
 
@@ -95,7 +95,7 @@ def test_recurrent_ring_buffer_wraps_beyond_window():
     for step in range(2):
         logits_dec, caches = decode_step(cfg, params, caches, nxt, S + step)
         seq = torch.cat([seq, nxt], 1)
-        full, _ = forward(cfg, params, {"tokens": seq}, mode="train")
+        full, _, _ = forward(cfg, params, {"tokens": seq}, mode="train")
         torch.testing.assert_close(logits_dec[:, 0], full[:, -1], rtol=TOL,
                                    atol=TOL)
         nxt = logits_dec[:, -1:].argmax(-1)
@@ -139,14 +139,42 @@ def test_serving_defaults_to_cuda_and_refuses_to_fall_back(monkeypatch):
 
 
 def test_unported_model_parts_name_their_slice():
-    from repro_torch.models.attention import init_cache
-    cfg = smoke_variant(get_config("gemma2-2b"))
-    for arch in ("mixtral-8x22b", "whisper-large-v3"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 16"):
+    """The encoder-decoder (whisper-large-v3) and the vision front end
+    (pixtral-12b) are still refused; MoE and the int8 cache are ported
+    (``test_serve_cli_runs_moe_archs_on_cpu``, ``test_torch_moe.py``,
+    ``test_torch_kv_int8.py``)."""
+    for arch in ("whisper-large-v3", "pixtral-12b"):
+        with pytest.raises(NotImplementedError, match="queue 1, item 16b"):
             init_params(smoke_variant(get_config(arch)),
                         torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="int8"):
-        init_cache(cfg, "global", 1, 8, torch.float32, CPU, quantized=True)
+
+
+@pytest.mark.parametrize("arch,kv_int8", [("grok-1-314b", True),
+                                          ("mixtral-8x22b", False)])
+def test_serve_cli_runs_moe_archs_on_cpu(arch, kv_int8, capsys):
+    """The profiles' defaults: scan dispatch for both, grok-1's int8
+    cache, whose bytes are (D + 4 bytes of scale) / (4 D) of the f32
+    cache's at the smoke's D = 32."""
+    args = ["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
+            "--prompt-len", "70", "--tokens", "3"]
+    serve.main(args)
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["arch"] == arch + "-smoke" and out["device"] == "cpu"
+    assert out["moe_dispatch"] == "scan" and out["kv_int8"] is kv_int8
+    assert [len(t) for t in out["first_tokens"]] == [3, 3]
+    flag = "--no-kv-int8" if kv_int8 else "--kv-int8"
+    serve.main(args + [flag])
+    other = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert other["kv_int8"] is not kv_int8
+    q, f = ((out, other) if kv_int8 else (other, out))
+    slots = q["cache_bytes"] - f["cache_bytes"] * (32 + 4) / (4 * 32)
+    assert abs(slots) < 0.01 * q["cache_bytes"]     # slot_pos: int32 both
+
+
+def test_moe_serving_refuses_to_fall_back(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "grok-1-314b", "--smoke"])
 
 
 # ------------------------------------------------------------------ guards

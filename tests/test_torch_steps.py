@@ -17,7 +17,12 @@ against the JAX package, on the CPU, in float32.
   ``tests/test_torch_transformer.py``'s whole-model serving test; for
   gemma2-2b and for the recurrent families (mamba2-1.3b, recurrentgemma-2b),
   whose bundles' in_specs, cache structs and placements are also held at
-  the full configs at ``prefill_32k``, ``decode_32k`` and ``long_500k``.
+  the full configs at ``prefill_32k``, ``decode_32k`` and ``long_500k``;
+  and for the mixtures of experts (grok-1-314b with its int8 cache,
+  mixtral-8x22b), with their profiles' scan dispatch, at the same bars
+  (an int8 cache value at most ``test_torch_kv_int8.py``'s INT8_FLIPS
+  apart), their full configs' bundles at the shapes that apply to them
+  (``cache_spec_tree`` over the int8 cache's scales included).
 * ``build_step`` routes by the shape's mode; ``build_train_step``'s
   ``in_specs`` equal the reference's on a 4-client mesh.
 * ``shape_applicable`` equals the reference's for every arch and shape.
@@ -44,6 +49,7 @@ from repro_torch.models import model as tmodel
 from repro_torch.models.transformer import params_from_numpy, params_to_numpy
 from repro_torch.sharding import rules as trules
 
+from test_torch_kv_int8 import assert_int8_close
 from test_torch_mesh import FakeMesh
 
 CPU = torch.device("cpu")
@@ -172,6 +178,9 @@ def _close_caches(got, want, tol):
     g, w = _flat(params_to_numpy(got)), _flat(want)
     assert set(g) == set(w)
     for k in g:
+        if g[k].dtype == np.int8:
+            assert_int8_close(g[k], w[k], what=k)
+            continue
         np.testing.assert_allclose(g[k], np.asarray(w[k], np.float32),
                                    rtol=tol, atol=tol, err_msg=k)
 
@@ -206,12 +215,15 @@ def _bundle_functions_match(monkeypatch, arch, seed):
     tdec = tsteps.build_decode_step(
         arch, tshapes.InputShape("d", SEQ, B, "decode"), None, **kw)
     n = SEQ - 2
+    prof = kw["profile"]
+    serve = dict(dispatch=prof.moe_dispatch, quantized_cache=prof.kv_int8)
     jl, jc = jmodel.prefill_last(jcfg, jparams,
-                                 {"tokens": jnp.asarray(toks[:, :n])}, SEQ)
+                                 {"tokens": jnp.asarray(toks[:, :n])}, SEQ,
+                                 **serve)
     with torch.inference_mode():
         _, tc = tmodel.prefill_last(
             kw["cfg"], tparams, {"tokens": torch.from_numpy(toks[:, :n])
-                                 .long()}, SEQ)
+                                 .long()}, SEQ, **serve)
     tok = np.array(jnp.argmax(jl, -1), np.int32)[:, None]
     for step in range(2):
         jl, jc = jdec.fn(jparams, jc, jnp.asarray(tok), jnp.int32(n + step))
@@ -275,6 +287,65 @@ def test_recurrent_bundle_functions_match_reference(arch, monkeypatch):
     """The recurrent smoke variants through the bundles' functions (the
     decode steps past recurrentgemma's 64-token window)."""
     _bundle_functions_match(monkeypatch, arch, 6)
+
+
+MOE = ("grok-1-314b", "mixtral-8x22b")
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("grok-1-314b", "prefill_32k"), ("grok-1-314b", "decode_32k"),
+    ("mixtral-8x22b", "prefill_32k"), ("mixtral-8x22b", "decode_32k"),
+    ("mixtral-8x22b", "long_500k")])
+def test_moe_serving_bundles_match_reference(arch, shape):
+    """The full MoE configs at the serving shapes that apply to them
+    (grok-1 is pure full attention: no ``long_500k``), as meta tensors:
+    in_specs (the (E, d, f) expert stacks), grok-1's int8 cache with its
+    f32 scales, and every placement on a ("data", "model") mesh."""
+    mesh = {"data": 2, "model": 4}
+    jmesh = AbstractMesh(tuple(mesh.values()), tuple(mesh))
+    tmesh = FakeMesh(mesh)
+    jshape, tshape = jshapes.SHAPES[shape], tshapes.SHAPES[shape]
+    build_j = (jsteps.build_prefill_step if jshape.mode == "prefill"
+               else jsteps.build_decode_step)
+    build_t = (tsteps.build_prefill_step if tshape.mode == "prefill"
+               else tsteps.build_decode_step)
+    want, got = build_j(arch, jshape, jmesh), build_t(arch, tshape, tmesh)
+    assert got.meta["batch_axes"] == want.meta["batch_axes"]
+    for g, w in zip(got.in_specs, want.in_specs):
+        _same_specs(g, w)
+    for g, w in zip(got.in_shardings + (got.out_shardings,),
+                    want.in_shardings + (want.out_shardings,)):
+        _same_placements(g, w, tmesh)
+    cfg, prof = tconfigs.get_config(arch), tconfigs.get_profile(arch)
+    moe = got.in_specs[0]["layers"][0]["moe"]
+    assert moe["w_gate"].shape == (cfg.num_layers, 8, cfg.d_model, cfg.d_ff)
+    caches = tsteps._cache_structs(cfg, prof, tshape.global_batch,
+                                   tshape.seq_len)
+    c = caches["layers"][0]
+    B, L = tshape.global_batch, c["k"].shape[2]
+    if prof.kv_int8:
+        assert set(c) == {"k", "v", "k_scale", "v_scale", "slot_pos"}
+        assert c["k"].dtype == torch.int8
+        assert c["k_scale"].shape == (cfg.num_layers, B, L, 8)
+        assert c["k_scale"].dtype == torch.float32
+    else:
+        assert set(c) == {"k", "v", "slot_pos"}
+        assert c["k"].dtype == torch.bfloat16
+    jcaches = jax.eval_shape(lambda: jsteps.T.init_caches(
+        jconfigs.get_config(arch), B, tshape.seq_len, jnp.bfloat16,
+        quantized=prof.kv_int8))
+    _same_specs(caches, jcaches)
+    g = _flat(tsteps.cache_spec_tree(caches, got.meta["batch_axes"], tmesh))
+    w = _flat(jsteps.cache_spec_tree(jcaches, want.meta["batch_axes"],
+                                     jmesh))
+    assert {k: JP(*s) for k, s in g.items()} == w
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_bundle_functions_match_reference(arch, monkeypatch):
+    """The MoE smoke variants through the bundles' functions, each with
+    its profile's dispatch (scan) and cache (grok-1 int8)."""
+    _bundle_functions_match(monkeypatch, arch, 7)
 
 
 def test_build_step_routes_by_mode_and_train_specs_match(monkeypatch):

@@ -11,7 +11,13 @@ differ only in summation order and in the ulps of exp/tanh/sin:
   two layers and a 512-way unembed; caches 1e-5;
 - bfloat16 weights and activations: logits within 0.1 (about 3 bf16 ulps
   at the logits' scale), where the reference also rounds the attention
-  probabilities to bf16 before P.V and the port keeps them in f32.
+  probabilities to bf16 before P.V and the port keeps them in f32;
+- the mixtures of experts (grok-1-314b, mixtral-8x22b) take their
+  profile's dispatch (scan) and cache (grok: int8): the same bars, except
+  that an int8 cache value may round one step apart where the layer's
+  K/V (summed in other orders) land within an ulp of a half:
+  ``test_torch_kv_int8.py``'s INT8_FLIPS per leaf, by 1 at most (1 of
+  53,248 in grok-1's K after prefill).
 """
 import jax
 import jax.numpy as jnp
@@ -20,6 +26,7 @@ import pytest
 import torch
 
 from repro import configs as jconfigs
+from test_torch_kv_int8 import assert_int8_close
 from repro.models import attention as jattn
 from repro.models import layers as jL
 from repro.models import model as jmodel
@@ -168,6 +175,9 @@ def _assert_caches_close(tcaches, jcaches, tol, h_atol_frac=None):
                     want["layers"] + want["rem_layers"]):
         assert set(g) == set(w)
         for key in g:
+            if g[key].dtype == np.int8:
+                assert_int8_close(g[key], w[key], what=key)
+                continue
             want = np.asarray(w[key], np.float32)
             atol = tol
             if key == "h" and h_atol_frac is not None:
@@ -178,17 +188,25 @@ def _assert_caches_close(tcaches, jcaches, tol, h_atol_frac=None):
 def _serve_both(jc, tc, dtype, tol_logits, tol_cache, B=2, S=100,
                 h_atol_frac=None):
     """prefill_last then two decode steps in both packages, on the
-    reference's parameters; the greedy tokens are the reference's."""
+    reference's parameters; the greedy tokens are the reference's.  A
+    mixture of experts takes its profile's dispatch and KV cache."""
+    serve = {}
+    if jc.num_experts:
+        prof = jconfigs.get_profile(jc.name[:-len("-smoke")])
+        serve = dict(dispatch=prof.moe_dispatch,
+                     quantized_cache=prof.kv_int8)
+    dispatch = serve.get("dispatch", "dense")
     jparams = jmodel.init_params(jc, jax.random.PRNGKey(0), dtype)
     tparams = params_from_numpy(_np(jparams), CPU)
     toks = np.random.default_rng(8).integers(0, jc.vocab_size, (B, S)
                                              ).astype(np.int32)
     max_len = S + 4
     jl, jcaches = jmodel.prefill_last(jc, jparams, {"tokens": jnp.asarray(toks)},
-                                      max_len)
+                                      max_len, **serve)
     with torch.inference_mode():
         tl, tcaches = tmodel.prefill_last(
-            tc, tparams, {"tokens": torch.from_numpy(toks).long()}, max_len)
+            tc, tparams, {"tokens": torch.from_numpy(toks).long()}, max_len,
+            **serve)
     assert tl.shape == (B, jc.vocab_padded) and tl.dtype == tparams[
         "embed"]["embedding"].dtype
     _close(tl, jl, tol_logits)
@@ -196,10 +214,12 @@ def _serve_both(jc, tc, dtype, tol_logits, tol_cache, B=2, S=100,
     tok = np.array(jnp.argmax(jl, -1), np.int32)[:, None]
     for step in range(2):
         jl, jcaches = jmodel.decode_step(jc, jparams, jcaches,
-                                         jnp.asarray(tok), jnp.int32(S + step))
+                                         jnp.asarray(tok), jnp.int32(S + step),
+                                         dispatch=dispatch)
         with torch.inference_mode():
             tl, tcaches = tmodel.decode_step(
-                tc, tparams, tcaches, torch.from_numpy(tok).long(), S + step)
+                tc, tparams, tcaches, torch.from_numpy(tok).long(), S + step,
+                dispatch=dispatch)
         _close(tl, jl, tol_logits)
         tok = np.array(jnp.argmax(jl[:, 0], -1), np.int32)[:, None]
     _assert_caches_close(tcaches, jcaches, tol_cache, h_atol_frac)
@@ -213,6 +233,8 @@ def _serve_both(jc, tc, dtype, tol_logits, tol_cache, B=2, S=100,
     ("mamba2-1.3b", {}),                     # SSD blocks, no MLP
     ("recurrentgemma-2b", {}),               # rglru, rglru, local (MQA)
     ("recurrentgemma-2b", {"num_layers": 5}),  # + two remainder rglru
+    ("grok-1-314b", {}),                     # MoE (scan), int8 KV cache
+    ("mixtral-8x22b", {"window_size": 32}),  # MoE (scan), SWA ring wraps
 ])
 def test_model_prefill_and_decode_match_reference(arch, kw):
     jc, tc = _cfgs(arch, **kw)
