@@ -42,7 +42,15 @@ at full width with their depth cut to fit the card (grok-1-314b at 4 of
 4096-token window; the scan dispatch; every layer's prefill through the
 bf16 flash kernel at D = 128, group 6, held in ``kernels_vs_plain`` as rows
 4c and 4d), with one grok-1 decode step at ``decode_32k`` on a 2-layer
-build, trains the full gemma2-2b through
+build, serves the front ends at full width and depth (whisper-large-v3:
+B = 16 clips of 1500 frames encoded once, a 128-token prompt, 64 new
+tokens, the encoder and the cross-attention of the prefill and of every
+decode step through the bf16 flash kernel; pixtral-12b: 1024 patch
+embeddings before 7168 text tokens, 32 new tokens), with flash launches
+counted by shape and stage, prefill + decode against a longer prefill in
+bf16 and on an f32 depth cut, and profiles of the encode, a prefill and
+decode steps (flash at their shapes: rows 4e-4g of ``kernels_vs_plain``,
+against SDPA), trains the full gemma2-2b through
 ``repro_torch.launch.train.train`` (4 clients stacked on the card, K = 2,
 4096-token sequences, 3 rounds with stage-2 in round 2; round 1's stage-1
 held against the plain version on its own stack and timed; one stage-1
@@ -58,6 +66,7 @@ JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import json
@@ -103,8 +112,8 @@ SWEEP_SEEDS = (17, 18, 19)    # the reference's benchmarks/fl_common.py
 PRESET_ROUNDS = 100           # MNIST_K4's 300 rounds, cut to fit the script
 ASYNC_EVENTS = 40
 ASYNC_METHODS = ("fedbuff", "fedhc-async", "fedspace-async")
-# the reference's flash sweep (tests/test_kernels.py):
-# B, Hq, Hkv, Sq, Sk, D, causal, window, softcap
+# the reference's flash sweep (tests/test_kernels.py) and two cases of
+# cross-attention: B, Hq, Hkv, Sq, Sk, D, causal, window, softcap
 FLASH_CASES = [
     (1, 4, 2, 128, 128, 64, True, 0, 0.0),
     (2, 4, 4, 96, 96, 32, True, 0, 50.0),
@@ -113,6 +122,9 @@ FLASH_CASES = [
     (1, 2, 1, 1, 300, 64, True, 128, 0.0),
     (1, 2, 2, 128, 128, 64, False, 0, 0.0),
     (2, 2, 2, 70, 70, 128, True, 0, 0.0),
+    # cross-attention (whisper): non-causal, Sk = 1500 = 23 * 64 + 28
+    (2, 4, 4, 100, 1500, 64, False, 0, 0.0),
+    (2, 4, 4, 1, 1500, 64, False, 0, 0.0),
 ]
 # transformer FL training (launch/train.py): gemma2-2b at full width and
 # depth, C = 4 clients of 4 rows (4 microbatches of 1) at 4096 tokens, K = 2,
@@ -204,6 +216,31 @@ FLASH_MOE = {"grok-1-314b": (SERVE_BATCH, 48, 8, SERVE_PROMPT, 128, 0),
 # rms <= 0.5 of the logits' rms
 CONSIST_MOE_MAX = 2.0
 CONSIST_MOE_RMS = 0.5
+# the front ends (phase serve_frontend), at full width and depth in bf16,
+# random weights and 0.1 * normal front-end inputs from a seed.
+# whisper-large-v3 (32 encoder + 32 decoder layers): B = 16 clips of 1500
+# frames (30 s, Whisper's window), a 128-token decoder prompt and 64 new
+# tokens (192 positions, under Whisper's 448 decoder targets).
+# pixtral-12b (40 layers): B = 2 prompts of 1024 patch embeddings and 7168
+# text tokens (8192 positions, as the reference's prefill builder counts
+# them, text_len = S - frontend_len), 32 new tokens.  Then a depth cut in
+# f32 (2 encoder + 2 decoder layers; 2 layers) through the CUDA-core route.
+# The consistency bars are gemma2's (CONSIST_TOL_BF16, CONSIST_TOL_F32):
+# both are attention stacks without recurrences or routers.
+FRONTEND_ARCHS = ("whisper-large-v3", "pixtral-12b")
+FRONTEND_SERVE = {"whisper-large-v3": (16, 128, 64),  # B, text, new tokens
+                  "pixtral-12b": (2, 7168, 32)}
+FRONTEND_F32_LAYERS = 2
+# rows 4e-4g of the kernel table: B, Hq, Hkv, Sq, Sk, D, causal (no window,
+# no soft-cap; SDPA computes the same function)
+FLASH_FRONTEND = {
+    "whisper_encoder": (16, 20, 20, 1500, 1500, 64, False),      # 4e
+    "whisper_cross": (16, 20, 20, 128, 1500, 64, False),         # 4f
+    "whisper_cross_decode": (16, 20, 20, 1, 1500, 64, False),    # 4f'
+    "pixtral": (2, 32, 8, 8192, 8192, 128, True),                # 4g
+}
+PLAIN_SCORES_MAX = 4e9       # bytes of f32 scores the plain version takes
+#                              whole; past it, a kv head at a time
 
 
 def emit(obj) -> None:
@@ -565,7 +602,8 @@ def flex_attention_call(s: int, window: int, cap: float):
                               enable_gqa=True)
 
 
-def plain_by_kv_heads(q, k, v, window: int = 0, cap: float = 0.0):
+def plain_by_kv_heads(q, k, v, window: int = 0, cap: float = 0.0,
+                      causal: bool = True):
     """The plain version one kv head (and its query group) at a time: the
     same function, with (B, G, S, S) f32 scores at a time instead of (B,
     Hq, S, S) (25.8 GB at the MoE layers' 48 heads and 8192 tokens)."""
@@ -574,29 +612,33 @@ def plain_by_kv_heads(q, k, v, window: int = 0, cap: float = 0.0):
     g = q.shape[1] // k.shape[1]
     return torch.cat([ref.flash_attention_ref(
         q[:, j * g:(j + 1) * g], k[:, j:j + 1], v[:, j:j + 1],
-        window=window, softcap=cap) for j in range(k.shape[1])], 1)
+        causal=causal, window=window, softcap=cap)
+        for j in range(k.shape[1])], 1)
 
 
 def bf16_flash_layer(q, k, v, window: int, cap: float, flex,
-                     plain=None) -> dict:
-    """The bf16 flash kernel at one layer's shape (causal): one launch on
-    the tensor cores held against the plain version at the layer bars,
-    then timed beside the plain version, ``flex`` (the same function in one
-    PyTorch call) and the bound.  ``plain`` replaces the plain version
-    (``plain_by_kv_heads`` where the whole scores would not fit; it is then
-    timed between CUDA events, outside a graph)."""
+                     plain=None, causal: bool = True) -> dict:
+    """The bf16 flash kernel at one layer's shape (causal, or not): one
+    launch on the tensor cores held against the plain version at the layer
+    bars, then timed beside the plain version, ``flex`` (the same function
+    in one PyTorch call) and the bound.  ``plain`` replaces the plain
+    version (``plain_by_kv_heads`` where the whole scores would not fit; it
+    is then timed between CUDA events, outside a graph)."""
     import torch
     from repro_torch.kernels import ops, ref
-    b, hq, s, d = q.shape
+    b, hq, sq, d = q.shape
+    sk = k.shape[2]
     chunked = plain is not None
     plain = plain or ref.flash_attention_ref
     ops.reset_launches()
-    got = ops.flash_attention(q, k, v, window=window, softcap=cap)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=cap)
     torch.cuda.synchronize()
     assert ops.FLASH_ROUTES == {"tensor_cores": 1, "cuda_cores": 0}
     assert got.shape == q.shape and got.dtype == torch.bfloat16
-    want = plain(q, k, v, window=window, cap=cap) if chunked else plain(
-        q, k, v, window=window, softcap=cap)
+    want = plain(q, k, v, window=window, cap=cap, causal=causal) \
+        if chunked else plain(q, k, v, causal=causal, window=window,
+                              softcap=cap)
     torch.testing.assert_close(got.float(), want.float(),
                                rtol=FLASH_LAYER_RTOL_BF16,
                                atol=FLASH_LAYER_ATOL_BF16)
@@ -606,21 +648,23 @@ def bf16_flash_layer(q, k, v, window: int, cap: float, flex,
                     / want.float().square().mean().sqrt())
     lib_err = float((flex(q, k, v).float() - want.float()).abs().max())
     del got, want, diff
-    pairs = b * hq * flash_pairs(s, s, True, window)
+    pairs = b * hq * flash_pairs(sq, sk, causal, window)
     n_ops = 4 * d * pairs
     n_bytes = 2 * (2 * q.numel() + 2 * k.numel())
     kernel_ms = device_ms(
-        lambda: ops.flash_attention(q, k, v, window=window, softcap=cap),
+        lambda: ops.flash_attention(q, k, v, causal=causal, window=window,
+                                    softcap=cap),
         reps=2, samples=5)
     bound_ms = max(n_bytes / HBM_BYTES_PER_S, n_ops / BF16_FLOPS) * 1e3
     return {
         "route": "tensor_cores", "max_abs_err": err, "rel_rms_err": rel_rms,
         "ms": kernel_ms,
         "plain_ms": (events_ms(lambda: plain(q, k, v, window=window,
-                                              cap=cap), reps=2)
+                                              cap=cap, causal=causal),
+                               reps=2)
                      if chunked else device_ms(
-            lambda: ref.flash_attention_ref(q, k, v, window=window,
-                                            softcap=cap),
+            lambda: ref.flash_attention_ref(q, k, v, causal=causal,
+                                            window=window, softcap=cap),
             reps=1, samples=3)),
         "library_ms": device_ms(lambda: flex(q, k, v), reps=2, samples=5),
         "library_max_abs_err": lib_err,
@@ -807,6 +851,47 @@ def check_flash_moe(gen) -> dict:
     return rows
 
 
+def check_flash_frontend(gen) -> dict:
+    """The bf16 flash kernel at the front-end models' shapes (rows 4e-4g,
+    FLASH_FRONTEND): whisper's encoder layer (non-causal, Sq = Sk = 1500,
+    which is 23 kv tiles of 64 and 28 keys), its cross-attention in
+    prefill (128 queries against 1500 keys) and in decode (1 query: one
+    live row in a 128-row tile), and pixtral's layer (causal, group 4, S =
+    8192), each from the model's (B, S, H, D) layout, held against the
+    plain version (a kv head at a time past PLAIN_SCORES_MAX) at gemma2's
+    layer bars and timed (``bf16_flash_layer``) beside SDPA, which
+    computes the same function here (no soft-cap, no window)."""
+    import torch
+    import torch.nn.functional as F
+    rows = {}
+    for name, (b, hq, hkv, sq, sk, d, causal) in FLASH_FRONTEND.items():
+        q = (torch.randn((b, sq, hq, d), generator=gen, device=DEV)
+             .bfloat16().transpose(1, 2))
+        k, v = (torch.randn((b, sk, hkv, d), generator=gen, device=DEV)
+                .bfloat16().transpose(1, 2) for _ in range(2))
+
+        def sdpa(q, k, v, causal=causal):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                  enable_gqa=True)
+        chunked = 4 * b * hq * sq * sk > PLAIN_SCORES_MAX
+        row = bf16_flash_layer(q, k, v, 0, 0.0, sdpa, causal=causal,
+                               plain=plain_by_kv_heads if chunked else None)
+        row.update(tol={"rtol": FLASH_LAYER_RTOL_BF16,
+                        "atol": FLASH_LAYER_ATOL_BF16},
+                   library=f"F.scaled_dot_product_attention (is_causal="
+                           f"{causal}, enable_gqa): the same function",
+                   plain="a kv head at a time" if chunked else "whole",
+                   shape=f"{name}: B={b}, Hq={hq}, Hkv={hkv}, Sq={sq}, "
+                         f"Sk={sk}, D={d}, bf16, "
+                         f"{'causal' if causal else 'non-causal'}, no "
+                         f"soft-cap")
+        rows[name] = row
+        del q, k, v
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
 def short_kernel_name(row: dict) -> dict:
     """A ptxas row with its mangled name cut to the kernel's name and
     template arguments (``flash_fwd_sm90_kernel<256>``)."""
@@ -838,22 +923,29 @@ def short_kernel_name(row: dict) -> dict:
     return {**row, "kernel": short}
 
 
-def last_logits_consistency(cfg, params, prompts, with_step=False, **serve):
+def last_logits_consistency(cfg, params, prompts, with_step=False,
+                            front=None, **serve):
     """prefill_last over S + 1 tokens vs prefill over S tokens then one
     decode_step of token S + 1: the last position's logits, (B, V) each.
     ``serve`` passes the MoE ``dispatch`` and ``quantized_cache``; with
-    ``with_step`` the decode step's (B, V) f32 logits come back too."""
+    ``with_step`` the decode step's (B, V) f32 logits come back too.
+    ``front`` holds a front end's batch input: "enc_out" (the decode step
+    attends over it too) or "patch_embeds" (the positions count them)."""
     import torch
     from repro_torch.models import decode_step
     from repro_torch.models.model import prefill_last
+    front = front or {}
     s = prompts.shape[1] - 1
+    off = front["patch_embeds"].shape[1] if "patch_embeds" in front else 0
     dispatch = serve.get("dispatch", "dense")
     with torch.inference_mode():
-        full, _ = prefill_last(cfg, params, {"tokens": prompts}, s + 1,
-                               **serve)
-        _, caches = prefill_last(cfg, params, {"tokens": prompts[:, :s]},
-                                 s + 1, **serve)
-        step, _ = decode_step(cfg, params, caches, prompts[:, s:], s,
+        full, _ = prefill_last(cfg, params, {"tokens": prompts, **front},
+                               off + s + 1, **serve)
+        _, caches = prefill_last(cfg, params,
+                                 {"tokens": prompts[:, :s], **front},
+                                 off + s + 1, **serve)
+        step, _ = decode_step(cfg, params, caches, prompts[:, s:], off + s,
+                              enc_out=front.get("enc_out"),
                               dispatch=dispatch)
         del caches
     # the real vocab: the padded entries are -1e30 on both sides
@@ -878,33 +970,53 @@ def device_kernels(prof):
     return sorted(kernels, reverse=True)
 
 
+def kernel_summary(kernels, wall_ms: float) -> dict:
+    """A profile's device time beside the same work's unprofiled wall
+    time: busy and idle share, GEMM and flash time, the top kernels."""
+    busy = sum(k[0] for k in kernels)
+    flash = sum(k[0] for k in kernels if "flash_fwd" in k[1])
+    gemm = sum(k[0] for k in kernels if "flash_fwd" not in k[1] and any(
+        g in k[1].lower() for g in ("gemm", "xmma", "cutlass", "nvjet")))
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "gemm_ms": gemm, "gemm_share_of_busy": gemm / busy,
+            "device_idle_share": 1.0 - busy / wall_ms,
+            "flash_attention_ms": flash,
+            "flash_attention_share_of_busy": flash / busy,
+            "kernel_launches": sum(k[2] for k in kernels),
+            "top": [{"name": k[1][:90], "device_ms": k[0], "count": k[2]}
+                    for k in kernels[:12]]}
+
+
 def profile_serving(cfg, params, prompts, prefill_wall_s: float,
-                    **serve) -> dict:
+                    front=None, **serve) -> dict:
     """Device time by kernel over one full prefill, and over DECODE_STEPS
     decode steps after it, under torch.profiler; each beside the same
     work's unprofiled wall time.  ``serve`` passes the MoE ``dispatch``
-    and ``quantized_cache``."""
+    and ``quantized_cache``; ``front`` a front end's batch input, as
+    ``last_logits_consistency`` takes it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import decode_step
     from repro_torch.models.model import prefill_last
+    front = front or {}
     s = prompts.shape[1]
+    off = front["patch_embeds"].shape[1] if "patch_embeds" in front else 0
+    batch = {"tokens": prompts, **front}
+    max_len = off + s + SERVE_TOKENS
     dispatch = serve.get("dispatch", "dense")
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with torch.inference_mode():
         with profile(activities=acts) as prof:
-            prefill_last(cfg, params, {"tokens": prompts}, s + SERVE_TOKENS,
-                         **serve)
+            prefill_last(cfg, params, batch, max_len, **serve)
             torch.cuda.synchronize()
         pre = device_kernels(prof)
-        logits, caches = prefill_last(cfg, params, {"tokens": prompts},
-                                      s + SERVE_TOKENS, **serve)
+        logits, caches = prefill_last(cfg, params, batch, max_len, **serve)
         tok = logits.argmax(-1)[:, None]
 
         def steps(first):
             for i in range(first, first + DECODE_STEPS):
-                decode_step(cfg, params, caches, tok, s + i,
-                            dispatch=dispatch)
+                decode_step(cfg, params, caches, tok, off + s + i,
+                            enc_out=front.get("enc_out"), dispatch=dispatch)
             torch.cuda.synchronize()
         steps(0)                                  # warm
         t0 = time.perf_counter()
@@ -913,25 +1025,11 @@ def profile_serving(cfg, params, prompts, prefill_wall_s: float,
         with profile(activities=acts) as prof:
             steps(2 * DECODE_STEPS)
         dec = device_kernels(prof)
-
-    def summary(kernels, wall_ms):
-        busy = sum(k[0] for k in kernels)
-        flash = sum(k[0] for k in kernels if "flash_fwd" in k[1])
-        gemm = sum(k[0] for k in kernels if "flash_fwd" not in k[1] and any(
-            g in k[1].lower() for g in ("gemm", "xmma", "cutlass", "nvjet")))
-        return {"wall_ms": wall_ms, "device_busy_ms": busy,
-                "gemm_ms": gemm, "gemm_share_of_busy": gemm / busy,
-                "device_idle_share": 1.0 - busy / wall_ms,
-                "flash_attention_ms": flash,
-                "flash_attention_share_of_busy": flash / busy,
-                "kernel_launches": sum(k[2] for k in kernels),
-                "top": [{"name": k[1][:90], "device_ms": k[0], "count": k[2]}
-                        for k in kernels[:12]]}
     return {"phase": "profile_serving", "arch": cfg.name,
             "batch": prompts.shape[0], "prompt": s,
-            "prefill": summary(pre, prefill_wall_s * 1e3),
+            "prefill": kernel_summary(pre, prefill_wall_s * 1e3),
             "decode_steps": DECODE_STEPS,
-            "decode": summary(dec, decode_wall_ms)}
+            "decode": kernel_summary(dec, decode_wall_ms)}
 
 
 def decode_at_shape(cfg, params, shape_name: str, gen) -> dict:
@@ -1225,6 +1323,204 @@ def serve_moe_phase(arch: str) -> tuple:
                                       f"the full model do not fit one card)",
                         "weights": "random, seeded"}}
     return line, profile, routes[0]["tensor_cores"]
+
+
+@contextlib.contextmanager
+def flash_calls():
+    """Count ``ops.flash_attention``'s calls by (Sq, Sk, causal) while the
+    block runs (a Counter, yielded), around the real wrapper, whose own
+    counts (``LAUNCHES``, ``FLASH_ROUTES``) go on as they do."""
+    from repro_torch.kernels import ops
+    calls = collections.Counter()
+    real = ops.flash_attention
+
+    def counting(q, k, v, **kw):
+        calls[(q.shape[2], k.shape[2], kw.get("causal", True))] += 1
+        return real(q, k, v, **kw)
+    ops.flash_attention = counting
+    try:
+        yield calls
+    finally:
+        ops.flash_attention = real
+
+
+def by_shape(calls) -> dict:
+    """A ``flash_calls`` Counter as JSON keys "Sq x Sk, causal"."""
+    return {f"{sq}x{sk}, {'causal' if c else 'non-causal'}": n
+            for (sq, sk, c), n in sorted(calls.items())}
+
+
+def serve_frontend_phase(arch: str) -> tuple:
+    """A front-end model at full width and depth in bf16, random weights and
+    0.1 * normal frames or patch embeddings from a seeded generator
+    (FRONTEND_SERVE): ``serve_batch`` twice (greedy tokens equal; flash
+    launches counted from 0 around each run, by shape too: whisper's
+    encoder layers, its prefill's causal self and cross layers and its
+    decode steps' cross layers; pixtral's prefill layers, all on the
+    tensor cores), the launches of an encode, a prefill and a decode step
+    apart, prefill + decode against a longer prefill (bf16 at full depth,
+    f32 on a FRONTEND_F32_LAYERS-layer cut through the CUDA-core route),
+    and the encode, one prefill and DECODE_STEPS decode steps under
+    torch.profiler.  Returns (the phase line, the profile line, the flash
+    launches of one serving run by row of the kernel table)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config, replace
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import decode_step, init_params, param_count
+    from repro_torch.models.model import prefill_last
+    from repro_torch.models.transformer import encode
+    cfg = get_config(arch)
+    b, s, new = FRONTEND_SERVE[arch]
+    enc_dec = cfg.is_enc_dec
+    n, fl = cfg.num_layers, cfg.frontend_len
+    gen = torch.Generator(device=DEV).manual_seed(15)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen)            # bf16, the config's dtype
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                            device=DEV)
+    name = "frames" if enc_dec else "patch_embeds"
+    front_in = 0.1 * torch.randn((b, fl, cfg.d_model), generator=gen,
+                                 device=DEV)
+    # (Sq, Sk, causal) of every flash launch: an encode, a prefill, a step
+    if enc_dec:
+        stage_calls = {"encode": {(fl, fl, False): cfg.encoder_layers},
+                       "prefill": {(s, s, True): n, (s, fl, False): n},
+                       "decode_step": {(1, fl, False): n}}
+    else:
+        stage_calls = {"encode": {}, "prefill": {(fl + s, fl + s, True): n},
+                       "decode_step": {}}
+    steps = {k: v * (new - 1) for k, v in stage_calls["decode_step"].items()}
+    serve_calls = dict(collections.Counter(stage_calls["encode"])
+                       + collections.Counter(stage_calls["prefill"])
+                       + collections.Counter(steps))
+    total = sum(serve_calls.values())
+    runs, counts = [], []
+    for _ in range(2):
+        gc.collect()
+        torch.cuda.empty_cache()
+        ops.reset_launches()
+        with flash_calls() as calls:
+            runs.append(serve_batch(cfg, params, prompts, new, device=DEV,
+                                    **{name: front_in}))
+        counts.append((dict(ops.LAUNCHES), dict(ops.FLASH_ROUTES),
+                       dict(calls)))
+    for launches, routes, calls in counts:
+        assert routes == {"tensor_cores": total, "cuda_cores": 0}, routes
+        assert launches == {**{key: 0 for key in launches},
+                            "flash_attention": total}, launches
+        assert calls == serve_calls, (calls, serve_calls)
+    for res in runs:
+        assert res.tokens.shape == (b, new)
+        assert 0 <= int(res.tokens.min()) <= int(res.tokens.max()) \
+            < cfg.vocab_size
+        assert (res.encode_s > 0) == enc_dec
+    assert torch.equal(runs[0].tokens, runs[1].tokens), "greedy decode differs"
+
+    # the launches of each stage alone, counted from 0 around it
+    stages = {}
+    with torch.inference_mode(), flash_calls() as calls:
+        ops.reset_launches()
+        enc_out = (encode(cfg, params, front_in, mode="prefill")
+                   if enc_dec else None)
+        stages["encode"] = (dict(ops.FLASH_ROUTES), dict(calls))
+        front = ({"enc_out": enc_out} if enc_dec
+                 else {"patch_embeds": front_in})
+        off = 0 if enc_dec else fl
+        ops.reset_launches()
+        calls.clear()
+        logits, caches = prefill_last(cfg, params, {"tokens": prompts,
+                                                    **front}, off + s + 1)
+        stages["prefill"] = (dict(ops.FLASH_ROUTES), dict(calls))
+        ops.reset_launches()
+        calls.clear()
+        decode_step(cfg, params, caches, logits.argmax(-1)[:, None],
+                    off + s, enc_out=enc_out)
+        stages["decode_step"] = (dict(ops.FLASH_ROUTES), dict(calls))
+        del logits, caches
+    for stage, (routes, calls) in stages.items():
+        want = stage_calls[stage]
+        assert calls == want, (stage, calls, want)
+        assert routes == {"tensor_cores": sum(want.values()),
+                          "cuda_cores": 0}, (stage, routes)
+
+    consist = {}
+    bf16 = last_logits_consistency(cfg, params, prompts, front=front)
+    bf16["rms_err_share"] = bf16["rms_err"] / bf16["logit_rms"]
+    assert bf16["max_abs_err"] <= CONSIST_TOL_BF16, bf16
+    consist[f"bf16_{n}_layers"] = {**bf16, "tol": CONSIST_TOL_BF16,
+                                   "prompt": s - 1}
+    profile_line = profile_serving(cfg, params, prompts, runs[1].prefill_s,
+                                   front=front)
+    profile_line["frontend_len"] = fl
+    if enc_dec:
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with torch.inference_mode():
+            with profile(activities=acts) as prof:
+                encode(cfg, params, front_in, mode="prefill")
+                torch.cuda.synchronize()
+        profile_line["encode"] = kernel_summary(device_kernels(prof),
+                                                runs[1].encode_s * 1e3)
+    n_params = param_count(params)
+    del params, enc_out, front
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cut = {"num_layers": FRONTEND_F32_LAYERS, "dtype": "float32"}
+    if enc_dec:
+        cut["encoder_layers"] = FRONTEND_F32_LAYERS
+    cfg32 = replace(cfg, **cut)
+    p32 = init_params(cfg32, gen)
+    ops.reset_launches()
+    with torch.inference_mode():
+        front32 = ({"enc_out": encode(cfg32, p32, front_in, mode="prefill")}
+                   if enc_dec else {"patch_embeds": front_in})
+    f32 = last_logits_consistency(cfg32, p32, prompts, front=front32)
+    f32_routes = dict(ops.FLASH_ROUTES)
+    # the encode, two prefills and one decode step of the cut
+    want32 = (cfg32.encoder_layers + 2 * 2 * cfg32.num_layers
+              + cfg32.num_layers if enc_dec else 2 * cfg32.num_layers)
+    assert f32_routes == {"tensor_cores": 0, "cuda_cores": want32}, \
+        f32_routes
+    assert f32["max_abs_err"] <= CONSIST_TOL_F32, f32
+    consist[f"f32_{FRONTEND_F32_LAYERS}_layers"] = {
+        **f32, "tol": CONSIST_TOL_F32, "prompt": s - 1,
+        "encoder_layers": cfg32.encoder_layers, "flash_routes": f32_routes}
+    del p32, front32, prompts, front_in
+    gc.collect()
+    torch.cuda.empty_cache()
+    line = {"phase": "serve_frontend", "arch": cfg.name,
+            "layers": n, "encoder_layers": cfg.encoder_layers,
+            "d_model": cfg.d_model, "heads": [cfg.num_heads,
+                                              cfg.num_kv_heads],
+            "head_dim": cfg.head_dim, "frontend": cfg.frontend,
+            "frontend_len": fl, "params": n_params, "dtype": cfg.dtype,
+            "batch": b, "prompt": s, "new_tokens": new, "init_s": init_s,
+            "launches": counts[0][0], "flash_routes": counts[0][1],
+            "flash_calls": by_shape(counts[0][2]),
+            "flash_by_stage": {k: by_shape(v[1]) for k, v in stages.items()},
+            "cache_bytes": runs[0].cache_bytes,
+            "runs": [{"encode_s": r.encode_s, "prefill_s": r.prefill_s,
+                      "decode_s": r.decode_s,
+                      "decode_tokens_per_s": r.decode_tokens_per_s,
+                      "peak_device_mem_mb": r.peak_device_mem_mb}
+                     for r in runs],
+            "first_tokens": runs[0].tokens[:, :8].tolist(),
+            "consistency": consist,
+            "reduced": {"weights": "random, seeded",
+                        name: "0.1 * normal, seeded (stubbed front end)"}}
+    # the launches of one serving run by row of the kernel table
+    got = counts[0][2]
+    if enc_dec:
+        rows = {"whisper_encoder": got[(fl, fl, False)],
+                "whisper_cross": got[(s, fl, False)],
+                "whisper_cross_decode": got[(1, fl, False)]}
+    else:
+        rows = {"pixtral": got[(fl + s, fl + s, True)]}
+    return line, profile_line, rows
 
 
 def profile_round_loop(sc) -> dict:
@@ -2787,10 +3083,12 @@ def main() -> int:
     flash = check_flash(gen)
     flash_rg = check_flash_rg_local(gen)
     flash_moe = check_flash_moe(gen)
+    flash_front = check_flash_frontend(gen)
     emit({"phase": "kernels_vs_plain", "weighted_agg_multi": wagg,
           "kmeans_assign": km, "weighted_agg": wagg1,
           "flash_attention": flash, "flash_attention_rg_local": flash_rg,
           "flash_attention_moe": flash_moe,
+          "flash_attention_frontend": flash_front,
           "launch_floor_ms": km["launch_floor_ms"]})
     gc.collect()            # the checks' tensors and graphs: out of the
     torch.cuda.empty_cache()  # main path's peak-memory readings
@@ -3003,6 +3301,23 @@ def main() -> int:
         emit(prof)
     assert moe_flash == MOE_LAYERS, moe_flash
 
+    # ---- 8b'. the front ends at full width and depth: whisper-large-v3
+    # (encoder-decoder: the encoder, cross-attention in prefill and in every
+    # decode step) and pixtral-12b (1024 patches before the text), every
+    # attention of the prefill and the encode (and whisper's cross-attention
+    # in decode) through the bf16 flash kernel; the counts are set to 0
+    # before each serving run and read after it
+    front_flash = {}
+    for arch in FRONTEND_ARCHS:
+        line, prof, rows_launched = serve_frontend_phase(arch)
+        emit(line)
+        emit(prof)
+        front_flash.update(rows_launched)
+    dec_steps = FRONTEND_SERVE["whisper-large-v3"][2] - 1
+    assert front_flash == {"whisper_encoder": 32, "whisper_cross": 32,
+                           "whisper_cross_decode": 32 * dec_steps,
+                           "pixtral": 40}, front_flash
+
     # ---- 8c. transformer FL training: gemma2-2b, then the recurrent
     # families, 4 clients on the card, stage-1 through the kernel; the
     # counts are set to 0 before each run and read after it
@@ -3073,6 +3388,20 @@ def main() -> int:
                      "replaces": "src/repro/kernels/flash_attention.py:88",
                      "launches": moe_flash[arch],
                      **{key: flash_moe[arch][key] for key in (
+                         "max_abs_err", "ms", "plain_ms", "bound_ms",
+                         "bound_by", "library_ms", "shape")}})
+    # the same kernel at the front-end models' attention: whisper's
+    # encoder, cross-attention in prefill and in decode, pixtral's layers
+    for kname, key in (("flash_attention_whisper_encoder", "whisper_encoder"),
+                       ("flash_attention_whisper_cross", "whisper_cross"),
+                       ("flash_attention_whisper_cross_decode",
+                        "whisper_cross_decode"),
+                       ("flash_attention_pixtral", "pixtral")):
+        rows.append({"name": kname, "route": "cuda",
+                     "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
+                     "replaces": "src/repro/kernels/flash_attention.py:88",
+                     "launches": front_flash[key],
+                     **{k: flash_front[key][k] for k in (
                          "max_abs_err", "ms", "plain_ms", "bound_ms",
                          "bound_by", "library_ms", "shape")}})
     rows.extend(train_rows)

@@ -16,8 +16,14 @@ caches for its local layers), and the mixtures of experts,
 card: serve its smoke variant, or a depth cut from Python).  The MoE
 dispatch and the KV cache's type come from the arch's profile (grok-1:
 scan dispatch, int8 cache; mixtral: scan, bf16); ``--kv-int8`` and
-``--no-kv-int8`` override the cache.  Prints one JSON line with the
-timings, the cache's bytes and the first generated tokens.
+``--no-kv-int8`` override the cache.  The front ends: whisper-large-v3
+(encoder-decoder) encodes ``0.1 * normal`` frames of (B, frontend_len,
+d_model) drawn from ``--seed`` once, and every decoder layer attends over
+the encoder's output in prefill and in each decode step; pixtral-12b
+takes ``0.1 * normal`` patch embeddings of the same shape in front of the
+prompt, so its caches and decode positions count frontend_len + S
+positions.  Prints one JSON line with the timings (whisper's encode
+apart), the cache's bytes, frontend_len and the first generated tokens.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ from repro_torch import device as device_lib
 from repro_torch.configs import get_config, get_profile, smoke_variant
 from repro_torch.models import decode_step, init_params, param_count
 from repro_torch.models.model import prefill_last
+from repro_torch.models.transformer import encode
 from repro_torch.tree import tree_leaves
 
 
@@ -42,6 +49,7 @@ class ServeResult(NamedTuple):
     decode_tokens_per_s: float  # B * (new_tokens - 1) / decode_s
     peak_device_mem_mb: Optional[float]
     cache_bytes: int            # the caches prefill made
+    encode_s: float = 0.0       # an enc-dec model's encoder, host clock
 
 
 def _sync(dev: torch.device) -> None:
@@ -49,13 +57,39 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _frontend_input(cfg, x: Optional[torch.Tensor], name: str, b: int,
+                    dev: torch.device) -> Optional[torch.Tensor]:
+    """``x`` (B, frontend_len, d_model) on ``dev``, checked; None where the
+    arch takes no such input.  An arch that needs one raises without it."""
+    wants = cfg.is_enc_dec if name == "frames" else cfg.frontend == "vision"
+    if x is None:
+        if wants and name == "frames":
+            raise ValueError(f"{cfg.name}: an encoder-decoder model needs "
+                             f"frames (B, {cfg.frontend_len}, {cfg.d_model})")
+        return None
+    if not wants:
+        raise ValueError(f"{cfg.name} takes no {name}")
+    if tuple(x.shape) != (b, cfg.frontend_len, cfg.d_model):
+        raise ValueError(f"{name} {tuple(x.shape)}: want ({b}, "
+                         f"{cfg.frontend_len}, {cfg.d_model})")
+    return x.to(dev)
+
+
 def serve_batch(cfg, params: dict, prompts: torch.Tensor, new_tokens: int,
                 *, device=None, dispatch: str = "dense",
-                quantized_cache: bool = False) -> ServeResult:
+                quantized_cache: bool = False,
+                frames: Optional[torch.Tensor] = None,
+                patch_embeds: Optional[torch.Tensor] = None) -> ServeResult:
     """Greedy continuation of ``prompts`` (B, S) by ``new_tokens`` tokens:
     one prefill (which gives the first new token), then ``new_tokens - 1``
     decode steps, with the MoE ``dispatch`` and, if ``quantized_cache``,
-    int8 KV caches.  Every timing ends in a device synchronize."""
+    int8 KV caches.  An enc-dec model's ``frames`` (B, frontend_len,
+    d_model) are encoded once (``encode_s``, in "prefill" mode: the flash
+    kernel), and the encoder's output goes to the prefill and to every
+    decode step.  A vision model's ``patch_embeds`` go in front of the
+    prompt: the caches hold frontend_len + S + new_tokens positions, and
+    decode step i runs at position frontend_len + S + i.  Every timing
+    ends in a device synchronize."""
     dev = device_lib.resolve(device)
     if new_tokens < 1:
         raise ValueError(f"new_tokens={new_tokens} must be >= 1")
@@ -64,35 +98,49 @@ def serve_batch(cfg, params: dict, prompts: torch.Tensor, new_tokens: int,
         raise ValueError(f"params on {leaf.device}, serving on {dev}")
     prompts = prompts.to(dev)
     b, s = prompts.shape
-    max_len = s + new_tokens
+    frames = _frontend_input(cfg, frames, "frames", b, dev)
+    patch_embeds = _frontend_input(cfg, patch_embeds, "patch_embeds", b, dev)
+    batch = {"tokens": prompts}
+    start = s                       # the position of the first new token
+    if patch_embeds is not None:
+        batch["patch_embeds"] = patch_embeds
+        start += cfg.frontend_len
+    max_len = start + new_tokens
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
+    enc_out = None
     with torch.inference_mode():
         _sync(dev)
         t0 = time.perf_counter()
-        logits, caches = prefill_last(cfg, params, {"tokens": prompts},
-                                      max_len, dispatch=dispatch,
+        if frames is not None:
+            enc_out = encode(cfg, params, frames, mode="prefill")
+            batch["enc_out"] = enc_out
+        _sync(dev)
+        t1 = time.perf_counter()
+        logits, caches = prefill_last(cfg, params, batch, max_len,
+                                      dispatch=dispatch,
                                       quantized_cache=quantized_cache)
         tok = logits.argmax(-1)[:, None]
         _sync(dev)
-        t1 = time.perf_counter()
+        t2 = time.perf_counter()
         out = [tok]
         for i in range(new_tokens - 1):
-            logits, caches = decode_step(cfg, params, caches, tok, s + i,
-                                         dispatch=dispatch)
+            logits, caches = decode_step(cfg, params, caches, tok, start + i,
+                                         enc_out=enc_out, dispatch=dispatch)
             tok = logits[:, 0].argmax(-1)[:, None]
             out.append(tok)
         _sync(dev)
-        t2 = time.perf_counter()
-    decode_s = t2 - t1
+        t3 = time.perf_counter()
+    decode_s = t3 - t2
     steps = b * (new_tokens - 1)
     return ServeResult(
-        tokens=torch.cat(out, dim=1).cpu(), prefill_s=t1 - t0,
+        tokens=torch.cat(out, dim=1).cpu(), prefill_s=t2 - t1,
         decode_s=decode_s,
         decode_tokens_per_s=steps / decode_s if steps else 0.0,
         peak_device_mem_mb=device_lib.peak_device_mem_mb(dev),
         cache_bytes=sum(t.numel() * t.element_size()
-                        for t in tree_leaves(caches)))
+                        for t in tree_leaves(caches)),
+        encode_s=t1 - t0 if enc_out is not None else 0.0)
 
 
 def main(argv=None) -> None:
@@ -120,8 +168,16 @@ def main(argv=None) -> None:
     params = init_params(cfg, gen)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen, device=dev)
+    # the stubbed front ends' inputs: frames or patch embeddings
+    front = {}
+    if cfg.frontend != "none":
+        name = "frames" if cfg.is_enc_dec else "patch_embeds"
+        front[name] = 0.1 * torch.randn(
+            (args.batch, cfg.frontend_len, cfg.d_model), generator=gen,
+            device=dev)
     res = serve_batch(cfg, params, prompts, args.tokens, device=dev,
-                      dispatch=prof.moe_dispatch, quantized_cache=kv_int8)
+                      dispatch=prof.moe_dispatch, quantized_cache=kv_int8,
+                      **front)
     print(json.dumps({
         "arch": cfg.name, "device": str(dev),
         "kind": torch.cuda.get_device_name(dev) if dev.type == "cuda"
@@ -130,7 +186,8 @@ def main(argv=None) -> None:
         "moe_dispatch": prof.moe_dispatch if cfg.num_experts else None,
         "kv_int8": kv_int8, "cache_bytes": res.cache_bytes,
         "batch": args.batch, "prompt_len": args.prompt_len,
-        "new_tokens": args.tokens, "prefill_s": res.prefill_s,
+        "new_tokens": args.tokens, "frontend_len": cfg.frontend_len,
+        "encode_s": res.encode_s, "prefill_s": res.prefill_s,
         "decode_s": res.decode_s,
         "decode_tokens_per_s": res.decode_tokens_per_s,
         "peak_device_mem_mb": res.peak_device_mem_mb,

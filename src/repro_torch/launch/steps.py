@@ -84,6 +84,25 @@ def _stack_structs(tree: Any, n: int) -> Any:
     return tree_map(lambda s: _spec((n,) + tuple(s.shape), s.dtype), tree)
 
 
+def _frontend_specs(cfg: ModelConfig, lead_shape, dtype) -> Dict[str, Any]:
+    """Extra batch inputs of an audio or vision arch (stubbed front ends):
+    "frames" or "patch_embeds" of (*lead_shape, frontend_len, d_model)."""
+    out = {}
+    if cfg.frontend == "audio":
+        out["frames"] = _spec(tuple(lead_shape) + (cfg.frontend_len,
+                                                   cfg.d_model), dtype)
+    if cfg.frontend == "vision":
+        out["patch_embeds"] = _spec(tuple(lead_shape) + (cfg.frontend_len,
+                                                         cfg.d_model), dtype)
+    return out
+
+
+def _text_len(cfg: ModelConfig, seq_len: int) -> int:
+    """The tokens of a sequence of ``seq_len`` positions: a vision prompt's
+    patches take frontend_len of them."""
+    return seq_len - cfg.frontend_len if cfg.frontend == "vision" else seq_len
+
+
 def _resolve(arch: str, cfg: Optional[ModelConfig],
              profile: Optional[RunProfile]):
     """The arch's config and profile (or the caller's), the parameters in
@@ -145,7 +164,9 @@ def build_train_step(arch: str, shape: InputShape, mesh=None, *,
                      profile: Optional[RunProfile] = None) -> StepBundle:
     """The FL round ``fn(params_stack, batch, round_idx) -> (params_stack,
     mean client loss)``: ``batch`` holds "tokens" and "labels" (C, pcb, S)
-    int, ``round_idx`` a Python int (stage-2 runs when ``(round_idx + 1) %
+    int (S less frontend_len for a vision arch) and a front end's "frames"
+    or "patch_embeds" (C, pcb, frontend_len, d_model), ``round_idx`` a
+    Python int (stage-2 runs when ``(round_idx + 1) %
     rounds_per_global == 0``).  Without a mesh ``num_clients`` says C; on
     a mesh C is the mesh's client count and each rank passes its own rows.
     ``clusters`` (member tuples) defaults to :func:`default_clusters`.
@@ -181,8 +202,11 @@ def build_train_step(arch: str, shape: InputShape, mesh=None, *,
     # ---- specs and placements ---------------------------------------------
     base_params = _param_structs(cfg)
     params_structs = _stack_structs(base_params, n_clients)
-    batch_structs = {k: _spec((n_clients, pcb, shape.seq_len), torch.int32)
+    text_len = _text_len(cfg, shape.seq_len)
+    batch_structs = {k: _spec((n_clients, pcb, text_len), torch.int32)
                      for k in ("tokens", "labels")}
+    batch_structs.update(_frontend_specs(cfg, (n_clients, pcb),
+                                         getattr(torch, cfg.dtype)))
     round_struct = _spec((), torch.int32)
     if mesh is None:
         in_sh, out_sh = (None, None, None), (None, None)
@@ -332,13 +356,17 @@ def build_prefill_step(arch: str, shape: InputShape, mesh=None, *,
                        profile: Optional[RunProfile] = None) -> StepBundle:
     """``fn(params, batch) -> (last-position logits (B, V), caches)`` over
     caches of ``shape.seq_len``, with the profile's MoE dispatch and KV
-    cache (int8 under ``kv_int8``)."""
+    cache (int8 under ``kv_int8``).  ``batch`` holds "tokens" (B, S; S
+    less frontend_len for a vision arch, whose patches take the rest of
+    the positions) and a front end's "frames" or "patch_embeds"."""
     cfg, prof = _resolve(arch, cfg, profile)
     B, S = shape.global_batch, shape.seq_len
     batch_axes = _batch_axes(mesh, B, "data")
     base_params = _param_structs(cfg)
     cache_structs = _cache_structs(cfg, prof, B, S)
-    batch_structs = {"tokens": _spec((B, S), torch.int32)}
+    batch_structs = {"tokens": _spec((B, _text_len(cfg, S)), torch.int32)}
+    batch_structs.update(_frontend_specs(cfg, (B,),
+                                         getattr(torch, cfg.dtype)))
 
     def prefill_step(params, batch):
         return M.prefill_last(cfg, params, batch, S,
@@ -349,7 +377,8 @@ def build_prefill_step(arch: str, shape: InputShape, mesh=None, *,
         in_sh, out_sh = (None, None), (None, None)
     else:
         in_sh = (_serve_param_shardings(prof, mesh, base_params),
-                 {"tokens": rules.placements(rules.P(batch_axes), mesh)})
+                 {k: rules.placements(rules.P(batch_axes), mesh)
+                  for k in batch_structs})
         out_sh = (rules.placements(rules.P(batch_axes, "model"), mesh),
                   rules.tree_shardings(
                       cache_spec_tree(cache_structs, batch_axes, mesh), mesh))
@@ -363,9 +392,11 @@ def build_prefill_step(arch: str, shape: InputShape, mesh=None, *,
 def build_decode_step(arch: str, shape: InputShape, mesh=None, *,
                       cfg: Optional[ModelConfig] = None,
                       profile: Optional[RunProfile] = None) -> StepBundle:
-    """``fn(params, caches, token (B, 1), pos) -> (logits (B, V),
-    caches)``, the caches written in place, with the profile's MoE
-    dispatch; the caches are int8 under ``kv_int8``."""
+    """``fn(params, caches, token (B, 1), pos[, enc_out]) -> (logits (B,
+    V), caches)``, the caches written in place, with the profile's MoE
+    dispatch; the caches are int8 under ``kv_int8``.  An enc-dec arch
+    takes a fifth input, the encoder's output ``enc_out`` (B,
+    frontend_len, d_model)."""
     cfg, prof = _resolve(arch, cfg, profile)
     B, S = shape.global_batch, shape.seq_len
     # long_500k has batch 1: the batch dim replicated
@@ -373,25 +404,31 @@ def build_decode_step(arch: str, shape: InputShape, mesh=None, *,
     base_params = _param_structs(cfg)
     cache_structs = _cache_structs(cfg, prof, B, S)
 
-    def decode_step(params, caches, token, pos):
+    def decode_step(params, caches, token, pos, enc_out=None):
         logits, caches = M.decode_step(cfg, params, caches, token, pos,
+                                       enc_out=enc_out,
                                        dispatch=prof.moe_dispatch)
         return logits[:, 0], caches
 
+    in_specs = [base_params, cache_structs, _spec((B, 1), torch.int32),
+                _spec((), torch.int32)]
+    if cfg.is_enc_dec:
+        in_specs.append(_spec((B, cfg.frontend_len, cfg.d_model),
+                              getattr(torch, cfg.dtype)))
     if mesh is None:
-        in_sh, out_sh = (None,) * 4, (None, None)
+        in_sh, out_sh = (None,) * len(in_specs), (None, None)
     else:
         cache_sh = rules.tree_shardings(
             cache_spec_tree(cache_structs, batch_axes, mesh), mesh)
         in_sh = (_serve_param_shardings(prof, mesh, base_params), cache_sh,
                  rules.placements(rules.P(batch_axes), mesh),
                  rules.placements(rules.P(), mesh))
+        if cfg.is_enc_dec:
+            in_sh += (rules.placements(rules.P(batch_axes), mesh),)
         out_sh = (rules.placements(rules.P(batch_axes, "model"), mesh),
                   cache_sh)
     return StepBundle(
-        fn=decode_step,
-        in_specs=(base_params, cache_structs, _spec((B, 1), torch.int32),
-                  _spec((), torch.int32)),
+        fn=decode_step, in_specs=tuple(in_specs),
         in_shardings=in_sh, out_shardings=out_sh,
         meta=dict(arch=arch, shape=shape.name, mode="decode",
                   batch_axes=batch_axes, dtype=cfg.dtype))

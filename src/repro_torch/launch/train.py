@@ -20,7 +20,10 @@ rounds.
 
 The defaults are the one-card run: 4 clients, 2 clusters, 3 rounds,
 stage-2 every 2, a global batch of 16 (the reference's defaults are 100
-rounds, 4 clusters, stage-2 every 5, and the shape's batch of 256).
+rounds, 4 clusters, stage-2 every 5, and the shape's batch of 256).  The
+front ends train on 0.1 * normal frames (whisper-large-v3) or patch
+embeddings (pixtral-12b, whose text then takes the sequence less its
+patches), drawn each round.
 ``--smoke`` takes the config's ``smoke_variant`` and a 64-token sequence,
 as ``launch/serve.py`` does.  A dry run (lower and compile, the
 reference's ``--dry-run``) is ROADMAP queue 1, item 16b.
@@ -155,15 +158,23 @@ def train(arch: str = "gemma2-2b", *, shape: str = "train_4k",
     stack = agg.broadcast_global(init_model(cfg, seed, dev), clients)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     tokens = shp.global_batch * shp.seq_len
+    pcb = bundle.meta["pcb"]
+    # a vision prompt's patches take frontend_len of the sequence
+    text = shp.seq_len - (cfg.frontend_len if cfg.frontend == "vision" else 0)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     records = []
     for r in range(rounds):
         # a round's (C, pcb, seq) batch, as examples/fl_transformer.py
         # builds it from the stream
-        t = synthetic_lm_batches(gen, clients, shp.seq_len,
-                                 bundle.meta["pcb"])
+        t = synthetic_lm_batches(gen, clients, text, pcb)
         batch = {"tokens": t[..., :-1], "labels": t[..., 1:]}
+        if cfg.frontend != "none":
+            # the stubbed front end's input: 0.1 * normal frames (enc-dec)
+            # or patch embeddings (vision)
+            batch["frames" if cfg.is_enc_dec else "patch_embeds"] = (
+                0.1 * torch.randn((clients, pcb, cfg.frontend_len,
+                                   cfg.d_model), generator=gen, device=dev))
         _sync(dev)
         t0 = time.perf_counter()
         stack, loss = bundle.fn(stack, batch, r)

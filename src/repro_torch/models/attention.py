@@ -1,6 +1,6 @@
 """GQA attention with chunked (online-softmax) computation, sliding
-windows, logit soft-capping, QKV bias and ring-buffer KV caches.
-Counterpart of ``repro/models/attention.py``.
+windows, logit soft-capping, QKV bias, ring-buffer KV caches and
+cross-attention.  Counterpart of ``repro/models/attention.py``.
 
 Three routes, as in the reference:
 
@@ -23,6 +23,17 @@ Three routes, as in the reference:
   PyTorch (float32), as the reference computes it in one einsum, over
   blocks of cache slots so that no float32 copy of a whole cache exists.
 
+Cross-attention (``kv_x``: whisper's decoder over the encoder's output)
+and the encoder's non-causal self-attention (``causal=False``) take the
+same split by mode: train through :func:`chunk_attention` with
+``causal=False``, prefill (and the serving encode, which runs in
+"prefill" mode) through ``ops.flash_attention`` with ``causal=False``.
+Cross-attention in decode is one query row against all Sk keys with no
+mask, which is the kernel's contract too (Sq = 1), so it also takes the
+kernel.  As in the reference, cross-attention ropes neither q nor k,
+keeps no cache, and re-projects its K/V from ``kv_x`` at every call (a
+decode step included); the encoder's self-attention ropes both.
+
 Cache layout per attention layer::
 
     {"k": (B, L, Hkv, D), "v": (B, L, Hkv, D), "slot_pos": (L,) int32}
@@ -41,9 +52,6 @@ scales into the scores and the probabilities.  Unlike the reference,
 whose arrays are immutable, the port writes prefill and decode results into
 the cache tensors in place (the caller's dict is updated and returned), so a
 decode step does not copy a 26-layer cache.
-
-Not in the port yet: cross-attention (``kv_x``, enc-dec), which raises
-``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -60,7 +68,10 @@ from repro_torch.models.layers import _init, apply_rope, rope_frequencies, softc
 NEG_INF = -1e30
 
 
-def init_attention(cfg, gen, dtype, device, lead=()) -> dict:
+def init_attention(cfg, gen, dtype, device, lead=(),
+                   cross: bool = False) -> dict:
+    """wq, wk, wv, wo (and the QKV biases of a ``qkv_bias`` config, but
+    not for a cross-attention layer), with a leading ``lead`` shape."""
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
     lead = tuple(lead)
     s = 1.0 / math.sqrt(d)
@@ -70,7 +81,7 @@ def init_attention(cfg, gen, dtype, device, lead=()) -> dict:
         "wv": _init(gen, lead + (d, kvd), s, dtype, device),
         "wo": _init(gen, lead + (qd, d), 1.0 / math.sqrt(qd), dtype, device),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         for name, n in (("bq", qd), ("bk", kvd), ("bv", kvd)):
             p[name] = torch.zeros(lead + (n,), dtype=dtype, device=device)
     return p
@@ -345,48 +356,65 @@ def cache_from_prefill(cache, k, v):
 
 def apply_attention(cfg, p, x, *, kind: str, mode: str,
                     positions: torch.Tensor, cache: Optional[dict] = None,
-                    kv_x: Optional[torch.Tensor] = None
+                    kv_x: Optional[torch.Tensor] = None,
+                    causal: bool = True
                     ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """One causal self-attention layer.  mode: "train" | "prefill" |
-    "decode"; ``positions`` is (S,) absolute positions of x's tokens (in
-    decode, one position).  Returns (y, cache), the cache updated in
-    place."""
-    if kv_x is not None:
-        raise NotImplementedError(
-            "cross-attention (enc-dec): not in the port's serving slice "
-            "(ROADMAP queue 1, item 16b, the rest of the transformer shelf)")
+    """One attention layer.  mode: "train" | "prefill" | "decode";
+    ``positions`` is (S,) absolute positions of x's tokens (in decode, one
+    position).  ``kv_x`` (B, Sk, d_model), the cross-attention source,
+    disables the cache, rope and the causal mask; ``causal=False`` (the
+    encoder) attends over the whole sequence and keeps no cache.  Returns
+    (y, cache), the cache updated in place (None for cross-attention)."""
     window = cfg.window_size if kind in ("swa", "local") else 0
     q = _project_q(cfg, p, x)
-    sin, cos = rope_frequencies(cfg, positions)
-    q = apply_rope(q, sin, cos)
-    k, v = _project_kv(cfg, p, x)
-    k = apply_rope(k, sin, cos)
-
     new_cache = None
-    if mode == "decode":
-        new_cache = _cache_write_decode(cache, k, v, positions)
-        out = direct_attention(cfg, q, new_cache["k"], new_cache["v"],
-                               positions, new_cache["slot_pos"],
-                               causal=True, window=window,
-                               k_scale=new_cache.get("k_scale"),
-                               v_scale=new_cache.get("v_scale"))
-    elif mode == "train":
-        if window:
-            out = windowed_full_attention(cfg, q, k, v, positions, positions,
-                                          window)
-        else:
-            out = chunk_attention(cfg, q, k, v, positions, positions,
-                                  causal=True)
-    else:                                     # prefill
-        # (B, S, H, D) -> (B, H, S, D) views; the kernel reads them through
-        # their strides and returns its output in q's layout
-        out = ops.flash_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=True, window=window,
-            softcap=cfg.attn_softcap).transpose(1, 2)
-        if cache is not None:
-            new_cache = cache_from_prefill(cache, k, v)
+    if kv_x is not None:                      # cross-attention (enc-dec)
+        k, v = _project_kv(cfg, p, kv_x)
+        if mode == "train":
+            k_pos = torch.arange(k.shape[1], dtype=torch.int32,
+                                 device=k.device)
+            out = chunk_attention(cfg, q, k, v, positions, k_pos,
+                                  causal=False)
+        else:                                 # prefill, and decode (Sq = 1)
+            out = _flash(cfg, q, k, v, causal=False)
+    else:
+        sin, cos = rope_frequencies(cfg, positions)
+        q = apply_rope(q, sin, cos)
+        k, v = _project_kv(cfg, p, x)
+        k = apply_rope(k, sin, cos)
+        if mode == "decode":
+            new_cache = _cache_write_decode(cache, k, v, positions)
+            out = direct_attention(cfg, q, new_cache["k"], new_cache["v"],
+                                   positions, new_cache["slot_pos"],
+                                   causal=causal, window=window,
+                                   k_scale=new_cache.get("k_scale"),
+                                   v_scale=new_cache.get("v_scale"))
+        elif mode == "train":
+            if not causal:
+                out = chunk_attention(cfg, q, k, v, positions, positions,
+                                      causal=False)
+            elif window:
+                out = windowed_full_attention(cfg, q, k, v, positions,
+                                              positions, window)
+            else:
+                out = chunk_attention(cfg, q, k, v, positions, positions,
+                                      causal=True)
+        else:                                 # prefill
+            out = _flash(cfg, q, k, v, causal=causal,
+                         window=window if causal else 0)
+            if cache is not None:
+                new_cache = cache_from_prefill(cache, k, v)
 
     B, S = x.shape[:2]
     y = out.reshape(B, S, cfg.q_dim) @ p["wo"]
     return y, new_cache
+
+
+def _flash(cfg, q, k, v, *, causal: bool, window: int = 0):
+    """``ops.flash_attention`` on (B, S, H, D) activations: (B, H, S, D)
+    views go in, which the kernel reads through their strides, and its
+    output comes back in q's layout."""
+    return ops.flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=causal, window=window,
+        softcap=cfg.attn_softcap).transpose(1, 2)

@@ -44,11 +44,15 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: Dict, *,
     """Training loss: next-token CE of ``logits[:, :-1]`` against
     ``labels[:, 1:]``, plus ``aux_weight`` times the MoE load-balance loss
     summed over layers (0 without MoE; ``dispatch`` is the MoE dispatch).
-    ``batch`` needs "tokens" and "labels" (B, S).  A vision front end
-    raises in ``T.forward``, as the serving path does.  Returns (loss,
-    {"ce", "aux"})."""
+    ``batch`` needs "tokens" and "labels" (B, S), and an enc-dec model's
+    "frames" (encoded in train mode, the chunked route) or a vision
+    model's "patch_embeds": the CE then covers the text positions only.
+    Returns (loss, {"ce", "aux"})."""
     logits, _, aux = T.forward(cfg, params, batch, mode="train",
                                dispatch=dispatch, remat=remat)
+    if cfg.frontend == "vision" and "patch_embeds" in batch:
+        # loss only over the text positions (suffix of the sequence)
+        logits = logits[:, batch["patch_embeds"].shape[1]:]
     ce = cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
@@ -63,7 +67,10 @@ def prefill(cfg: ModelConfig, params: dict, batch: Dict, max_len: int,
             dispatch: str = "dense", quantized_cache: bool = False
             ) -> Tuple[torch.Tensor, dict]:
     """Full-sequence forward that also fills the KV caches (int8 ones if
-    ``quantized_cache``)."""
+    ``quantized_cache``).  ``batch`` holds "tokens" and, for a front end,
+    "frames" or "enc_out" (enc-dec) or "patch_embeds" (vision: the caches
+    then hold frontend_len + S positions, so ``max_len`` counts the
+    patches)."""
     logits, caches, _ = T.forward(
         cfg, params, batch, mode="prefill", dispatch=dispatch,
         caches=_fresh_caches(cfg, params, batch["tokens"], max_len,
@@ -74,7 +81,8 @@ def prefill(cfg: ModelConfig, params: dict, batch: Dict, max_len: int,
 def prefill_last(cfg: ModelConfig, params: dict, batch: Dict, max_len: int,
                  dispatch: str = "dense", quantized_cache: bool = False
                  ) -> Tuple[torch.Tensor, dict]:
-    """Serving prefill: caches + last-position logits (B, V) only."""
+    """Serving prefill: caches + last-position logits (B, V) only;
+    ``batch`` as :func:`prefill`'s."""
     logits, caches, _ = T.forward(
         cfg, params, batch, mode="prefill", dispatch=dispatch,
         caches=_fresh_caches(cfg, params, batch["tokens"], max_len,
@@ -84,14 +92,19 @@ def prefill_last(cfg: ModelConfig, params: dict, batch: Dict, max_len: int,
 
 
 def decode_step(cfg: ModelConfig, params: dict, caches: dict,
-                token: torch.Tensor, pos, dispatch: str = "dense"
-                ) -> Tuple[torch.Tensor, dict]:
+                token: torch.Tensor, pos,
+                enc_out: Optional[torch.Tensor] = None,
+                dispatch: str = "dense") -> Tuple[torch.Tensor, dict]:
     """One-token decode.  token (B, 1) int, pos the absolute position of
-    ``token`` (an int or a 0-d tensor).  Returns (logits (B, 1, V), caches),
-    the caches updated in place (an int8 cache stays int8)."""
-    logits, caches, _ = T.forward(cfg, params, {"tokens": token, "pos": pos},
-                                  mode="decode", caches=caches,
-                                  dispatch=dispatch)
+    ``token`` (an int or a 0-d tensor; after a vision prompt it counts the
+    patches), ``enc_out`` an enc-dec model's encoder output (B,
+    frontend_len, d_model).  Returns (logits (B, 1, V), caches), the caches
+    updated in place (an int8 cache stays int8)."""
+    batch = {"tokens": token, "pos": pos}
+    if enc_out is not None:
+        batch["enc_out"] = enc_out
+    logits, caches, _ = T.forward(cfg, params, batch, mode="decode",
+                                  caches=caches, dispatch=dispatch)
     return logits, caches
 
 

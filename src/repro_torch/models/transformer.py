@@ -23,8 +23,20 @@ no second norm: mamba2-1.3b) and RG-LRU blocks (``models/rglru.py``, with
 the MLP: recurrentgemma-2b, beside its local attention layers).  An
 attention layer's cache may be int8 with per-row scales
 (``init_caches(quantized=True)``, ``models/attention.py``).
-Encoder-decoder models and modality front ends (whisper-large-v3,
-pixtral-12b's vision input) raise ``NotImplementedError``.
+
+Encoder-decoder (whisper-large-v3): every decoder block carries a
+cross-attention layer over the encoder's output (``norm_cross``,
+``cross``), and ``params["encoder"]`` holds the encoder's stacked
+non-causal attention blocks and its final norm beside ``enc_pos``, the
+learned positions added to the (stubbed) front end's frames.
+:func:`encode` runs the encoder in the mode its caller names: "train"
+(the chunked route autograd differentiates) or "prefill" (the flash
+kernel); ``forward`` encodes ``batch["frames"]`` itself (in "train" mode
+for a train forward, in "prefill" otherwise) unless ``batch["enc_out"]``
+is given.  The vision front end (pixtral-12b): ``params["proj"]`` maps
+``batch["patch_embeds"]`` (B, frontend_len, d_model) into the model's
+width, and the patches go in front of the text, so positions and caches
+count them.
 """
 from __future__ import annotations
 
@@ -42,23 +54,16 @@ from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
-_LATER = "(ROADMAP queue 1, item 16b, the rest of the transformer shelf)"
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.is_enc_dec or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder and modality front ends are not in "
-            f"the port's serving slice {_LATER}")
-
 
 # --------------------------------------------------------------------------
 # Block init/apply
 # --------------------------------------------------------------------------
 
-def init_block(cfg, kind: str, gen, dtype, device, lead=()) -> dict:
+def init_block(cfg, kind: str, gen, dtype, device, lead=(),
+               cross: bool = False) -> dict:
     """One block's parameters, with a leading ``lead`` shape (the cycle
-    dimension of a stacked pattern position)."""
+    dimension of a stacked pattern position); ``cross`` adds an enc-dec
+    decoder block's cross-attention and its norm."""
     p: Dict[str, Any] = {"norm1": L.init_norm(cfg, dtype, device, lead)}
     if kind in ATTN_KINDS:
         p["attn"] = attn.init_attention(cfg, gen, dtype, device, lead)
@@ -68,6 +73,10 @@ def init_block(cfg, kind: str, gen, dtype, device, lead=()) -> dict:
         p["ssd"] = ssm_lib.init_ssd(cfg, gen, dtype, device, lead)
     else:
         raise ValueError(kind)
+    if cross:
+        p["norm_cross"] = L.init_norm(cfg, dtype, device, lead)
+        p["cross"] = attn.init_attention(cfg, gen, dtype, device, lead,
+                                         cross=True)
     if kind != "ssd":                                   # mamba2 has no MLP
         p["norm2"] = L.init_norm(cfg, dtype, device, lead)
         if cfg.num_experts:
@@ -82,16 +91,19 @@ def init_block(cfg, kind: str, gen, dtype, device, lead=()) -> dict:
 
 
 def apply_block(cfg, kind: str, p: dict, x, *, mode: str, positions,
-                cache=None, dispatch: str = "dense"):
+                cache=None, enc_out=None, causal: bool = True,
+                dispatch: str = "dense"):
     """Returns (x, cache, aux): the cache written in place, ``aux`` the MoE
     layer's f32 load-balance loss, or None without one (the reference's 0,
-    which ``forward`` does not add)."""
+    which ``forward`` does not add).  A block with a cross-attention layer
+    attends over ``enc_out`` after its self-attention; ``causal=False`` is
+    the encoder's self-attention."""
     aux = None
     h = L.apply_norm(cfg, p["norm1"], x)
     if kind in ATTN_KINDS:
         h, new_cache = attn.apply_attention(cfg, p["attn"], h, kind=kind,
                                             mode=mode, positions=positions,
-                                            cache=cache)
+                                            cache=cache, causal=causal)
     elif kind == "rglru":
         h, new_cache = rglru_lib.apply_rglru(cfg, p["rglru"], h, mode=mode,
                                              cache=cache)
@@ -103,6 +115,12 @@ def apply_block(cfg, kind: str, p: dict, x, *, mode: str, positions,
     if cfg.post_norm:
         h = L.apply_norm(cfg, p["postnorm1"], h)
     x = x + h
+    if "cross" in p:                                    # enc-dec decoder
+        h = L.apply_norm(cfg, p["norm_cross"], x)
+        h, _ = attn.apply_attention(cfg, p["cross"], h, kind="attn",
+                                    mode=mode, positions=positions,
+                                    kv_x=enc_out)
+        x = x + h
     if kind == "ssd":
         return x, new_cache, aux
     h = L.apply_norm(cfg, p["norm2"], x)
@@ -121,21 +139,37 @@ def apply_block(cfg, kind: str, p: dict, x, *, mode: str, positions,
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     """Random parameters from ``gen``, in the config's dtype, on the
-    generator's device."""
-    _check_supported(cfg)
+    generator's device: the reference's tree, with an enc-dec model's
+    ``encoder`` and ``enc_pos`` (scale 0.02) and a vision model's
+    ``proj`` (scale d_model^-0.5)."""
     dtype = getattr(torch, cfg.dtype)
     device = gen.device
     pat = cfg.layer_pattern
     n_cycles = cfg.num_layers // len(pat)
     rem = cfg.num_layers % len(pat)
-    return {
+    cross = cfg.is_enc_dec
+    params = {
         "embed": L.init_embed(cfg, gen, dtype, device),
-        "layers": tuple(init_block(cfg, kind, gen, dtype, device, (n_cycles,))
+        "layers": tuple(init_block(cfg, kind, gen, dtype, device, (n_cycles,),
+                                   cross=cross)
                         for kind in pat),
-        "rem_layers": tuple(init_block(cfg, pat[j], gen, dtype, device)
+        "rem_layers": tuple(init_block(cfg, pat[j], gen, dtype, device,
+                                       cross=cross)
                             for j in range(rem)),
         "final_norm": L.init_norm(cfg, dtype, device),
     }
+    if cfg.is_enc_dec:
+        params["encoder"] = {
+            "layers": (init_block(cfg, "attn", gen, dtype, device,
+                                  (cfg.encoder_layers,)),),
+            "final_norm": L.init_norm(cfg, dtype, device)}
+        params["enc_pos"] = L._init(gen, (cfg.frontend_len, cfg.d_model),
+                                    0.02, dtype, device)
+    if cfg.frontend == "vision":
+        # projector stub: pre-extracted patch features -> d_model
+        params["proj"] = L._init(gen, (cfg.d_model, cfg.d_model),
+                                 cfg.d_model ** -0.5, dtype, device)
+    return params
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -193,6 +227,57 @@ def _cycles(tree: Any, n: int) -> list:
     return [tree_unflatten(tree, [u[c] for u in parts]) for c in range(n)]
 
 
+def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor,
+           remat: bool = False, mode: str = "train") -> torch.Tensor:
+    """Whisper-style encoder over precomputed frame embeddings (the stubbed
+    front end): frames (B, frontend_len, d_model) -> (B, frontend_len,
+    d_model), cast to the parameters' dtype before ``enc_pos`` is added.
+    ``mode`` picks the attention route: "train" (chunked, differentiable;
+    what the reference always runs) or "prefill" (the flash kernel, for
+    serving).  ``remat`` checkpoints each layer in train mode."""
+    enc = params["encoder"]
+    x = frames.to(params["enc_pos"].dtype) + params["enc_pos"]
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+
+    def layer(x, lp):
+        return apply_block(cfg, "attn", lp, x, mode=mode,
+                           positions=positions, causal=False)[0]
+
+    for lp in _cycles(enc["layers"][0], cfg.encoder_layers):
+        if remat and mode == "train":
+            x = torch.utils.checkpoint.checkpoint(layer, x, lp,
+                                                  use_reentrant=False)
+        else:
+            x = layer(x, lp)
+    return L.apply_norm(cfg, enc["final_norm"], x)
+
+
+def _embed_inputs(cfg, params, batch, mode, remat=False):
+    """(x, positions, enc_out): the tokens' embeddings with a vision
+    prompt's projected patches in front, their absolute positions (in
+    decode, ``batch["pos"]``), and an enc-dec model's encoder output
+    (``batch["enc_out"]``, or ``batch["frames"]`` encoded here)."""
+    tokens = batch["tokens"]
+    dev = tokens.device
+    x = L.embed_tokens(cfg, params["embed"], tokens)
+    if mode == "decode":
+        positions = torch.as_tensor(batch["pos"], device=dev).reshape(1)
+    else:
+        positions = torch.arange(tokens.shape[1], device=dev)
+    if cfg.frontend == "vision" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(x.dtype) @ params["proj"]
+        x = torch.cat([pe, x], 1)
+        if mode != "decode":
+            positions = torch.arange(x.shape[1], device=dev)
+    enc_out = None
+    if cfg.is_enc_dec:
+        enc_out = batch.get("enc_out")
+        if enc_out is None:
+            enc_out = encode(cfg, params, batch["frames"], remat=remat,
+                             mode="train" if mode == "train" else "prefill")
+    return x, positions.to(torch.int32), enc_out
+
+
 def forward(cfg: ModelConfig, params: dict, batch: dict, *, mode: str,
             caches: Optional[dict] = None, dispatch: str = "dense",
             last_only: bool = False, remat: bool = False
@@ -205,17 +290,13 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *, mode: str,
     "tokens" (B, S) and, in decode, "pos" (the absolute position of the one
     token).  ``last_only`` unembeds just the final position (serving
     prefill).  ``remat`` checkpoints each cycle of the layer pattern in
-    train mode (the values are those of ``remat=False``)."""
-    _check_supported(cfg)
-    tokens = batch["tokens"]
-    dev = tokens.device
-    x = L.embed_tokens(cfg, params["embed"], tokens)
-    if mode == "decode":
-        positions = torch.as_tensor(batch["pos"], device=dev).reshape(1)
-    else:
-        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                                 device=dev)
-    positions = positions.to(torch.int32)
+    train mode (the values are those of ``remat=False``).  An enc-dec
+    model reads "enc_out" (B, frontend_len, d_model) or "frames" from
+    ``batch``, a vision model "patch_embeds" (B, frontend_len, d_model):
+    its logits then cover frontend_len + S positions (:func:`_embed_inputs`).
+    """
+    x, positions, enc_out = _embed_inputs(cfg, params, batch, mode, remat)
+    dev = x.device
     pat = cfg.layer_pattern
     n_cycles = cfg.num_layers // len(pat)
     layers = [_cycles(lp, n_cycles) for lp in params["layers"]]
@@ -226,7 +307,7 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *, mode: str,
                      else tree_map(lambda t: t[c], caches["layers"][j]))
             x, _, a = apply_block(cfg, kind, layers[j][c], x, mode=mode,
                                   positions=positions, cache=cache,
-                                  dispatch=dispatch)
+                                  enc_out=enc_out, dispatch=dispatch)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -242,7 +323,7 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *, mode: str,
         cache = None if caches is None else caches["rem_layers"][j]
         x, _, a = apply_block(cfg, pat[j % len(pat)], lp, x, mode=mode,
                               positions=positions, cache=cache,
-                              dispatch=dispatch)
+                              enc_out=enc_out, dispatch=dispatch)
         if a is not None:
             aux = aux + a
 

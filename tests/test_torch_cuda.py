@@ -639,3 +639,75 @@ def test_int8_decode_on_the_card_matches_the_cpu(cuda_device):
                                  100 + step, dispatch="scan")
             torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4,
                                        msg=f"decode step {step}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq", [100, 1])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_attention_cross_non_causal(cuda_device, sq, dt):
+    """whisper's cross-attention shape, cut in batch: Sq = 100 or 1 query
+    rows (1 live row in a 128-row tile) against Sk = 1500 = 23 * 64 + 28
+    keys with no mask, K/V from (B, Sk, H, D) views as the model hands
+    them over; at the sweep's bars (3e-5 f32, 4e-2 bf16)."""
+    g = torch.Generator(device=cuda_device).manual_seed(10 + sq)
+    q = torch.randn((2, sq, 20, 64), generator=g, device=cuda_device)
+    kv = torch.randn((2, 1500, 2, 20, 64), generator=g, device=cuda_device)
+    q, k, v = (t.to(dt).transpose(1, 2) for t in (q, kv[:, :, 0],
+                                                  kv[:, :, 1]))
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert got.shape == q.shape and got.dtype == dt
+    want = ref.flash_attention_ref(q, k, v, causal=False)
+    tol = 3e-5 if dt == torch.float32 else 4e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "pixtral-12b"])
+def test_frontend_serving_on_the_card_matches_the_cpu(cuda_device, arch):
+    """The smoke variant (f32) on the card against the same parameters on
+    the CPU, through ``serve_batch``'s path: whisper encodes its frames
+    (flash, non-causal) and every prefill and decode step attends over
+    them (flash, Sq = 40 and 1); pixtral's 32 patches lead the prompt.
+    ``prefill_last`` then two decode steps: logits and caches at 1e-4
+    (float32 on both sides, summed in other orders)."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models import decode_step, init_params
+    from repro_torch.models.model import prefill_last
+    from repro_torch.models.transformer import encode
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = smoke_variant(get_config(arch))
+    gen = torch.Generator().manual_seed(11)
+    cpu = init_params(cfg, gen)
+    card = tree_map(lambda t: t.to(cuda_device), cpu)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen)
+    front = 0.1 * torch.randn((2, cfg.frontend_len, cfg.d_model),
+                              generator=gen)
+    off = 0 if cfg.is_enc_dec else cfg.frontend_len
+    outs = {}
+    with torch.inference_mode():
+        for name, params, dev in (("cpu", cpu, "cpu"),
+                                  ("card", card, cuda_device)):
+            before = ops.LAUNCHES["flash_attention"]
+            batch, enc = {"tokens": toks.to(dev)}, None
+            if cfg.is_enc_dec:
+                enc = encode(cfg, params, front.to(dev), mode="prefill")
+                batch["enc_out"] = enc
+            else:
+                batch["patch_embeds"] = front.to(dev)
+            logits, caches = prefill_last(cfg, params, batch, off + 44)
+            seq = [logits] + ([enc] if enc is not None else [])
+            for step in range(2):
+                logits, caches = decode_step(cfg, params, caches,
+                                             toks[:, step:step + 1].to(dev),
+                                             off + 40 + step, enc_out=enc)
+                seq.append(logits[:, 0])
+            outs[name] = [x.cpu() for x in seq + tree_leaves(caches)]
+            launches = ops.LAUNCHES["flash_attention"] - before
+        n = cfg.num_layers
+        assert launches == (cfg.encoder_layers + 2 * n + 2 * n
+                            if cfg.is_enc_dec else n)
+    for a, b in zip(outs["card"], outs["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

@@ -70,6 +70,26 @@ def test_flash_attention_matches_pallas_kernel(case, dt):
         np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
 
 
+# cross-attention and the encoder (whisper-large-v3's routes): non-causal,
+# Sq != Sk, Sk = 1500 = 23 * 64 + 28 not a multiple of the kernel's kv tile
+CROSS_CASES = [(2, 4, 4, 100, 1500, 64), (2, 4, 4, 1, 1500, 64)]
+
+
+@pytest.mark.parametrize("case", CROSS_CASES)
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_flash_attention_non_causal_cross_matches_pallas_kernel(case, dt):
+    """The plain version against the interpreted Pallas kernel and the JAX
+    oracle without a mask, at the sweep's tolerances."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv(case, 20 + CROSS_CASES.index(case), dt)
+    got = ops.flash_attention(tq, tk, tv, causal=False)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    pallas = jops.flash_attention(jq, jk, jv, causal=False, interpret=True)
+    oracle = jref.flash_attention_ref(jq, jk, jv, causal=False)
+    tol = 3e-5 if dt == "float32" else 4e-2
+    for want in (pallas, oracle):
+        np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+
+
 def test_flash_attention_independent_of_the_reference_tiling():
     """The port's function equals the Pallas kernel at two block shapes
     (the reference's block-shape independence case)."""

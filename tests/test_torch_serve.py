@@ -138,15 +138,28 @@ def test_serving_defaults_to_cuda_and_refuses_to_fall_back(monkeypatch):
         serve.serve_batch(cfg, params, prompts, 2)
 
 
-def test_unported_model_parts_name_their_slice():
-    """The encoder-decoder (whisper-large-v3) and the vision front end
-    (pixtral-12b) are still refused; MoE and the int8 cache are ported
-    (``test_serve_cli_runs_moe_archs_on_cpu``, ``test_torch_moe.py``,
-    ``test_torch_kv_int8.py``)."""
-    for arch in ("whisper-large-v3", "pixtral-12b"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 16b"):
-            init_params(smoke_variant(get_config(arch)),
-                        torch.Generator().manual_seed(0))
+@pytest.mark.parametrize("arch,name", [("whisper-large-v3", "frames"),
+                                       ("pixtral-12b", "patch_embeds")])
+def test_serve_cli_runs_frontend_archs_on_cpu(arch, name, capsys):
+    """The encoder-decoder (frames encoded once, ``encode_s``) and the
+    vision front end (patches in front of the prompt: the caches hold
+    frontend_len + S + new_tokens positions) from the CLI, their inputs
+    drawn from ``--seed``; the same seed gives the same tokens."""
+    args = ["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
+            "--prompt-len", "20", "--tokens", "3"]
+    serve.main(args)
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    cfg = smoke_variant(get_config(arch))
+    assert out["arch"] == arch + "-smoke" and out["device"] == "cpu"
+    assert out["frontend_len"] == cfg.frontend_len == 32
+    assert (out["encode_s"] > 0) == (name == "frames")
+    assert [len(t) for t in out["first_tokens"]] == [3, 3]
+    n_pos = 20 + 3 + (32 if name == "patch_embeds" else 0)
+    kv = 2 * 2 * n_pos * cfg.num_kv_heads * cfg.head_dim * 4
+    assert out["cache_bytes"] == cfg.num_layers * (kv + 4 * n_pos)
+    serve.main(args)
+    again = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert again["first_tokens"] == out["first_tokens"]
 
 
 @pytest.mark.parametrize("arch,kv_int8", [("grok-1-314b", True),
@@ -187,7 +200,8 @@ def test_port_and_chip_smoke_import_no_jax():
     and neither the port nor chip_smoke.py names them in an import."""
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     extra = [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
-             ROOT / "examples" / "fl_transformer_torch.py"]
+             ROOT / "examples" / "fl_transformer_torch.py",
+             ROOT / "examples" / "serve_batch_torch.py"]
     for f in files + extra:
         for line in f.read_text().splitlines():
             assert not re.match(_BLOCK, line), f"{f}: {line}"
@@ -203,7 +217,8 @@ class Block(importlib.abc.MetaPathFinder):
             raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, Block())
 sys.path.insert(0, "examples")
-for m in {mods!r} + ["quickstart_torch", "fl_transformer_torch"]:
+for m in {mods!r} + ["quickstart_torch", "fl_transformer_torch",
+                     "serve_batch_torch"]:
     importlib.import_module(m)
 print(len({mods!r}))
 """
