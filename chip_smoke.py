@@ -54,10 +54,13 @@ against SDPA), trains the full gemma2-2b through
 ``repro_torch.launch.train.train`` (4 clients stacked on the card, K = 2,
 4096-token sequences, 3 rounds with stage-2 in round 2; round 1's stage-1
 held against the plain version on its own stack and timed; one stage-1
-launch a round; rounds 1-2 again with the kernels off), then mamba2-1.3b
-and recurrentgemma-2b the same way for 2 rounds (round 1 again with the
-kernels off; one stage-1 launch a round for each dtype of their leaves),
-and prints one JSON line per phase.  The line
+launch a round; rounds 1-2 again with the kernels off), then mamba2-1.3b,
+recurrentgemma-2b and whisper-large-v3 the same way for 2 rounds (round 1
+again with the kernels off; one stage-1 launch a round for each dtype of
+their leaves), dry-runs each of those serves and trainings on the host
+(``repro_torch.launch.dryrun``, fake tensors, in worker processes that
+count while the card trains) and holds its predicted peak within 0.5-2x
+of the measured one, and prints one JSON line per phase.  The line
 before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.  Any failure raises: nothing is caught,
 and the exit code is then not 0.  Without CUDA, or outside a checkout, it
@@ -137,6 +140,10 @@ TRAIN_ROUNDS, TRAIN_RPG, TRAIN_BATCH, TRAIN_RERUN = 3, 2, 16, 2
 # remat; grad_accum 8 and 4, so 4 microbatches of 1 row), 2 rounds with
 # stage-2 in round 2, round 1 again with the kernels off
 REC_TRAIN_ROUNDS, REC_TRAIN_RERUN = 2, 1
+# and so does whisper-large-v3 (bf16, grad_accum 8: 4 microbatches of 1
+# row of 4096 tokens and 1500 frames a client; the frames 0.1 * normal,
+# drawn each round by launch/train.py)
+FRONTEND_TRAIN_ARCHS = ("whisper-large-v3",)
 # kernels on vs off, round 2's mean client CE: the two runs' round-1
 # stage-1 outputs may differ by one bf16 ulp (2^-8 relative) in some
 # elements, and round 2's forward rounds every activation to bf16 (8 bits)
@@ -239,6 +246,11 @@ FLASH_FRONTEND = {
     "whisper_cross_decode": (16, 20, 20, 1, 1500, 64, False),    # 4f'
     "pixtral": (2, 32, 8, 8192, 8192, 128, True),                # 4g
 }
+# the dry run's predicted peak over a run's measured one: outside this the
+# count is wrong, not the allocator (its rounding to 512-byte blocks, the
+# cuBLAS workspace and fragmentation move a peak by a few percent)
+DRYRUN_PEAK_RATIO = (0.5, 2.0)
+DRYRUN_WORKERS = 4           # processes counting at once (the host has 8 cores)
 PLAIN_SCORES_MAX = 4e9       # bytes of f32 scores the plain version takes
 #                              whole; past it, a kv head at a time
 
@@ -2749,7 +2761,7 @@ def profile_training(cfg, round_s: float, microbatches: int) -> dict:
     cores timed alone as a microbatch runs them (the checkpoint's forward
     without autograd, then the recompute and its backward): the train
     attention of a global and a local layer (gemma2-2b; recurrentgemma-2b's
-    local layers), the SSD's chunked core with its (B, nc, H, Q, Q) f32
+    local layers; whisper-large-v3's causal decoder layers), the SSD's chunked core with its (B, nc, H, Q, Q) f32
     decay matrices (mamba2-1.3b) and the RG-LRU's log-depth scan
     (recurrentgemma-2b); ``round_s`` and ``microbatches`` (a round's) give
     their shares of a round."""
@@ -2765,10 +2777,14 @@ def profile_training(cfg, round_s: float, microbatches: int) -> dict:
     gen = torch.Generator(device=DEV).manual_seed(5)
     toks = torch.randint(0, 256, (1, seq), generator=gen, device=DEV)
 
+    batch = {"tokens": toks, "labels": toks}
+    if cfg.is_enc_dec:        # the frames launch/train.py draws
+        batch["frames"] = 0.1 * torch.randn(
+            (1, cfg.frontend_len, cfg.d_model), generator=gen, device=DEV)
+
     def micro():
         ps = [x.detach().requires_grad_(True) for x in tree_leaves(model)]
-        loss, _ = loss_fn(cfg, tree_unflatten(model, ps),
-                          {"tokens": toks, "labels": toks}, remat=True)
+        loss, _ = loss_fn(cfg, tree_unflatten(model, ps), batch, remat=True)
         torch.autograd.grad(loss, ps)
     micro_ms = events_ms(micro, reps=3)
     with profile(activities=[ProfilerActivity.CPU,
@@ -2803,15 +2819,15 @@ def profile_training(cfg, round_s: float, microbatches: int) -> dict:
         q = torch.randn((1, seq, hq, d), generator=gen, device=DEV).bfloat16()
         k, v = (torch.randn((1, seq, hkv, d), generator=gen, device=DEV)
                 .bfloat16() for _ in range(2))
-        for kind in ("global", "local"):
+        for kind in ("global", "local", "attn"):
             if kind not in kinds:
                 continue
             if kind == "local":
                 cores["attention_local"] = (kinds.count(kind), remat_ms(
                     lambda q, k, v: attn.windowed_full_attention(
                         cfg, q, k, v, pos, pos, cfg.window_size), q, k, v))
-            else:
-                cores["attention_global"] = (kinds.count(kind), remat_ms(
+            else:           # a global layer, or whisper's decoder layer
+                cores[f"attention_{kind}"] = (kinds.count(kind), remat_ms(
                     lambda q, k, v: attn.chunk_attention(
                         cfg, q, k, v, pos, pos, causal=True), q, k, v))
     if "ssd" in kinds:
@@ -3019,6 +3035,110 @@ def train_phase(smi: str, arch: str = TRAIN_ARCH, rounds: int = TRAIN_ROUNDS,
                     f"{stage1['columns']} columns, {groups} launch"
                     f"{'es' if groups > 1 else ''}"}
     return line, row
+
+
+def dryrun_count(task) -> tuple:
+    """One dry-run count in a worker process of ``dryrun_phase``: the
+    record, and the kernel launches the worker counted (none)."""
+    key, arch, shape, kw = task
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    return key, dryrun.run_one(arch, shape, **kw), dict(ops.LAUNCHES)
+
+
+def start_dryrun():
+    """Start the counts of :func:`dryrun_phase` in DRYRUN_WORKERS spawned
+    processes, the longest first: every training and serve run of this
+    script at its own config and shape (a training round at C, K, the
+    global batch and the stage-2 cadence of the train phase; a serve's
+    prefill step at its batch and prompt, with the MoE depth cuts), and a
+    smoke count on ``cuda`` and on ``meta`` (where a host without CUDA
+    counts).  The caller starts them before the training phases, which
+    keep the card busy and leave the host's cores free, and shuts the
+    pool down.  Returns (pool, futures, start time)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    tasks = [(f"train {arch}", arch, "train_4k", dict(
+        device="cuda", clients=TRAIN_CLIENTS, clusters=TRAIN_CLUSTERS,
+        global_batch=TRAIN_BATCH, rounds_per_global=TRAIN_RPG))
+        for arch in (TRAIN_ARCH,) + RECURRENT_ARCHS + FRONTEND_TRAIN_ARCHS]
+    for arch in ("gemma2-2b",) + RECURRENT_ARCHS + MOE_ARCHS + FRONTEND_ARCHS:
+        batch, text, _ = FRONTEND_SERVE.get(arch, (SERVE_BATCH, None, None))
+        tasks.append((f"serve {arch}", arch, "prefill_32k", dict(
+            device="cuda", batch=batch, num_layers=MOE_LAYERS.get(arch),
+            seq_len=text if arch == "whisper-large-v3" else SERVE_PROMPT)))
+    for shape in ("train_4k", "prefill_32k"):
+        for d in ("cuda", "meta"):
+            tasks.append(((shape, d), "gemma2-2b", shape,
+                          dict(smoke=True, device=d)))
+    pool = ProcessPoolExecutor(DRYRUN_WORKERS, mp_context=multiprocessing
+                               .get_context("spawn"))
+    return pool, [pool.submit(dryrun_count, t) for t in tasks], \
+        time.perf_counter()
+
+
+def dryrun_phase(smi: str, serve_lines: dict, train_lines: list,
+                 started) -> dict:
+    """The dry run of every serve and training run above
+    (``repro_torch.launch.dryrun.run_one`` on the host, fake tensors on
+    the card's device, counted by :func:`start_dryrun`'s workers): the
+    predicted peak (``total_hbm_bytes``) against the run's measured
+    ``peak_device_mem_mb``, which must lie within DRYRUN_PEAK_RATIO of it,
+    and the counted flops over the run's measured seconds (a prefill's,
+    with whisper's encode; a round's less the checks) as TFLOP/s and as a
+    share of the card's dense bf16 peak.  The counts launch no kernel; the
+    smoke counts on ``cuda`` and ``meta`` must agree exactly."""
+    _, futures, t0 = started
+    waited = time.perf_counter()
+    done = [f.result() for f in futures]
+    waited = time.perf_counter() - waited
+    measured = {}
+    for line in train_lines:
+        assert (line["clients"], len(line["clusters"]), line["global_batch"],
+                line["rounds_per_global"]) == (TRAIN_CLIENTS, TRAIN_CLUSTERS,
+                                               TRAIN_BATCH, TRAIN_RPG), line
+        measured[f"train {line['arch']}"] = ([line], line["steady_round_s"])
+    for arch, line in serve_lines.items():
+        measured[f"serve {arch}"] = (line["runs"], statistics.median(
+            r["prefill_s"] + r.get("encode_s", 0.0) for r in line["runs"]))
+    recs = {key: rec for key, rec, _ in done}
+    launched = [(key, n) for key, _, n in done if set(n.values()) != {0}]
+    assert not launched, launched
+    same = {}
+    for shape in ("train_4k", "prefill_32k"):
+        on_cuda, on_meta = recs[(shape, "cuda")], recs[(shape, "meta")]
+        for key in ("memory", "cost", "collectives"):
+            assert on_cuda[key] == on_meta[key], (key, on_cuda, on_meta)
+        same[shape] = on_cuda["cost"]["flops"]
+    rows = []
+    for key, (runs, seconds) in measured.items():
+        rec = recs[key]
+        assert rec["status"] == "ok", rec
+        peak_mb = max(r["peak_device_mem_mb"] for r in runs)
+        predicted = rec["memory"]["total_hbm_bytes"]
+        flops = rec["cost"]["flops"]
+        rows.append({
+            "run": key, "layers": rec["meta"]["layers"],
+            "predicted_peak_mb": predicted / 1e6,
+            "measured_peak_mb": peak_mb,
+            "predicted_over_measured": predicted / (peak_mb * 1e6),
+            "argument_mb": rec["memory"]["argument_size_in_bytes"] / 1e6,
+            "counted_flops": flops,
+            "bytes_accessed": rec["cost"]["bytes_accessed"],
+            "measured_s": seconds,
+            "counted_tflop_per_s": flops / seconds / 1e12,
+            "share_of_dense_bf16_peak": flops / seconds / BF16_FLOPS,
+            "count_s": rec["count_s"],
+            "trip_counts": rec["meta"]["trip_counts"]})
+    lo, hi = DRYRUN_PEAK_RATIO
+    off = [r for r in rows if not lo <= r["predicted_over_measured"] <= hi]
+    assert not off, off
+    assert len(rows) == len(measured) == len(done) - 4, (rows, done)
+    return {"phase": "dryrun", "nvidia_smi": smi,
+            "peak_ratio_bar": DRYRUN_PEAK_RATIO, "runs": rows,
+            "cuda_equals_meta_smoke_flops": same, "workers": DRYRUN_WORKERS,
+            "since_started_s": time.perf_counter() - t0,
+            "waited_after_the_training_s": waited}
 
 
 def check_result(res, rounds: int, eval_every: int) -> None:
@@ -3240,7 +3360,9 @@ def main() -> int:
         assert 0 <= int(res.tokens.min()) <= int(res.tokens.max()) \
             < cfg.vocab_size
     assert torch.equal(first.tokens, second.tokens), "greedy decode differs"
-    emit({"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
+    serve_lines = {}
+    serve_lines[cfg.name] = {
+          "phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
           "d_model": cfg.d_model, "params": param_count(params),
           "dtype": cfg.dtype, "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
           "new_tokens": SERVE_TOKENS, "init_s": init_s,
@@ -3249,7 +3371,8 @@ def main() -> int:
                     "decode_tokens_per_s": r.decode_tokens_per_s,
                     "peak_device_mem_mb": r.peak_device_mem_mb}
                    for r in (first, second)],
-          "first_tokens": first.tokens[:, :8].tolist()})
+          "first_tokens": first.tokens[:, :8].tolist()}
+    emit(serve_lines[cfg.name])
 
     # ---- 7. prefill + decode == a longer prefill --------------------------
     consist = {}
@@ -3286,6 +3409,7 @@ def main() -> int:
     rec_flash = {}
     for arch in RECURRENT_ARCHS:
         line, prof, rec_flash[arch] = serve_recurrent_phase(arch)
+        serve_lines[arch] = line
         emit(line)
         emit(prof)
     assert rec_flash == {"mamba2-1.3b": 0, "recurrentgemma-2b": 8}, rec_flash
@@ -3297,6 +3421,7 @@ def main() -> int:
     moe_flash = {}
     for arch in MOE_ARCHS:
         line, prof, moe_flash[arch] = serve_moe_phase(arch)
+        serve_lines[arch] = line
         emit(line)
         emit(prof)
     assert moe_flash == MOE_LAYERS, moe_flash
@@ -3310,6 +3435,7 @@ def main() -> int:
     front_flash = {}
     for arch in FRONTEND_ARCHS:
         line, prof, rows_launched = serve_frontend_phase(arch)
+        serve_lines[arch] = line
         emit(line)
         emit(prof)
         front_flash.update(rows_launched)
@@ -3319,15 +3445,28 @@ def main() -> int:
                            "pixtral": 40}, front_flash
 
     # ---- 8c. transformer FL training: gemma2-2b, then the recurrent
-    # families, 4 clients on the card, stage-1 through the kernel; the
-    # counts are set to 0 before each run and read after it
-    train_line, train_row = train_phase(smi)
-    emit(train_line)
-    train_rows = [train_row]
-    for arch in RECURRENT_ARCHS:
-        line, row = train_phase(smi, arch, REC_TRAIN_ROUNDS, REC_TRAIN_RERUN)
-        emit(line)
-        train_rows.append(row)
+    # families and whisper-large-v3, 4 clients on the card, stage-1 through
+    # the kernel; the counts are set to 0 before each run and read after
+    # it.  The dry run of every serve and training run counts on the
+    # host's spare cores meanwhile (8d).
+    started = start_dryrun()
+    try:
+        train_line, train_row = train_phase(smi)
+        emit(train_line)
+        train_rows = [train_row]
+        train_lines = [train_line]
+        for arch in RECURRENT_ARCHS + FRONTEND_TRAIN_ARCHS:
+            line, row = train_phase(smi, arch, REC_TRAIN_ROUNDS,
+                                    REC_TRAIN_RERUN)
+            emit(line)
+            train_lines.append(line)
+            train_rows.append(row)
+
+        # ---- 8d. the dry run of every run above: its predicted peak
+        # against the card's, its flops over the card's seconds
+        emit(dryrun_phase(smi, serve_lines, train_lines, started))
+    finally:
+        started[0].shutdown(cancel_futures=True)
 
     emit({"phase": "elapsed", "script_s": time.perf_counter() - T_START})
 

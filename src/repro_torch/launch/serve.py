@@ -24,6 +24,11 @@ takes ``0.1 * normal`` patch embeddings of the same shape in front of the
 prompt, so its caches and decode positions count frontend_len + S
 positions.  Prints one JSON line with the timings (whisper's encode
 apart), the cache's bytes, frontend_len and the first generated tokens.
+
+``--dry-run --shape prefill_32k`` (or another prefill or decode shape)
+counts that step at the shape's batch and length on fake tensors
+(`launch/dryrun.py`), prints the per-device peak and the memory analysis,
+as the reference's ``launch/serve.py --dry-run`` does, and exits.
 """
 from __future__ import annotations
 
@@ -156,7 +161,24 @@ def main(argv=None) -> None:
                     default=None,
                     help="int8 KV cache (default: the arch's profile)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dry-run", action="store_true",
+                    help="count --shape's step on fake tensors, print the "
+                         "analyses, exit")
+    ap.add_argument("--shape", default="decode_32k",
+                    help="the dry run's prefill or decode shape")
     args = ap.parse_args(argv)
+    if args.dry_run:
+        from repro_torch.configs.shapes import SHAPES
+        from repro_torch.launch import dryrun
+        if SHAPES[args.shape].mode not in ("prefill", "decode"):
+            raise SystemExit(f"{args.shape} is a train shape; use "
+                             f"repro_torch.launch.train --dry-run")
+        rec = dryrun.run_one(args.arch, args.shape, "one", smoke=args.smoke)
+        if rec["status"] == "skipped":
+            raise SystemExit(f"{args.arch} x {args.shape} skipped: "
+                             f"{rec['reason']}")
+        dryrun.print_analyses(rec)
+        return
 
     dev = device_lib.resolve(args.device)
     cfg = get_config(args.arch)

@@ -31,8 +31,9 @@ one of two forms that compute the same function:
   parallelism, so the mesh's "model" axis must have size 1.
 
 The serving builders are thin wrappers over ``models.prefill_last`` and
-``models.decode_step``.  A dry run (lower and compile, then the reference's
-``hlo_analysis``) is slice 16b's.
+``models.decode_step``.  ``launch/dryrun.py`` counts any bundle's step on
+fake tensors (`launch/hlo_analysis.py`); a train step takes its ``trips``
+(:func:`_trips`) so that the count runs one microbatch of one client.
 """
 from __future__ import annotations
 
@@ -126,8 +127,21 @@ def default_clusters(num_clients: int, k: int) -> Tuple[Tuple[int, ...], ...]:
 # FL train step
 # ==========================================================================
 
+def _trips(n: int, trips=None):
+    """The trips of a loop of ``n``: all of them, or, under a dry run's
+    ``trips`` (`launch/dryrun.py`), the first alone inside ``trips(n)``, a
+    context that counts the work done in it ``n`` times.  Every trip of
+    the step's loops does the same work on the same shapes."""
+    if trips is None:
+        yield from range(n)
+        return
+    with trips(n):
+        yield 0
+
+
 def _local_update(cfg, p, b, *, accum: int, micro: int, lr: float,
-                  acc_dt: torch.dtype, remat: bool, dispatch: str):
+                  acc_dt: torch.dtype, remat: bool, dispatch: str,
+                  trips=None):
     """One client's local SGD step with gradient accumulation (reference
     ``local_update``): ``accum`` microbatches of ``micro`` rows, each loss
     differentiated by autograd and its gradient summed into an ``acc_dt``
@@ -140,7 +154,7 @@ def _local_update(cfg, p, b, *, accum: int, micro: int, lr: float,
     l_acc = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
     mbs = {k: x.reshape((accum, micro) + tuple(x.shape[1:]))
            for k, x in b.items()}
-    for i in range(accum):
+    for i in _trips(accum, trips):
         ps = [x.detach().requires_grad_(True) for x in leaves]
         loss = M.loss_fn(cfg, tree_unflatten(p, ps),
                          {k: x[i] for k, x in mbs.items()},
@@ -162,13 +176,14 @@ def build_train_step(arch: str, shape: InputShape, mesh=None, *,
                      use_kernels: bool = False,
                      cfg: Optional[ModelConfig] = None,
                      profile: Optional[RunProfile] = None) -> StepBundle:
-    """The FL round ``fn(params_stack, batch, round_idx) -> (params_stack,
-    mean client loss)``: ``batch`` holds "tokens" and "labels" (C, pcb, S)
-    int (S less frontend_len for a vision arch) and a front end's "frames"
-    or "patch_embeds" (C, pcb, frontend_len, d_model), ``round_idx`` a
-    Python int (stage-2 runs when ``(round_idx + 1) %
-    rounds_per_global == 0``).  Without a mesh ``num_clients`` says C; on
-    a mesh C is the mesh's client count and each rank passes its own rows.
+    """The FL round ``fn(params_stack, batch, round_idx, *, trips=None) ->
+    (params_stack, mean client loss)``: ``batch`` holds "tokens" and
+    "labels" (C, pcb, S) int (S less frontend_len for a vision arch) and a
+    front end's "frames" or "patch_embeds" (C, pcb, frontend_len,
+    d_model), ``round_idx`` a Python int (stage-2 runs when ``(round_idx +
+    1) % rounds_per_global == 0``), ``trips`` a dry run's
+    (:func:`_trips`).  Without a mesh ``num_clients`` says C; on a mesh C
+    is the mesh's client count and each rank passes its own rows.
     ``clusters`` (member tuples) defaults to :func:`default_clusters`.
     ``cfg`` and ``profile`` override the arch's own (a smoke variant, an
     f32 profile).  The reference's ``flat_agg`` (one all-client average a
@@ -199,49 +214,32 @@ def build_train_step(arch: str, shape: InputShape, mesh=None, *,
         accum -= 1
     micro = pcb // accum
 
-    # ---- specs and placements ---------------------------------------------
-    base_params = _param_structs(cfg)
-    params_structs = _stack_structs(base_params, n_clients)
-    text_len = _text_len(cfg, shape.seq_len)
-    batch_structs = {k: _spec((n_clients, pcb, text_len), torch.int32)
-                     for k in ("tokens", "labels")}
-    batch_structs.update(_frontend_specs(cfg, (n_clients, pcb),
-                                         getattr(torch, cfg.dtype)))
-    round_struct = _spec((), torch.int32)
-    if mesh is None:
-        in_sh, out_sh = (None, None, None), (None, None)
-    else:
-        fsdp = "data" if prof.client_axis == "pod" else None
-        pspec = rules.tree_param_specs(base_params, mesh, tp_axes="model",
-                                       fsdp_axes=fsdp)
-        params_sh = rules.tree_shardings(_stacked_specs(pspec, c_axes), mesh)
-        batch_axis = None if prof.client_axis == "data" else "data"
-        batch_sh = {k: rules.placements(rules.P(c_axes, batch_axis), mesh)
-                    for k in batch_structs}
-        in_sh = (params_sh, batch_sh, rules.placements(rules.P(), mesh))
-        out_sh = (params_sh, rules.placements(rules.P(), mesh))
+    in_specs, in_sh, out_sh = _train_specs(cfg, prof, mesh, c_axes,
+                                           n_clients, pcb, shape.seq_len)
 
-    def local(p, b):
+    def local(p, b, trips):
         return _local_update(cfg, p, b, accum=accum, micro=micro, lr=lr,
                              acc_dt=acc_dt, remat=prof.remat,
-                             dispatch=prof.moe_dispatch)
+                             dispatch=prof.moe_dispatch, trips=trips)
 
     def do_global(round_idx) -> bool:
         return (int(round_idx) + 1) % rounds_per_global == 0
 
     if mesh is None:
-        def train_step(stack, batch, round_idx):
+        def train_step(stack, batch, round_idx, *, trips=None):
             leaves = tree_leaves(stack)
             losses = []
-            for c in range(n_clients):
+            for c in _trips(n_clients, trips):
                 new_p, loss = local(
                     tree_unflatten(stack, [x[c] for x in leaves]),
-                    {k: x[c] for k, x in batch.items()})
+                    {k: x[c] for k, x in batch.items()}, trips)
                 for x, y in zip(leaves, tree_leaves(new_p)):
                     x[c].copy_(y)
                 del new_p
                 losses.append(loss)
-            losses = torch.stack(losses)
+            # a dry run's one client stands for all of them
+            losses = torch.stack(losses + losses[-1:] * (n_clients
+                                                         - len(losses)))
             dsize = torch.full((n_clients,), float(pcb), device=losses.device)
             stack = agg.hierarchical_round(
                 stack, losses, dsize, assignment.to(losses.device),
@@ -252,9 +250,9 @@ def build_train_step(arch: str, shape: InputShape, mesh=None, *,
         _check_one_client_a_rank(mesh, n_clients)
         groups = spmd.make_cluster_groups(clusters)
 
-        def train_step(stack, batch, round_idx):
+        def train_step(stack, batch, round_idx, *, trips=None):
             new_p, loss = local(tree_map(lambda x: x[0], stack),
-                                {k: x[0] for k, x in batch.items()})
+                                {k: x[0] for k, x in batch.items()}, trips)
             out = spmd.hierarchical_agg_shard(
                 new_p, 1.0 / loss.clamp_min(1e-8), float(pcb),
                 do_global(round_idx), groups=groups)
@@ -263,13 +261,54 @@ def build_train_step(arch: str, shape: InputShape, mesh=None, *,
 
     return StepBundle(
         fn=train_step,
-        in_specs=(params_structs, batch_structs, round_struct),
+        in_specs=in_specs,
         in_shardings=in_sh, out_shardings=out_sh,
         meta=dict(arch=arch, shape=shape.name, mode="train",
                   n_clients=n_clients, clusters=clusters, pcb=pcb,
                   accum=accum, micro=micro, dtype=prof.param_dtype,
                   use_kernels=use_kernels,
                   form="one-device" if mesh is None else "mesh"))
+
+
+def _train_specs(cfg, prof, mesh, c_axes, n_clients: int, pcb: int,
+                 seq_len: int):
+    """The train step's ``in_specs`` (the (C, ...) stack, the batch, the
+    round) and its in/out placements on ``mesh`` (Nones without one)."""
+    base_params = _param_structs(cfg)
+    params_structs = _stack_structs(base_params, n_clients)
+    text_len = _text_len(cfg, seq_len)
+    batch_structs = {k: _spec((n_clients, pcb, text_len), torch.int32)
+                     for k in ("tokens", "labels")}
+    batch_structs.update(_frontend_specs(cfg, (n_clients, pcb),
+                                         getattr(torch, cfg.dtype)))
+    in_specs = (params_structs, batch_structs, _spec((), torch.int32))
+    if mesh is None:
+        return in_specs, (None, None, None), (None, None)
+    fsdp = "data" if prof.client_axis == "pod" else None
+    pspec = rules.tree_param_specs(base_params, mesh, tp_axes="model",
+                                   fsdp_axes=fsdp)
+    params_sh = rules.tree_shardings(_stacked_specs(pspec, c_axes), mesh)
+    batch_axis = None if prof.client_axis == "data" else "data"
+    batch_sh = {k: rules.placements(rules.P(c_axes, batch_axis), mesh)
+                for k in batch_structs}
+    return (in_specs,
+            (params_sh, batch_sh, rules.placements(rules.P(), mesh)),
+            (params_sh, rules.placements(rules.P(), mesh)))
+
+
+def train_placements(arch: str, shape: InputShape, mesh, *,
+                     cfg: Optional[ModelConfig] = None,
+                     profile: Optional[RunProfile] = None):
+    """``(in_specs, in_shardings)`` of the train step on ``mesh`` without
+    building the step: the shapes and placements of a layout the step
+    itself refuses (a "model" axis above 1: no tensor parallelism)."""
+    cfg, prof = _resolve(arch, cfg, profile)
+    n_clients = num_clients_for(mesh, prof.client_axis)
+    c_axes = client_axes_for(mesh, prof.client_axis)
+    in_specs, in_sh, _ = _train_specs(cfg, prof, mesh, c_axes, n_clients,
+                                      shape.global_batch // n_clients,
+                                      shape.seq_len)
+    return in_specs, in_sh
 
 
 def _stacked_specs(pspec, c_axes):

@@ -25,8 +25,11 @@ front ends train on 0.1 * normal frames (whisper-large-v3) or patch
 embeddings (pixtral-12b, whose text then takes the sequence less its
 patches), drawn each round.
 ``--smoke`` takes the config's ``smoke_variant`` and a 64-token sequence,
-as ``launch/serve.py`` does.  A dry run (lower and compile, the
-reference's ``--dry-run``) is ROADMAP queue 1, item 16b.
+as ``launch/serve.py`` does.  ``--dry-run`` counts the round step at the
+arguments given on fake tensors (`launch/dryrun.py`: nothing is run or
+allocated on a device), prints the per-device peak, the memory analysis
+and the flops and bytes accessed, as the reference's ``--dry-run``
+prints its compiled step's, and exits.
 """
 from __future__ import annotations
 
@@ -207,12 +210,19 @@ def main(argv=None) -> None:
     ap.add_argument("--smoke", action="store_true",
                     help="the config's reduced smoke_variant, 64 tokens")
     ap.add_argument("--dry-run", action="store_true",
-                    help="lower and compile only (not in the port yet)")
+                    help="count the round step on fake tensors, print the "
+                         "analyses, exit")
     args = ap.parse_args(argv)
     if args.dry_run:
-        raise NotImplementedError(
-            "--dry-run (lower and compile the round step, the reference's "
-            "hlo_analysis): ROADMAP queue 1, item 16b")
+        from repro_torch.launch import dryrun
+        rec = dryrun.run_one(
+            args.arch, args.shape, "one", smoke=args.smoke,
+            clients=args.clients, clusters=args.clusters,
+            global_batch=args.global_batch,
+            rounds_per_global=args.rounds_per_global,
+            seq_len=SMOKE_SEQ if args.smoke else SHAPES[args.shape].seq_len)
+        dryrun.print_analyses(rec)
+        return
     res = train(args.arch, shape=args.shape, rounds=args.rounds,
                 clusters=args.clusters,
                 rounds_per_global=args.rounds_per_global, lr=args.lr,
