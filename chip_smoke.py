@@ -50,14 +50,21 @@ embeddings before 7168 text tokens, 32 new tokens), with flash launches
 counted by shape and stage, prefill + decode against a longer prefill in
 bf16 and on an f32 depth cut, and profiles of the encode, a prefill and
 decode steps (flash at their shapes: rows 4e-4g of ``kernels_vs_plain``,
-against SDPA), trains the full gemma2-2b through
+against SDPA), runs tensor parallelism over "model" (phase ``tp``):
+qwen2-72b at full width with its depth cut to 16 layers served on a (1,
+2) mesh (a prefill of B = 2 x 4096 tokens, 16 greedy decode steps) and
+gemma2-2b at full width, 12 layers, trained one round on a (2, 2) mesh
+(2 clients of TP 2), the ranks spawned processes sharing the card over
+gloo, each against the same weights on one rank without a mesh, with
+flash at one rank's heads (row 4h), trains the full gemma2-2b through
 ``repro_torch.launch.train.train`` (4 clients stacked on the card, K = 2,
 4096-token sequences, 3 rounds with stage-2 in round 2; round 1's stage-1
 held against the plain version on its own stack and timed; one stage-1
 launch a round; rounds 1-2 again with the kernels off), then mamba2-1.3b,
-recurrentgemma-2b and whisper-large-v3 the same way for 2 rounds (round 1
-again with the kernels off; one stage-1 launch a round for each dtype of
-their leaves), dry-runs each of those serves and trainings on the host
+recurrentgemma-2b and whisper-large-v3 (their depth cut: 24, 12 and 16 +
+16 layers) the same way for 2 rounds (round 1 again with the kernels off; one
+stage-1 launch a round for each dtype of their leaves), dry-runs each of
+those serves and trainings and the tp runs on the host
 (``repro_torch.launch.dryrun``, fake tensors, in worker processes that
 count while the card trains) and holds its predicted peak within 0.5-2x
 of the measured one, and prints one JSON line per phase.  The line
@@ -144,6 +151,13 @@ REC_TRAIN_ROUNDS, REC_TRAIN_RERUN = 2, 1
 # row of 4096 tokens and 1500 frames a client; the frames 0.1 * normal,
 # drawn each round by launch/train.py)
 FRONTEND_TRAIN_ARCHS = ("whisper-large-v3",)
+# the one training run cut in depth, to keep the script under 1,080 s
+# (nine tenths of the 1,200 s limit) with the tp phase: at full depth the
+# script took 908-1,011 s without it, and the phase takes 105-141 s, so up
+# to 1,152 s; whisper-large-v3's phase, the longest (177 s at 32 + 32
+# layers), takes 83 s at 16 + 16, which leaves up to 1,058 s.  The other
+# training runs keep their full depth
+TRAIN_LAYERS = {"whisper-large-v3": 16}
 # kernels on vs off, round 2's mean client CE: the two runs' round-1
 # stage-1 outputs may differ by one bf16 ulp (2^-8 relative) in some
 # elements, and round 2's forward rounds every activation to bf16 (8 bits)
@@ -2396,6 +2410,57 @@ MESH_METHODS = ("fedhc", "fedspace", "fedhc-async")
 MESH_LOSS_RTOL, MESH_LOSS_ATOL = 1e-4, 1e-5   # the reference's sharded bar
 MESH_RANKS = 2                # ranks sharing the one card (over gloo)
 MESH_TIMEOUT_S = 600
+# tensor parallelism over "model" (phase tp): qwen2-72b at full width
+# (d_model 8192, 64 q / 8 kv heads of 128, d_ff 29,568, vocab 152,064,
+# bf16, int8 KV cache as its profile) with its depth cut 80 -> 16 (about
+# 33 GB whole, 16.5 GB a rank), served on a (1, 2) mesh of two spawned
+# ranks that share the card over gloo: a prefill of B = 2 x 4096 tokens,
+# then 16 greedy decode steps, held against the same weights on one rank
+# without a mesh: the prefill's last-position logits and, fed the one-rank
+# run's tokens, the 16 decode steps' logits at CONSIST_TOL_BF16, the first
+# greedy token equal, the decoded tokens that agree counted (each that
+# differs printed with the one-rank run's top-2 gap there)
+TP_ARCH, TP_LAYERS, TP_MESH = "qwen2-72b", 16, (1, 2)
+TP_BATCH, TP_PROMPT, TP_DECODE, TP_SEED = 2, 4096, 16, 7
+# the caches serve_batch sizes on the mesh: the prompt and the new tokens,
+# rounded up to whole blocks of slots a rank
+# gemma2-2b trains one round on a (2, 2) mesh: 2 clients of TP 2, K = 1,
+# 2 rows of 4096 tokens a client (2 microbatches), at full width with its
+# depth cut 26 -> 12: four ranks share the card's 80 GB (the dry run
+# predicts 26.1 GB a rank at 26 layers, 15.2 GB at 12); held against the
+# one-device step on the same two-client stack, each leaf within one bf16
+# ulp of the leaf's largest magnitude (the one-device update printed in
+# the same ulps beside it), the mean client CE at TP_CE_RTOL
+TP_CACHE = -(-(TP_PROMPT + TP_DECODE + 1) // TP_MESH[1]) * TP_MESH[1]
+TP_TRAIN_ARCH, TP_TRAIN_LAYERS, TP_TRAIN_MESH = "gemma2-2b", 12, (2, 2)
+TP_TRAIN_BATCH, TP_TRAIN_SEQ = 4, 4096
+# the zero-initialized norm scales are, after one round, lr times a bf16
+# gradient: a sum over the 8192 tokens of products that largely cancel,
+# which the mesh program rounds in another order (the activation
+# gradient arrives as two bf16 partials all-reduced), so they are held at
+# the CPU tests' bf16 bar (tests/test_torch_train.py: 2^-5 of the leaf's
+# largest magnitude); at smoke size on the CPU they land 2-3 bf16 ulps
+# apart
+TP_NORM_ATOL_FRAC = 2 ** -5
+# the mean client CE of the first round, from the same weights: the two
+# forwards differ only in bf16 rounding order, which the serve check sees
+# as logit errors of rms 0.018 through 16 layers of qwen2-72b; over the
+# 8192 tokens of a client that moves the mean CE by about
+# 0.018 / sqrt(8192) = 2e-4, and 1e-3 relative is 0.013 at CE 12.8
+TP_CE_RTOL = 1e-3
+# the one-device round's update of a weight leaf is 0.03-1.2 bf16 ulps of
+# the leaf's largest magnitude, so the one-ulp bar alone would pass a
+# wrong gradient; the two rounds' updates (new - start) are held too, by
+# their relative L2 difference: a stored weight is the bf16 rounding of
+# w - lr g, and a gradient that differs by its rounding order (0.3-0.6%
+# relative, as the norm scales show) flips that rounding by one ulp near
+# its midpoints: 0.065-0.128 of the update on the H100 (this round, 12
+# layers); a gradient off by a factor of 2 gives 1.0, a 3% error ~0.25
+TP_UPDATE_RTOL = 0.25
+TP_TIMEOUT_S = 900
+# row 4h: the bf16 flash kernel at qwen2-72b's heads on one rank of the
+# (1, 2) mesh: B, Hq, Hkv, S, D (causal, no window or soft-cap)
+FLASH_TP = (TP_BATCH, 32, 4, TP_PROMPT, 128)
 
 
 def mesh_scenarios() -> dict:
@@ -2437,23 +2502,15 @@ def mesh_record(res, launches, reads, steps: int) -> dict:
             "host_reads": reads}
 
 
-def mesh_rank(rank: int, world: int, store: str, out: str) -> None:
-    """One rank of the two that share the card: a gloo process group (NCCL
-    refuses two ranks on one device) over CUDA tensors, the client mesh,
-    and each of :func:`mesh_scenarios` through ``api.run``; the records
-    go to ``out`` as JSON.  Runs in a spawned process."""
-    import datetime
-    sys.path.insert(0, str(ROOT / "src"))
-    import torch
-    import torch.distributed as dist
+def mesh_rank(rank: int, world: int, tmp: str) -> None:
+    """One rank of the two that share the card (`launch/mesh.spawn_ranks`:
+    a gloo process group, NCCL refusing two ranks on one device, over CUDA
+    tensors): the client mesh, and each of :func:`mesh_scenarios` through
+    ``api.run``; the records go to ``tmp/mesh_rank{rank}.json``."""
     from repro_torch import api
     from repro_torch.core import engine
     from repro_torch.kernels import ops
     from repro_torch.launch import mesh as mesh_lib
-    torch.cuda.set_device(0)
-    dist.init_process_group(
-        "gloo", init_method=f"file://{store}", rank=rank, world_size=world,
-        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
     mesh = mesh_lib.make_client_mesh(0, device_type="cuda")
     records = {}
     for name, sc in mesh_scenarios().items():
@@ -2463,8 +2520,7 @@ def mesh_rank(rank: int, world: int, store: str, out: str) -> None:
         records[name] = mesh_record(res, dict(ops.LAUNCHES),
                                     dict(engine.HOST_READS),
                                     sc.train.rounds)
-    dist.destroy_process_group()
-    with open(out, "w") as f:
+    with open(Path(tmp) / f"mesh_rank{rank}.json", "w") as f:
         json.dump(records, f)
 
 
@@ -2496,7 +2552,6 @@ def mesh_phase(tmp: Path) -> dict:
     launch a round or event on its C/2 rows, one drift check a round);
     per rank s a round or event, peak MB and the bytes all-reduced by a
     stage-1.  A failing rank fails the phase."""
-    import multiprocessing
     import torch
     import torch.distributed as dist
     from repro_torch import api
@@ -2552,29 +2607,13 @@ def mesh_phase(tmp: Path) -> dict:
     torch.cuda.empty_cache()
 
     # ---- two ranks on the one card over gloo ---------------------------
-    store = tmp / "mesh_gloo.store"
-    store.unlink(missing_ok=True)
     outs = [tmp / f"mesh_rank{r}.json" for r in range(MESH_RANKS)]
     for path in outs:
         path.unlink(missing_ok=True)
-    ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=mesh_rank,
-                         args=(r, MESH_RANKS, str(store), str(outs[r])))
-             for r in range(MESH_RANKS)]
     t0 = time.perf_counter()
-    for p in procs:
-        p.start()
-    try:
-        for p in procs:
-            p.join(MESH_TIMEOUT_S)
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.terminate()
-                p.join(30)
+    mesh_lib.spawn_ranks(mesh_rank, MESH_RANKS, (str(tmp),),
+                         device_type="cuda", timeout_s=MESH_TIMEOUT_S)
     wall_s = time.perf_counter() - t0
-    codes = [p.exitcode for p in procs]
-    assert codes == [0] * MESH_RANKS, f"mesh ranks exited {codes}"
     ranks = [json.loads(path.read_text()) for path in outs]
 
     k, p_total = 4, sum(lenet_leaf_sizes())
@@ -2624,6 +2663,479 @@ def mesh_phase(tmp: Path) -> dict:
                                  "mesh": ranks[0][name]["history"]}
                           for name in scs},
             "ranks_wall_s": wall_s, "backend": "gloo over CUDA tensors"}
+
+
+def tp_config(arch: str, layers: int):
+    """The config (depth cut, the profile's dtype) and profile of a tp
+    run."""
+    from repro_torch.configs import get_config, get_profile, replace
+    prof = get_profile(arch)
+    return replace(get_config(arch), num_layers=layers,
+                   dtype=prof.param_dtype), prof
+
+
+def tp_out(tmp: str, tag: str, rank: int) -> Path:
+    """Where rank ``rank`` of the spawned ranks ``tag`` writes its
+    record (its tensors beside it, under the same name + ``.pt``)."""
+    return Path(tmp) / f"{tag}_rank{rank}.json"
+
+
+def tp_one_serve(rank: int, world: int, tmp: str, tag: str) -> None:
+    """The qwen2-72b serve on one rank without a mesh: the same weights
+    and prompts (TP_SEED), ``serve_batch`` with the counts set to 0 just
+    before it, then :func:`tp_steps` fed its own greedy tokens; its
+    record, the tokens in it, to :func:`tp_out`."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_leaves
+    cfg, prof = tp_config(TP_ARCH, TP_LAYERS)
+    g = torch.Generator(device=DEV).manual_seed(TP_SEED)
+    params = init_params(cfg, g)
+    prompts = torch.randint(0, cfg.vocab_size, (TP_BATCH, TP_PROMPT),
+                            generator=g, device=DEV)
+    serve = dict(dispatch=prof.moe_dispatch, quantized_cache=prof.kv_int8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    res = serve_batch(cfg, params, prompts, TP_DECODE + 1, device=DEV,
+                      **serve)
+    out = tp_out(tmp, tag, rank)
+    rec = tp_serve_record(res, dict(ops.LAUNCHES), {})
+    rec.update(tp_steps(cfg, params, prompts, serve, None, out,
+                        res.tokens.to(DEV)))
+    rec["param_bytes"] = sum(x.numel() * x.element_size()
+                             for x in tree_leaves(params))
+    out.write_text(json.dumps(rec))
+
+
+def tp_one_train(rank: int, world: int, tmp: str, tag: str,
+                 want: str) -> None:
+    """The gemma2-2b round on one device: the one-device step over the
+    two-client stack (every client the model TP_SEED draws), the kernels
+    on; each client's new tree to ``want + ".{c}.pt"``, the record to
+    :func:`tp_out`."""
+    import torch
+    from repro_torch.core import aggregation
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_lib
+    from repro_torch.tree import tree_map
+    cfg, prof = tp_config(TP_TRAIN_ARCH, TP_TRAIN_LAYERS)
+    bundle = tp_train_bundle(cfg, prof, None)
+    stack = aggregation.broadcast_global(
+        train_lib.init_model(cfg, TP_SEED, DEV), 2)
+    batch = tp_train_batch()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    stack, loss = bundle.fn(stack, batch, 0)
+    torch.cuda.synchronize()
+    rec = {"s": time.perf_counter() - t0, "loss": float(loss),
+           "peak_device_mem_mb": torch.cuda.max_memory_allocated() / 1e6,
+           "launches": dict(ops.LAUNCHES)}
+    for c in range(2):
+        torch.save(tree_map(lambda x: x[c].cpu(), stack), f"{want}.{c}.pt")
+    tp_out(tmp, tag, rank).write_text(json.dumps(rec))
+
+
+def tp_serve_rank(rank: int, world: int, tmp: str, tag: str,
+                  one: str) -> None:
+    """One rank of the qwen2-72b (1, 2) serve: its blocks of the model
+    (the one-rank run's weights and prompts, drawn from TP_SEED;
+    `launch/mesh.local_blocks`), then ``serve_batch`` over the mesh
+    program with the counts set to 0 just before it; then
+    :func:`tp_steps` fed the one-rank run's greedy tokens (its record
+    ``one``).  Writes its record to :func:`tp_out`."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import init_params
+    from repro_torch.sharding import parallel as P
+    from repro_torch.tree import tree_leaves
+    mesh = mesh_lib.make_mesh(TP_MESH, device_type="cuda")
+    cfg, prof = tp_config(TP_ARCH, TP_LAYERS)
+    tp = steps.mesh_program(mesh, cfg, prof)
+    gen = torch.Generator(device=DEV).manual_seed(TP_SEED)
+    params, _ = mesh_lib.local_blocks(lambda: init_params(cfg, gen),
+                                      steps.param_specs(cfg, prof, mesh),
+                                      mesh)
+    prompts = torch.randint(0, cfg.vocab_size, (TP_BATCH, TP_PROMPT),
+                            generator=gen, device=DEV)
+    serve = dict(dispatch=prof.moe_dispatch, quantized_cache=prof.kv_int8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    P.reset_traffic()
+    res = serve_batch(cfg, params, prompts, TP_DECODE + 1, device=DEV,
+                      tp=tp, **serve)
+    launches = dict(ops.LAUNCHES)
+    traffic = P.traffic()
+    out = tp_out(tmp, tag, rank)
+    rec = tp_serve_record(res, launches, traffic)
+    tokens = torch.tensor(json.loads(Path(one).read_text())["tokens"],
+                          device=DEV)
+    rec.update(tp_steps(cfg, params, prompts, serve, tp, out, tokens))
+    rec.update(rank=rank, model_rank=tp.rank,
+               param_bytes=sum(x.numel() * x.element_size()
+                               for x in tree_leaves(params)))
+    out.write_text(json.dumps(rec))
+
+
+def tp_serve_record(res, launches, traffic) -> dict:
+    return {"tokens": res.tokens.tolist(), "prefill_s": res.prefill_s,
+            "decode_s": res.decode_s, "decode_s_per_step":
+            res.decode_s / TP_DECODE,
+            "decode_tokens_per_s": res.decode_tokens_per_s,
+            "peak_device_mem_mb": res.peak_device_mem_mb,
+            "cache_bytes": res.cache_bytes, "launches": launches,
+            "serve_bytes_by_axis": traffic}
+
+
+def tp_steps(cfg, params, prompts, serve, tp, out: Path, tokens) -> dict:
+    """A prefill at TP_CACHE slots, then TP_DECODE decode steps fed
+    ``tokens`` (the one-rank run's greedy tokens: decode step i feeds
+    column i - 1 at position TP_PROMPT + i - 1, as ``serve_batch`` does),
+    each step's collectives timed (`parallel.timed`: the card
+    synchronized around each).  Returns the prefill's and the first
+    decode step's seconds, collective seconds and bytes by axis and
+    gloo share; each step's logits (the prefill's last position, then
+    each decode step's; this rank's vocab slice, every column with ``tp``
+    None) go to ``out + ".pt"`` as one (B, 1 + TP_DECODE, V) f32
+    tensor."""
+    import torch
+    from repro_torch.models import decode_step
+    from repro_torch.models.model import prefill_last
+    from repro_torch.sharding import parallel as P
+    timed, rows = {}, []
+    with torch.inference_mode():
+        for i in range(TP_DECODE + 1):
+            P.reset_traffic()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with P.timed() as secs:
+                if i == 0:
+                    logits, caches = prefill_last(
+                        cfg, params, {"tokens": prompts}, TP_CACHE, tp=tp,
+                        **serve)
+                else:
+                    logits, caches = decode_step(
+                        cfg, params, caches, tokens[:, i - 1:i],
+                        TP_PROMPT + i - 1, tp=tp,
+                        dispatch=serve["dispatch"])
+                    logits = logits[:, 0]
+                torch.cuda.synchronize()
+                s = time.perf_counter() - t0
+                coll = dict(secs)
+            if i < 2:
+                timed["decode" if i else "prefill"] = {
+                    "s": s, "collective_s": coll,
+                    "gloo_share": sum(coll.values()) / s,
+                    "bytes_by_axis": P.traffic()}
+            rows.append(logits.float().cpu())
+        del caches
+    torch.save(torch.stack(rows, 1), f"{out}.pt")
+    return {"timed_steps": timed}
+
+
+def tp_train_rank(rank: int, world: int, tmp: str, tag: str,
+                  want: str) -> None:
+    """One rank of the gemma2-2b (2, 2) round: its client's blocks of the
+    one model every client starts from (TP_SEED;
+    `launch/mesh.local_blocks`), its client's rows of the round's batch,
+    one round of the mesh form of the train step (collectives timed),
+    then its new blocks against its client's row of the one-device round
+    (``want``, a saved tree a client), each leaf in bf16 ulps of the
+    leaf's largest magnitude: the distance between the two, the
+    one-device round's update (new - start) beside it, and the distance
+    over the update's norm (the two updates' relative difference)."""
+    import torch
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as train_lib
+    from repro_torch.sharding import parallel as P
+    from repro_torch.sharding import rules
+    from repro_torch.tree import tree_leaves, tree_map
+    mesh = mesh_lib.make_mesh(TP_TRAIN_MESH, device_type="cuda")
+    cfg, prof = tp_config(TP_TRAIN_ARCH, TP_TRAIN_LAYERS)
+    bundle = tp_train_bundle(cfg, prof, mesh)
+    specs = steps.param_specs(cfg, prof, mesh)
+    local, _ = mesh_lib.local_blocks(
+        lambda: train_lib.init_model(cfg, TP_SEED, DEV), specs, mesh)
+    start = [x.cpu() for x in tree_leaves(local)]
+    stack = tree_map(lambda x: x[None], local)
+    del local
+    client = mesh.get_local_rank("data")
+    batch = {k: v[client:client + 1] for k, v in tp_train_batch().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    P.reset_traffic()
+    t0 = time.perf_counter()
+    with P.timed() as secs:
+        stack, loss = bundle.fn(stack, batch, 0)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        coll = dict(secs)
+    peak = torch.cuda.max_memory_allocated() / 1e6
+    rec = {"rank": rank, "client": client, "s": s, "loss": float(loss),
+           "collective_s": coll, "gloo_share": sum(coll.values()) / s,
+           "bytes_by_axis": P.traffic(), "peak_device_mem_mb": peak,
+           "rank_accum": bundle.meta["rank_accum"]}
+    ref = torch.load(f"{want}.{client}.pt", mmap=True)
+    ref = rules.local_shard(ref, specs, mesh)
+    ulps, update_ulps, update_rel, finite = {}, {}, {}, True
+    for (path, got), w, w0 in zip(leaf_paths(stack), tree_leaves(ref),
+                                  start):
+        g, w, w0 = got[0].float(), w.to(DEV).float(), w0.to(DEV).float()
+        finite = finite and bool(torch.isfinite(g).all())
+        scale = torch.maximum(g.abs().max(), w.abs().max())
+        ulp = float(bf16_ulp(scale.reshape(1))[0])
+        gap = float((g - w).abs().max())
+        ulps[path] = gap / ulp
+        w0 = w - w0                              # the one-device update
+        update_ulps[path] = float(w0.abs().max()) / ulp
+        update_rel[path] = float((g - w).norm() / w0.norm())
+        if path.endswith("/scale"):
+            assert gap <= TP_NORM_ATOL_FRAC * float(scale), (path,
+                                                             ulps[path])
+        del g, w, w0
+    weights = [k for k in ulps if not k.endswith("/scale")]
+    norms = [k for k in ulps if k.endswith("/scale")]
+    rec.update(max_ulps_of_leaf_scale=max(ulps[k] for k in weights),
+               norm_scales_max_ulps=max(ulps[k] for k in norms),
+               min_update_ulps=min(update_ulps[k] for k in weights),
+               max_update_rel_err=max(update_rel[k] for k in weights),
+               finite=finite, ulps_by_leaf=ulps,
+               update_ulps_by_leaf=update_ulps,
+               update_rel_err_by_leaf=update_rel)
+    tp_out(tmp, tag, rank).write_text(json.dumps(rec))
+
+
+def leaf_paths(tree, prefix=""):
+    """(path, leaf) of each leaf of a tree of dicts and tuples, in leaf
+    order."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in leaf_paths(v, f"{prefix}/{k}")]
+    if isinstance(tree, tuple):
+        return [x for i, v in enumerate(tree)
+                for x in leaf_paths(v, f"{prefix}/{i}")]
+    return [(prefix, tree)]
+
+
+def tp_train_bundle(cfg, prof, mesh):
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import steps
+    shape = InputShape("tp_train", TP_TRAIN_SEQ, TP_TRAIN_BATCH, "train")
+    kw = dict(num_clusters=1, lr=0.01, rounds_per_global=2, cfg=cfg,
+              profile=prof)
+    if mesh is None:
+        kw.update(num_clients=2, use_kernels=True)
+    return steps.build_train_step(TP_TRAIN_ARCH, shape, mesh, **kw)
+
+
+def tp_train_batch() -> dict:
+    """The round's (2, 2, 4096) batch, as ``launch/train.py`` draws it."""
+    import torch
+    from repro_torch.data.synthetic import synthetic_lm_batches
+    gen = torch.Generator(device=DEV).manual_seed(TP_SEED + 1)
+    t = synthetic_lm_batches(gen, 2, TP_TRAIN_SEQ, TP_TRAIN_BATCH // 2)
+    return {"tokens": t[..., :-1], "labels": t[..., 1:]}
+
+
+def tp_spawn(target, world: int, tmp: Path, tag: str, *extra) -> list:
+    """``world`` ranks of ``target`` spawned by `launch/mesh.spawn_ranks`
+    (ranks that share the card run gloo), with expandable allocator
+    segments (four ranks share the card: no segment left half used);
+    each rank's record back.  A failing rank fails the phase."""
+    import os
+    from repro_torch.launch import mesh as mesh_lib
+    outs = [tp_out(tmp, tag, r) for r in range(world)]
+    for path in outs:
+        path.unlink(missing_ok=True)
+    key = "PYTORCH_CUDA_ALLOC_CONF"
+    old = os.environ.get(key)
+    os.environ[key] = "expandable_segments:True"     # the ranks inherit it
+    try:
+        mesh_lib.spawn_ranks(target, world, (str(tmp), tag) + extra,
+                             device_type="cuda", timeout_s=TP_TIMEOUT_S)
+    finally:
+        if old is None:
+            os.environ.pop(key)
+        else:
+            os.environ[key] = old
+    return [json.loads(path.read_text()) for path in outs]
+
+
+def check_flash_tp(gen) -> dict:
+    """Row 4h: the bf16 flash kernel at one qwen2-72b rank's heads on the
+    (1, 2) mesh (B = 2, Hq = 32 over Hkv = 4, S = 4096, D = 128, causal),
+    held against the plain version (a kv head at a time) at gemma2's
+    layer bars and timed beside SDPA (``is_causal``, ``enable_gqa``: the
+    same function)."""
+    import torch
+    import torch.nn.functional as F
+    b, hq, hkv, s, d = FLASH_TP
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device=DEV)
+               .bfloat16().transpose(1, 2) for h in (hq, hkv, hkv))
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+    row = bf16_flash_layer(q, k, v, 0, 0.0, sdpa, plain=plain_by_kv_heads)
+    row.update(tol={"rtol": FLASH_LAYER_RTOL_BF16,
+                    "atol": FLASH_LAYER_ATOL_BF16},
+               library="F.scaled_dot_product_attention (is_causal, "
+                       "enable_gqa): the same function",
+               shape=f"one qwen2-72b layer on one rank of a (1, 2) mesh: "
+                     f"B={b}, Hq={hq}, Hkv={hkv}, S={s}, D={d}, bf16, "
+                     f"causal, no soft-cap")
+    del q, k, v
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def tp_phase(smi: str, tmp: Path, gen) -> tuple:
+    """Tensor parallelism over "model" and FSDP over "data" on the card
+    (`sharding/parallel.py`): qwen2-72b served on a (1, 2) mesh and
+    gemma2-2b trained one round on a (2, 2) mesh, each against the same
+    weights on one rank without a mesh, the ranks spawned processes
+    sharing the card over gloo; then row 4h (flash at qwen2-72b's heads
+    on one rank).  The serve is held by the prefill's last-position
+    logits and, fed the one-rank run's greedy tokens, every decode
+    step's (the int8 cache's writes on the rank that owns a slot, the
+    log-sum-exp merge over "model"), and by its own greedy tokens, each
+    that differs printed with the one-rank run's top-2 gap there.
+    Returns the phase line, row 4h and the flash launches a tp rank made
+    on the serve path."""
+    import torch
+    tmp = tmp.resolve()
+    t_phase = time.perf_counter()
+
+    # ---- qwen2-72b, one rank, no mesh: the same weights and prompts (a
+    # spawned process, so that its memory goes with it) ------------------
+    cfg, prof = tp_config(TP_ARCH, TP_LAYERS)
+    one_rec = tp_spawn(tp_one_serve, 1, tmp, "tp_one")[0]
+    one_path = tp_out(tmp, "tp_one", 0)
+
+    # ---- qwen2-72b on the (1, 2) mesh -------------------------------------
+    world = TP_MESH[0] * TP_MESH[1]
+    t0 = time.perf_counter()
+    ranks = tp_spawn(tp_serve_rank, world, tmp, "tp_serve", str(one_path))
+    serve_wall = time.perf_counter() - t0
+    # (B, 1 + TP_DECODE, V): the prefill's last position, then each
+    # decode step fed the one-rank run's tokens
+    want = torch.load(f"{one_path}.pt")
+    got = torch.cat([torch.load(f"{tp_out(tmp, 'tp_serve', r)}.pt")
+                     for r in range(world)], -1)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    got, want = got[..., :cfg.vocab_size], want[..., :cfg.vocab_size]
+    assert torch.isfinite(got).all()
+    diff = (got - want).abs()
+    step_err = diff.amax(dim=(0, 2))
+    logits = {"max_abs_err": float(step_err[0]),
+              "rms_err": float(diff[:, 0].square().mean().sqrt()),
+              "logit_rms": float(want[:, 0].square().mean().sqrt()),
+              "argmax_agree": float((got[:, 0].argmax(-1)
+                                     == want[:, 0].argmax(-1))
+                                    .float().mean()),
+              "tol": CONSIST_TOL_BF16}
+    decode = {"max_abs_err": float(step_err[1:].max()),
+              "max_abs_err_by_step": step_err[1:].tolist(),
+              "rms_err": float(diff[:, 1:].square().mean().sqrt()),
+              "logit_rms": float(want[:, 1:].square().mean().sqrt()),
+              "argmax_agree": float((got[:, 1:].argmax(-1)
+                                     == want[:, 1:].argmax(-1))
+                                    .float().mean()),
+              "tol": CONSIST_TOL_BF16}
+    assert logits["max_abs_err"] <= CONSIST_TOL_BF16, logits
+    assert decode["max_abs_err"] <= CONSIST_TOL_BF16, decode
+    toks = torch.tensor(one_rec["tokens"])
+    for r in ranks:
+        assert r["tokens"] == ranks[0]["tokens"], "ranks disagree"
+        assert r["launches"]["flash_attention"] == TP_LAYERS, r["launches"]
+    mesh_toks = torch.tensor(ranks[0]["tokens"])
+    assert torch.equal(mesh_toks[:, 0], toks[:, 0]), (mesh_toks, toks)
+    agree = (mesh_toks == toks)
+    first_off = [int(row.logical_not().nonzero()[0]) if not row.all()
+                 else toks.shape[1] for row in agree]
+    # the one-rank run's top-2 gap at each token it picked (its logits
+    # row i gives token i), and the mesh's margin between the two picks
+    # (the same history where the token is its row's first difference)
+    top2 = want.topk(2, dim=-1).values
+    gaps = top2[..., 0] - top2[..., 1]
+    differs = [{"row": b, "token": i, "first_in_row": i == first_off[b],
+                "one_rank_top2_gap": float(gaps[b, i]),
+                "mesh_margin": float(got[b, i, mesh_toks[b, i]]
+                                     - got[b, i, toks[b, i]])}
+               for b, i in agree.logical_not().nonzero().tolist()]
+    replay = int((want.argmax(-1) == toks).sum())
+    # where a row first parts, the two runs had the same history: the
+    # mesh can pick another token only where one rank's top two logits
+    # lie within twice the logits' distance
+    for d in differs:
+        if d["first_in_row"]:
+            assert d["one_rank_top2_gap"] <= 2 * decode["max_abs_err"], d
+    assert one_rec["launches"]["flash_attention"] == TP_LAYERS
+
+    # ---- gemma2-2b, one round: the one-device step on the two-client
+    # stack, then the (2, 2) mesh ------------------------------------------
+    want_path = tmp / "tp_train_one"
+    one_train = tp_spawn(tp_one_train, 1, tmp, "tp_train_one_run",
+                         str(want_path))[0]
+    twin = TP_TRAIN_MESH[0] * TP_TRAIN_MESH[1]
+    t0 = time.perf_counter()
+    trank = tp_spawn(tp_train_rank, twin, tmp, "tp_train", str(want_path))
+    train_wall = time.perf_counter() - t0
+    for r in trank:
+        assert r["finite"], r
+        assert abs(r["loss"] - one_train["loss"]) <= TP_CE_RTOL * abs(
+            one_train["loss"]), (r["loss"], one_train["loss"])
+        assert r["max_ulps_of_leaf_scale"] <= TRAIN_STACK_ULPS, r
+        assert r["max_update_rel_err"] <= TP_UPDATE_RTOL, r
+    for c in range(2):
+        want_path.with_name(f"tp_train_one.{c}.pt").unlink()
+
+    flash = check_flash_tp(gen)
+    line = {
+        "phase": "tp", "nvidia_smi": smi,
+        "backend": "gloo over CUDA tensors (ranks share the card)",
+        "serve": {"arch": TP_ARCH, "layers": TP_LAYERS,
+                  "reduced": f"depth 80 -> {TP_LAYERS}",
+                  "mesh": {"data": TP_MESH[0], "model": TP_MESH[1]},
+                  "batch": TP_BATCH, "prompt": TP_PROMPT,
+                  "decode_steps": TP_DECODE, "kv_int8": prof.kv_int8,
+                  "logits_vs_one_rank": logits,
+                  "decode_logits_vs_one_rank": decode,
+                  "first_token_equal": True,
+                  "decoded_tokens_agree": int(agree.sum()),
+                  "decoded_tokens": agree.numel(),
+                  "first_disagreement_at": first_off,
+                  "tokens_that_differ": differs,
+                  "one_rank_replay_agrees": replay,
+                  "one_rank": one_rec, "ranks": ranks,
+                  "ranks_wall_s": serve_wall},
+        "train": {"arch": TP_TRAIN_ARCH, "layers": TP_TRAIN_LAYERS,
+                  "reduced": f"depth 26 -> {TP_TRAIN_LAYERS}",
+                  "mesh": {"data": TP_TRAIN_MESH[0],
+                           "model": TP_TRAIN_MESH[1]},
+                  "clients": 2, "clusters": 1, "seq": TP_TRAIN_SEQ,
+                  "global_batch": TP_TRAIN_BATCH,
+                  "stack_ulps_bar": {
+                      "weights": f"{TRAIN_STACK_ULPS} bf16 ulp of the "
+                                 f"leaf's largest magnitude",
+                      "norm_scales": f"{TP_NORM_ATOL_FRAC} of the leaf's "
+                                     f"largest magnitude",
+                      "updates": f"{TP_UPDATE_RTOL} relative (L2) between "
+                                 f"the two rounds' new - start"},
+                  "ce_rtol": TP_CE_RTOL, "one_device": one_train,
+                  "ranks": trank, "ranks_wall_s": train_wall},
+        "flash_tp": flash, "phase_s": time.perf_counter() - t_phase}
+    return line, flash, ranks[0]["launches"]["flash_attention"]
 
 
 def events_ms(fn, reps: int = 5, warmup: int = 1) -> float:
@@ -2872,7 +3384,8 @@ def profile_training(cfg, round_s: float, microbatches: int) -> dict:
 
 
 def train_phase(smi: str, arch: str = TRAIN_ARCH, rounds: int = TRAIN_ROUNDS,
-                rerun: int = TRAIN_RERUN) -> tuple:
+                rerun: int = TRAIN_RERUN,
+                layers: int | None = None) -> tuple:
     """FL training of ``arch`` at full width and depth through
     ``repro_torch.launch.train.train``: ``rounds`` rounds with the kernels
     on (round 1's stage-1 held against the plain version and timed on its
@@ -2882,12 +3395,15 @@ def train_phase(smi: str, arch: str = TRAIN_ARCH, rounds: int = TRAIN_ROUNDS,
     against the first run's (``held``).  Returns the phase line and the
     kernels row."""
     import torch
-    from repro_torch.configs import get_config, get_profile, replace
+    from repro_torch.configs import (depth_cut, get_config, get_profile,
+                                     replace)
     from repro_torch.core import aggregation
     from repro_torch.kernels import ops
     from repro_torch.launch import train as train_lib
     from repro_torch.tree import tree_leaves
     cfg = get_config(arch)
+    if layers:
+        cfg = depth_cut(cfg, layers)
     cfg = replace(cfg, dtype=get_profile(arch).param_dtype)
     model = train_lib.init_model(cfg, 0, DEV)
     start = model["embed"]["embedding"].clone()
@@ -2949,7 +3465,7 @@ def train_phase(smi: str, arch: str = TRAIN_ARCH, rounds: int = TRAIN_ROUNDS,
             arch, rounds=n_rounds, clusters=TRAIN_CLUSTERS,
             rounds_per_global=TRAIN_RPG, clients=TRAIN_CLIENTS,
             global_batch=TRAIN_BATCH, seed=0, device=DEV,
-            use_kernels=use_kernels)
+            use_kernels=use_kernels, layers=layers)
 
     aggregation.hierarchical_round = held
     try:
@@ -2994,6 +3510,8 @@ def train_phase(smi: str, arch: str = TRAIN_ARCH, rounds: int = TRAIN_ROUNDS,
     torch.cuda.empty_cache()
     line = {
         "phase": "train", "arch": cfg.name, "layers": cfg.num_layers,
+        "encoder_layers": cfg.encoder_layers,
+        "reduced": f"depth cut to {layers} layers" if layers else None,
         "d_model": cfg.d_model, "vocab": cfg.vocab_size,
         "params": on.meta["params"], "dtype": on.meta["dtype"],
         "clients": TRAIN_CLIENTS, "clusters": on.clusters,
@@ -3060,13 +3578,23 @@ def start_dryrun():
     from concurrent.futures import ProcessPoolExecutor
     tasks = [(f"train {arch}", arch, "train_4k", dict(
         device="cuda", clients=TRAIN_CLIENTS, clusters=TRAIN_CLUSTERS,
-        global_batch=TRAIN_BATCH, rounds_per_global=TRAIN_RPG))
+        global_batch=TRAIN_BATCH, rounds_per_global=TRAIN_RPG,
+        num_layers=TRAIN_LAYERS.get(arch)))
         for arch in (TRAIN_ARCH,) + RECURRENT_ARCHS + FRONTEND_TRAIN_ARCHS]
     for arch in ("gemma2-2b",) + RECURRENT_ARCHS + MOE_ARCHS + FRONTEND_ARCHS:
         batch, text, _ = FRONTEND_SERVE.get(arch, (SERVE_BATCH, None, None))
         tasks.append((f"serve {arch}", arch, "prefill_32k", dict(
             device="cuda", batch=batch, num_layers=MOE_LAYERS.get(arch),
             seq_len=text if arch == "whisper-large-v3" else SERVE_PROMPT)))
+    # the tp runs, each as rank 0 of its mesh
+    tasks.append((f"tp serve {TP_ARCH}", TP_ARCH, "prefill_32k", dict(
+        device="cuda", mesh="x".join(map(str, TP_MESH)), batch=TP_BATCH,
+        seq_len=TP_CACHE, num_layers=TP_LAYERS)))
+    tasks.append((f"tp train {TP_TRAIN_ARCH}", TP_TRAIN_ARCH, "train_4k",
+                  dict(device="cuda", mesh="x".join(map(str, TP_TRAIN_MESH)),
+                       global_batch=TP_TRAIN_BATCH, clusters=1,
+                       rounds_per_global=2, seq_len=TP_TRAIN_SEQ,
+                       num_layers=TP_TRAIN_LAYERS)))
     for shape in ("train_4k", "prefill_32k"):
         for d in ("cuda", "meta"):
             tasks.append(((shape, d), "gemma2-2b", shape,
@@ -3078,7 +3606,7 @@ def start_dryrun():
 
 
 def dryrun_phase(smi: str, serve_lines: dict, train_lines: list,
-                 started) -> dict:
+                 started, tp_line: dict) -> dict:
     """The dry run of every serve and training run above
     (``repro_torch.launch.dryrun.run_one`` on the host, fake tensors on
     the card's device, counted by :func:`start_dryrun`'s workers): the
@@ -3101,6 +3629,13 @@ def dryrun_phase(smi: str, serve_lines: dict, train_lines: list,
     for arch, line in serve_lines.items():
         measured[f"serve {arch}"] = (line["runs"], statistics.median(
             r["prefill_s"] + r.get("encode_s", 0.0) for r in line["runs"]))
+    # the tp runs: a rank's predicted peak against the largest rank's
+    ranks = tp_line["serve"]["ranks"]
+    measured[f"tp serve {TP_ARCH}"] = (ranks, statistics.median(
+        r["prefill_s"] for r in ranks))
+    ranks = tp_line["train"]["ranks"]
+    measured[f"tp train {TP_TRAIN_ARCH}"] = (ranks, statistics.median(
+        r["s"] for r in ranks))
     recs = {key: rec for key, rec, _ in done}
     launched = [(key, n) for key, _, n in done if set(n.values()) != {0}]
     assert not launched, launched
@@ -3444,6 +3979,15 @@ def main() -> int:
                            "whisper_cross_decode": 32 * dec_steps,
                            "pixtral": 40}, front_flash
 
+    # ---- 8b''. tensor parallelism over "model": qwen2-72b served at full
+    # width (16 layers) on a (1, 2) mesh, gemma2-2b trained one round on a
+    # (2, 2) mesh, spawned ranks sharing the card over gloo, each against
+    # one rank without a mesh; every rank's prefill through the bf16 flash
+    # kernel on its heads (row 4h); the counts are set to 0 in each rank
+    # just before its serve and read after it
+    tp_line, flash_tp, tp_flash = tp_phase(smi, tmp, gen)
+    emit(tp_line)
+
     # ---- 8c. transformer FL training: gemma2-2b, then the recurrent
     # families and whisper-large-v3, 4 clients on the card, stage-1 through
     # the kernel; the counts are set to 0 before each run and read after
@@ -3457,14 +4001,14 @@ def main() -> int:
         train_lines = [train_line]
         for arch in RECURRENT_ARCHS + FRONTEND_TRAIN_ARCHS:
             line, row = train_phase(smi, arch, REC_TRAIN_ROUNDS,
-                                    REC_TRAIN_RERUN)
+                                    REC_TRAIN_RERUN, TRAIN_LAYERS.get(arch))
             emit(line)
             train_lines.append(line)
             train_rows.append(row)
 
         # ---- 8d. the dry run of every run above: its predicted peak
         # against the card's, its flops over the card's seconds
-        emit(dryrun_phase(smi, serve_lines, train_lines, started))
+        emit(dryrun_phase(smi, serve_lines, train_lines, started, tp_line))
     finally:
         started[0].shutdown(cancel_futures=True)
 
@@ -3543,6 +4087,15 @@ def main() -> int:
                      **{k: flash_front[key][k] for k in (
                          "max_abs_err", "ms", "plain_ms", "bound_ms",
                          "bound_by", "library_ms", "shape")}})
+    # the same kernel at qwen2-72b's heads on one rank of the (1, 2) mesh:
+    # one launch a layer of each rank's prefill
+    rows.append({"name": "flash_attention_qwen2_tp", "route": "cuda",
+                 "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
+                 "replaces": "src/repro/kernels/flash_attention.py:88",
+                 "launches": tp_flash,
+                 **{k: flash_tp[k] for k in (
+                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                     "library_ms", "shape")}})
     rows.extend(train_rows)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -5,7 +5,8 @@ import importlib
 from repro_torch.configs.archs import (ARCH_NAMES, POD_CLIENT_ARCHS, REGISTRY,
                                        get_config)
 from repro_torch.configs.base import (ATTN_KINDS, FLConfig, ModelConfig,
-                                      TrainConfig, replace, smoke_variant)
+                                      TrainConfig, depth_cut, replace,
+                                      smoke_variant)
 from repro_torch.configs.runtime import RunProfile
 from repro_torch.configs.shapes import (SHAPES, InputShape,
                                         effective_cache_len, shape_applicable)

@@ -217,6 +217,15 @@ def replace(cfg, **kw):
     return dataclasses.replace(cfg, **kw)
 
 
+def depth_cut(cfg, layers: int):
+    """``cfg`` at full width with ``layers`` layers: the stack's and, for
+    an encoder-decoder, the encoder's (at most its own)."""
+    kw = dict(num_layers=layers)
+    if cfg.encoder_layers:
+        kw["encoder_layers"] = min(layers, cfg.encoder_layers)
+    return replace(cfg, **kw)
+
+
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:
     """Reduced same-family variant: <=2 layers (rounded up to one full
     pattern cycle), d_model<=512, <=4 experts.  Used by CPU smoke tests."""

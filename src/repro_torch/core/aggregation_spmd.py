@@ -20,12 +20,15 @@ and the collectives are explicit:
   its rows into zeros and the sum fills the rest, exactly (``x + 0``).
   ``gloo`` takes only ``all_reduce`` and ``broadcast`` of CUDA tensors, so
   the client mesh uses no other collective, on any backend.
-* :func:`hierarchical_agg_shard` is the one-client-a-rank body of the
-  static-layout transformer step (``launch/steps.py``): the reference's
+* :func:`hierarchical_agg_shard` is the body of the static-layout
+  transformer step (``launch/steps.py``), one client a rank or, on a
+  mesh whose "model" (or a pod-client layout's "data") axis is above 1,
+  one block of a client a rank: the reference's
   ``psum(axis_index_groups=clusters)`` is an ``all_reduce`` over one
-  process group a cluster (:func:`make_cluster_groups`, made once, by
-  every rank), stage 2 a world ``all_reduce`` of the representatives'
-  ``x * D_k``.
+  process group a (cluster, block) (:func:`make_cluster_groups`, made
+  once, by every rank), stage 2 an ``all_reduce`` of the
+  representatives' ``x * D_k`` over every client's rank of the block
+  (the world where a client is one rank).
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ import torch.distributed as dist
 
 from repro_torch.core import aggregation as agg
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.sharding import parallel as P
 from repro_torch.sharding.rules import mesh_shape
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -228,45 +232,88 @@ def clusters_to_assignment(clusters: Sequence[Sequence[int]],
 
 @dataclass(frozen=True)
 class ClusterGroups:
-    """One process group a cluster of one-client-a-rank members, made
-    once (:func:`make_cluster_groups`); ``reps`` are the first members."""
+    """The process groups of a static cluster layout, made once
+    (:func:`make_cluster_groups`): one a (cluster, within-client block),
+    over the ranks that hold that block of the cluster's clients, and one
+    a block over every client's rank of it (stage 2; ``None``, the world,
+    where a client is one rank).  ``table[c][j]`` is the rank holding
+    block ``j`` of client ``c``."""
     clusters: Tuple[Tuple[int, ...], ...]
-    groups: Tuple[Any, ...]
+    groups: Tuple[Any, ...]              # [cluster * blocks + block]
+    table: Tuple[Tuple[int, ...], ...]
+    across: Tuple[Any, ...]              # [block]
+
+    @property
+    def blocks(self) -> int:
+        return len(self.table[0])
 
     @property
     def reps(self) -> Tuple[int, ...]:
-        return tuple(g[0] for g in self.clusters)
+        """The ranks of each cluster's first member (every block)."""
+        return tuple(self.table[g[0]][j] for g in self.clusters
+                     for j in range(self.blocks))
+
+    def _where(self, rank: int) -> Tuple[int, int]:
+        for c, row in enumerate(self.table):
+            if rank in row:
+                return c, row.index(rank)
+        raise ValueError(f"rank {rank} holds no client")
 
     def of(self, rank: int) -> Any:
-        for members, group in zip(self.clusters, self.groups):
-            if rank in members:
-                return group
+        """The stage-1 group of ``rank``."""
+        c, j = self._where(rank)
+        for k, members in enumerate(self.clusters):
+            if c in members:
+                return self.groups[k * self.blocks + j]
         raise ValueError(f"rank {rank} is in no cluster group")
 
+    def across_of(self, rank: int) -> Any:
+        """The stage-2 group of ``rank``: its block of every client."""
+        return self.across[self._where(rank)[1]]
 
-def make_cluster_groups(clusters: Sequence[Sequence[int]]) -> ClusterGroups:
-    """Create one process group a cluster.  Every rank calls it with the
-    same ``clusters``, in the same order (``dist.new_group`` is
-    collective); each rank must be in exactly one cluster."""
+
+def make_cluster_groups(clusters: Sequence[Sequence[int]],
+                        table: Optional[Sequence[Sequence[int]]] = None
+                        ) -> ClusterGroups:
+    """Create the process groups of a static cluster layout.  Every rank
+    calls it with the same arguments, in the same order (``dist.new_group``
+    is collective).  ``table[c][j]`` is the rank holding within-client
+    block ``j`` of client ``c`` (`launch/mesh.client_rank_table`; default,
+    one client a rank: ``[[0], [1], ...]``).  On a mesh whose "model"
+    axis (or, for a pod-client layout, "data" axis) is above 1 each
+    client's blocks average their own shard: one group a (cluster,
+    block), formed over the ranks that hold the same shard of different
+    clients."""
     clusters = tuple(tuple(int(m) for m in g) for g in clusters)
-    clusters_to_assignment(clusters, dist.get_world_size())
-    groups = tuple(dist.new_group(list(g)) for g in clusters)
-    return ClusterGroups(clusters, groups)
+    if table is None:
+        table = [[r] for r in range(dist.get_world_size())]
+    table = tuple(tuple(int(r) for r in row) for row in table)
+    clusters_to_assignment(clusters, len(table))
+    blocks = len(table[0])
+    groups = tuple(dist.new_group([table[c][j] for c in g])
+                   for g in clusters for j in range(blocks))
+    across = ((None,) if blocks == 1 and
+              len(table) == dist.get_world_size() else
+              tuple(dist.new_group([row[j] for row in table])
+                    for j in range(blocks)))
+    return ClusterGroups(clusters, groups, table, across)
 
 
 def hierarchical_agg_shard(local_params, inv_loss, data_size, do_global: bool,
                            *, groups: ClusterGroups) -> Any:
-    """Body for one client a rank.
+    """Body for one client a rank, or one within-client block a rank.
 
-    local_params: this client's model tree (no clients dim).
-    inv_loss:     scalar 1/L_i (Eq. 12 numerator).
+    local_params: this client's model tree (no clients dim), or this
+                  rank's blocks of it.
+    inv_loss:     scalar 1/L_i (Eq. 12 numerator), the same on every
+                  rank of a client.
     data_size:    scalar |D_i|.
     do_global:    the same bool on every rank (a ground-station round).
 
-    Returns this client's new model: its cluster's loss-weighted average
-    (Eq. 5 + Eq. 12), or, when ``do_global``, the data-size-weighted
-    average of the cluster models that the representatives (each
-    cluster's first member) hold."""
+    Returns this client's new model (block): its cluster's loss-weighted
+    average (Eq. 5 + Eq. 12), or, when ``do_global``, the
+    data-size-weighted average of the cluster models that the
+    representatives (each cluster's first member) hold."""
     leaves = tree_leaves(local_params)
     dev = leaves[0].device
     w = torch.as_tensor(inv_loss, dtype=torch.float32, device=dev)
@@ -275,9 +322,14 @@ def hierarchical_agg_shard(local_params, inv_loss, data_size, do_global: bool,
 
     # ---- stage 1: intra-cluster loss-weighted average, and D_k -------------
     sizes = [x.numel() for x in leaves]
-    flat = torch.cat([x.float().reshape(-1) * w for x in leaves]
-                     + [w.reshape(1), dsz.reshape(1)])
-    dist.all_reduce(flat, group=groups.of(rank))
+    # one f32 buffer, filled a leaf at a time (x * w, then w and D_i)
+    flat = torch.empty(sum(sizes) + 2, dtype=torch.float32, device=dev)
+    at = 0
+    for x, n in zip(leaves, sizes):
+        flat[at:at + n].copy_(x.reshape(-1)).mul_(w)
+        at += n
+    flat[-2:] = torch.stack([w, dsz])
+    P.all_reduce(flat, groups.of(rank), "clients")
     num, den, dk = flat[:-2], flat[-2], flat[-1]
     model = num / den.clamp_min(1e-12)
 
@@ -287,7 +339,7 @@ def hierarchical_agg_shard(local_params, inv_loss, data_size, do_global: bool,
         contrib = torch.cat([model * dk, dk.reshape(1)])
         if not is_rep:
             contrib = torch.zeros_like(contrib)
-        dist.all_reduce(contrib)
+        P.all_reduce(contrib, groups.across_of(rank), "clients")
         model = contrib[:-1] / contrib[-1].clamp_min(1e-12)
 
     out, at = [], 0

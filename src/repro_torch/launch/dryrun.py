@@ -30,10 +30,17 @@ both count the card's route.
   counted as rank 0 of a ``fake`` process group.  Serving pairs are
   skipped: the port's serving steps have no mesh program.
 * ``single``, ``multi``, ``both``: the reference's 16x16 and 2x16x16
-  meshes.  Their steps shard over "model", and the port has no tensor
-  parallelism: each pair is skipped with that reason, its
-  ``memory.argument_size_in_bytes`` the largest a device holds under
-  `sharding/rules.py`'s placements (which need no program).
+  meshes, the dense transformers' pairs counted as rank 0 of a ``fake``
+  process group of 256 or 512 ranks with the mesh's subgroups
+  (`launch/mesh.py`): tensor parallelism over "model", FSDP over "data"
+  for a pod-client arch (`sharding/parallel.py`), the rank's blocks of
+  the arguments under `sharding/rules.py`'s placements, the collectives
+  by kind and by axis (``collectives_by_axis``).  A train step runs at
+  the shape's global batch, K = 4, a stage-2 round of the reference
+  launcher's cadence, its microbatches scaled by their trips.  The six
+  other families have no tensor-parallel design yet: their pairs are
+  skipped with that reason (``NO_TP``), ``memory.argument_size_in_bytes``
+  the bytes a device would hold under the placements.
 
 A record keeps the reference's keys and statuses (``ok``, ``skipped``,
 ``error``), ``count_s`` in place of ``lower_s``/``compile_s``.  The exit
@@ -61,8 +68,9 @@ from repro_torch.tree import tree_leaves, tree_map
 
 LAYOUTS = {"one": ["one"], "clients": ["clients"], "single": ["16x16"],
            "multi": ["2x16x16"], "both": ["16x16", "2x16x16"]}
-NO_TP = ("the port has no tensor parallelism over 'model' (launch/steps.py:"
-         " one whole client a rank); ROADMAP queue 1")
+NO_TP = ("no tensor-parallel design for this family yet (the port's mesh "
+         "program covers the dense transformers; ROADMAP queue 1, slice "
+         "16b item 1b)")
 NO_SERVE_MESH = "the port's serving steps have no mesh program"
 # launch/train.py's defaults: the one-card run
 TRAIN_CLIENTS, TRAIN_CLUSTERS, TRAIN_BATCH, TRAIN_RPG = 4, 2, 16, 2
@@ -78,9 +86,14 @@ class ShapeMesh:
 
 
 def _production(layout: str) -> ShapeMesh:
-    shape, axes = (mesh_lib.MULTI_POD_SHAPE if layout == "2x16x16"
-                   else mesh_lib.PRODUCTION_SHAPE)
-    return ShapeMesh(dict(zip(axes, shape)))
+    """The mesh of a layout: the reference's 16x16 and 2x16x16, or a
+    ("data", "model") mesh "DxM" (the launchers' ``--mesh``)."""
+    if layout in ("16x16", "2x16x16"):
+        shape, axes = (mesh_lib.MULTI_POD_SHAPE if layout == "2x16x16"
+                       else mesh_lib.PRODUCTION_SHAPE)
+        return ShapeMesh(dict(zip(axes, shape)))
+    return ShapeMesh(dict(zip(("data", "model"),
+                              mesh_lib.parse_mesh(layout))))
 
 
 def count_device() -> str:
@@ -94,7 +107,7 @@ def _config(arch: str, overrides: Dict[str, Any]):
         cfg = configs.smoke_variant(cfg)
     layers = overrides.pop("num_layers", None)
     if layers:
-        cfg = configs.replace(cfg, num_layers=layers)
+        cfg = configs.depth_cut(cfg, layers)
     return cfg, overrides.pop("profile", None) or configs.get_profile(arch)
 
 
@@ -115,12 +128,33 @@ def _per_device_bytes(specs, placements, sizes) -> int:
     return 0
 
 
+def _local_specs(specs, placements, sizes):
+    """One rank's blocks of ``specs`` (meta tensors) under ``placements``
+    (a tuple of per-axis placements a leaf): each sharded dim divided by
+    the sizes of the mesh axes it is sharded on; other values as they
+    are."""
+    if isinstance(specs, torch.Tensor):
+        shape = list(specs.shape)
+        for n, p in zip(sizes, placements):
+            if p.is_shard():
+                shape[p.dim] //= n
+        return torch.empty(shape, dtype=specs.dtype, device="meta")
+    if isinstance(specs, dict):
+        return {k: _local_specs(specs[k], placements[k], sizes)
+                for k in specs}
+    if isinstance(specs, (tuple, list)):
+        return tuple(_local_specs(a, b, sizes)
+                     for a, b in zip(specs, placements))
+    return specs
+
+
 def _record(c: Dict[str, Any], devices: int) -> Dict[str, Any]:
     mem = H.memory_summary(c)
     return dict(status="ok", count_s=round(c["count_s"], 2), devices=devices,
                 memory=mem,
                 per_device_hbm_gb=round(mem["total_hbm_bytes"] / 2**30, 3),
-                cost=H.cost_summary(c), collectives=H.collective_bytes(c))
+                cost=H.cost_summary(c), collectives=H.collective_bytes(c),
+                collectives_by_axis=H.collectives_by_axis(c))
 
 
 def _one(arch, shape: InputShape, cfg, prof, overrides, device):
@@ -177,6 +211,50 @@ def _clients(arch, shape: InputShape, cfg, prof, overrides, device):
     return c_, world, meta, {"microbatches": bundle.meta["accum"]}
 
 
+def _on_mesh(arch, shape: InputShape, layout, cfg, prof, overrides, device):
+    """A dense transformer's step on the reference's mesh ``layout``, as
+    rank 0 of a fake process group with the mesh's subgroups."""
+    from torch.distributed.device_mesh import init_device_mesh
+    sizes = _production(layout).shape
+    world = math.prod(sizes.values())
+    mode = shape.mode
+    if mode == "train":
+        shape = dataclasses.replace(
+            shape, global_batch=overrides.pop("global_batch",
+                                              shape.global_batch),
+            seq_len=overrides.pop("seq_len", shape.seq_len))
+        k = overrides.pop("clusters", 4)
+        rpg = overrides.pop("rounds_per_global", MESH_RPG)
+    else:
+        shape = dataclasses.replace(
+            shape, global_batch=overrides.pop("batch", shape.global_batch),
+            seq_len=overrides.pop("seq_len", shape.seq_len))
+    with H.fake_process_group(world):
+        mesh = init_device_mesh("cpu", tuple(sizes.values()),
+                                mesh_dim_names=tuple(sizes))
+        if mode == "train":
+            bundle = steps.build_train_step(
+                arch, shape, mesh, num_clusters=k, rounds_per_global=rpg,
+                cfg=cfg, profile=prof)
+            args = _local_specs(bundle.in_specs[:2], bundle.in_shardings[:2],
+                                list(sizes.values()))
+            c = H.count(bundle.fn, args + (rpg - 1,), device=device,
+                        trips=True)
+            trips = {"microbatches": bundle.meta["rank_accum"]}
+            meta = dict(bundle.meta, round_idx=rpg - 1, did_global=True,
+                        global_batch=shape.global_batch)
+        else:
+            bundle = steps.build_step(arch, shape, mesh, cfg=cfg,
+                                      profile=prof)
+            args = _local_specs(bundle.in_specs, bundle.in_shardings,
+                                list(sizes.values()))
+            c = H.count(bundle.fn, args, device=device)
+            trips = {}
+            meta = dict(bundle.meta, batch=shape.global_batch)
+    meta.update(seq=shape.seq_len, rank=0, world=world, mesh_shape=sizes)
+    return c, world, meta, trips
+
+
 def _skipped_on_mesh(arch, shape: InputShape, layout, cfg, prof):
     mesh = _production(layout)
     if shape.mode == "train":
@@ -194,7 +272,7 @@ def _skipped_on_mesh(arch, shape: InputShape, layout, cfg, prof):
 def run_one(arch: str, shape_name: str, mesh: str = "one",
             **overrides) -> Dict[str, Any]:
     """One (arch, shape) pair on one layout (``one``, ``clients``,
-    ``16x16`` or ``2x16x16``).  ``overrides``: ``cfg``, ``profile``,
+    ``16x16``, ``2x16x16`` or a ("data", "model") mesh ``DxM``).  ``overrides``: ``cfg``, ``profile``,
     ``smoke``, ``num_layers`` (the config), ``batch``, ``seq_len`` (a
     serving step), ``clients``, ``clusters``, ``global_batch``,
     ``seq_len``, ``rounds_per_global`` (a train step), ``device`` (of the
@@ -205,7 +283,8 @@ def run_one(arch: str, shape_name: str, mesh: str = "one",
     shape = SHAPES[shape_name]
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh}
     ok, reason = shape_applicable(cfg, shape)
-    if mesh in ("16x16", "2x16x16"):
+    production = mesh not in ("one", "clients")
+    if production and cfg.family != "dense":
         if ok:
             rec.update(_skipped_on_mesh(arch, shape, mesh, cfg, prof))
         else:               # no step to place either
@@ -217,10 +296,13 @@ def run_one(arch: str, shape_name: str, mesh: str = "one",
     if mesh == "clients" and shape.mode != "train":
         rec.update(status="skipped", reason=NO_SERVE_MESH, mode=shape.mode)
         return rec
-    if mesh not in ("one", "clients"):
-        raise ValueError(f"unknown layout {mesh!r}")
-    run = _one if mesh == "one" else _clients
-    c, devices, meta, trips = run(arch, shape, cfg, prof, overrides, device)
+    if production:
+        c, devices, meta, trips = _on_mesh(arch, shape, mesh, cfg, prof,
+                                           overrides, device)
+    else:
+        run = _one if mesh == "one" else _clients
+        c, devices, meta, trips = run(arch, shape, cfg, prof, overrides,
+                                      device)
     if overrides:
         raise TypeError(f"run_one: unknown overrides {sorted(overrides)}")
     if trips and sorted(c["counter"].trip_counts) != sorted(trips.values()):
@@ -270,7 +352,8 @@ def main(argv=None) -> int:
     ap.add_argument("--smoke", action="store_true",
                     help="the configs' reduced smoke_variant")
     ap.add_argument("--layers", type=int, default=None,
-                    help="cut each arch's depth to this many layers")
+                    help="cut each arch's depth to this many layers (an "
+                         "encoder-decoder's encoder too)")
     ap.add_argument("--clients", type=int, default=None,
                     help="a one-card train step's clients (default 4)")
     ap.add_argument("--out", default=None, help="JSONL output path")

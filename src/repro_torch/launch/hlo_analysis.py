@@ -27,7 +27,8 @@ summaries come out, keyed as the reference's, so that
 * :func:`collective_bytes`: bytes by kind, and ``total``, of every c10d
   or functional collective the step issues, by the reference's
   convention: an all-reduce (and a broadcast) its payload, an all-gather
-  its gathered result, a reduce-scatter its scattered result.
+  its gathered result, a reduce-scatter its scattered result;
+  :func:`collectives_by_axis` the same by mesh axis.
 
 Unlike XLA:CPU, which counts a loop body once, every layer counts, and so
 does every microbatch and client of a train step: a loop run through
@@ -52,6 +53,7 @@ from torch.utils._pytree import tree_leaves, tree_map
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.kernels import ops  # noqa: F401  (registers the kernel ops)
+from repro_torch.sharding import parallel
 
 # ops that allocate or read metadata only: no bytes accessed
 _NO_ACCESS = {"empty", "empty_strided", "empty_like", "new_empty",
@@ -95,6 +97,10 @@ class Counter(TorchDispatchMode):
         self.flops = 0
         self.bytes_accessed = 0
         self.collectives: Dict[str, int] = defaultdict(int)
+        # {axis: {kind: bytes}}: the axis `sharding/parallel.py` names for
+        # a collective in flight, "clients" for the aggregation's
+        self.by_axis: Dict[str, Dict[str, int]] = defaultdict(
+            lambda: defaultdict(int))
         self.live: Dict[int, tuple] = {}  # id(storage) -> (bytes, weakref)
         self.live_bytes = 0
         self.peak_bytes = 0
@@ -140,8 +146,9 @@ class Counter(TorchDispatchMode):
                 ("c10d", "_c10d_functional", "c10d_functional") else None)
         if kind:
             counted = out if kind in _RESULT_COUNTED else (args, kwargs)
-            self.collectives[kind] += self.mult * sum(
-                _nbytes(t) for t in _tensors(counted))
+            n = self.mult * sum(_nbytes(t) for t in _tensors(counted))
+            self.collectives[kind] += n
+            self.by_axis[parallel.AXIS[0] or "clients"][kind] += n
         elif (func.namespace != "prim" and not func.is_view
               and name not in _NO_ACCESS):
             self.bytes_accessed += self.mult * sum(
@@ -236,4 +243,14 @@ def memory_summary(c: Dict[str, Any]) -> Dict[str, float]:
 def collective_bytes(c: Dict[str, Any]) -> Dict[str, int]:
     out = dict(c["counter"].collectives)
     out["total"] = sum(out.values())
+    return out
+
+
+def collectives_by_axis(c: Dict[str, Any]) -> Dict[str, Dict[str, int]]:
+    """:func:`collective_bytes` by mesh axis: "model" and "data" (the
+    mesh program's, `sharding/parallel.py`) and "clients" (the FL
+    aggregation's)."""
+    out = {}
+    for axis, kinds in sorted(c["counter"].by_axis.items()):
+        out[axis] = dict(kinds, total=sum(kinds.values()))
     return out

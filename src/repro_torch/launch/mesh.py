@@ -26,6 +26,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
+import torch
 import torch.distributed as dist
 
 from repro_torch.sharding.rules import axis_size, mesh_shape
@@ -84,6 +85,105 @@ def make_test_mesh(shape=(2, 2), axes=("data", "model"),
     return _make_mesh(shape, axes, device_type)
 
 
+def make_mesh(shape, axes=("data", "model"), device_type: str = "cuda"):
+    """A mesh of any shape over the whole process group (the launchers'
+    ``--mesh DxM``)."""
+    return _make_mesh(tuple(shape), tuple(axes), device_type)
+
+
+def parse_mesh(text: str) -> Tuple[int, int]:
+    """``"DxM"`` (``--mesh 2x2``) -> (D, M)."""
+    try:
+        d, m = (int(v) for v in text.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh {text!r}: want DxM, e.g. 1x2 or 2x2")
+    if d < 1 or m < 1:
+        raise ValueError(f"--mesh {text!r}: sizes must be >= 1")
+    return d, m
+
+
+def _rank_main(fn, rank: int, world: int, port: int, device_type: str,
+               args: tuple) -> None:
+    import datetime
+    if device_type == "cuda":
+        # one card a rank where there are enough of them (nccl); ranks
+        # that share a card run gloo over its CUDA tensors
+        backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    else:
+        backend = "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=1800))
+    try:
+        fn(rank, world, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(fn, world: int, args: tuple = (), *,
+                device_type: str = "cuda", timeout_s: float = 3600.0) -> None:
+    """Run ``fn(rank, world, *args)`` in ``world`` spawned processes that
+    form one process group over a localhost TCP store (``nccl`` when every
+    rank has a card of its own, else ``gloo``; ``gloo`` on the CPU);
+    ``fn`` builds its mesh (:func:`make_mesh`).  Raises if a rank fails;
+    every rank is stopped on the way out.  Under ``torchrun`` call ``fn``
+    after :func:`init_process_group` instead."""
+    import multiprocessing
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main,
+                         args=(fn, r, world, port, device_type, args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout_s)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(30)
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world:
+        raise RuntimeError(f"mesh ranks exited {codes}")
+
+
+def local_blocks(make, specs, mesh):
+    """(this rank's blocks of the full tree ``make()`` draws, the full
+    tree's element count).  The ranks of the process group draw it one
+    after another, each cutting its blocks (`rules.local_shard`) a leaf
+    at a time and dropping each full leaf as it goes, so that one full
+    copy exists at a time on a card the ranks share."""
+    import gc
+    from repro_torch.sharding import rules
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    local, count = None, 0
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            like = make()
+            leaves = tree_leaves(like)
+            count = sum(x.numel() for x in leaves)
+            specs_ = rules.spec_leaves_like(like, specs)
+            cuda = any(x.is_cuda for x in leaves)
+            like = tree_unflatten(like, [None] * len(leaves))
+            out = []
+            for i, spec in enumerate(specs_):
+                out.append(rules.local_shard(leaves[i], spec, mesh))
+                leaves[i] = None
+            local = tree_unflatten(like, out)
+            del leaves
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+        dist.barrier()
+    return local, count
+
+
 def make_client_mesh(num_devices: Optional[int] = None,
                      axis: str = "clients", *, device_type: str = "cuda"):
     """1-D client mesh, one shard of the client stack a rank, over every
@@ -102,6 +202,58 @@ def make_client_mesh(num_devices: Optional[int] = None,
 
 def mesh_axes(mesh) -> tuple:
     return tuple(mesh_shape(mesh))
+
+
+def _axis_group(mesh, axis: str):
+    """(process group, this rank's coordinate) of one axis of a
+    ``DeviceMesh`` built by :func:`_make_mesh`."""
+    if axis not in mesh_axes(mesh):
+        raise ValueError(f"mesh {mesh_shape(mesh)} has no {axis!r} axis")
+    return mesh.get_group(axis), mesh.get_local_rank(axis)
+
+
+def model_group(mesh):
+    """The "model" axis's process group and this rank's coordinate on it:
+    the ranks that hold the tensor-parallel blocks of one replica."""
+    return _axis_group(mesh, "model")
+
+
+def data_group(mesh):
+    """The "data" axis's process group and this rank's coordinate: the
+    ranks a batch is split over, and an FSDP leaf."""
+    return _axis_group(mesh, "data")
+
+
+def pod_group(mesh):
+    """The "pod" axis's process group and this rank's coordinate."""
+    return _axis_group(mesh, "pod")
+
+
+def rank_grid(mesh) -> torch.Tensor:
+    """The global rank at each mesh coordinate: a ``DeviceMesh``'s own
+    table, or the row-major layout ``init_device_mesh`` gives a mesh
+    known by its shape alone."""
+    table = getattr(mesh, "mesh", None)
+    if isinstance(table, torch.Tensor):
+        return table.to(torch.int64)
+    sizes = tuple(mesh_shape(mesh).values())
+    return torch.arange(math.prod(sizes)).reshape(sizes)
+
+
+def client_rank_table(mesh, client_axes) -> list:
+    """``table[c][j]``: the global rank holding within-client block ``j``
+    of client ``c``, clients over ``client_axes`` (None: one client), the
+    within-client coordinates (the other axes: "model", and "data" of a
+    pod-client layout) in row-major order.  Block ``j`` of every client
+    holds the same shard of the parameters."""
+    names = mesh_axes(mesh)
+    axes = tuple(client_axes or ())
+    grid = rank_grid(mesh)
+    lead = [names.index(a) for a in axes]
+    rest = [i for i in range(len(names)) if i not in lead]
+    grid = grid.permute(lead + rest)
+    n = math.prod(grid.shape[:len(lead)]) if lead else 1
+    return grid.reshape(n, -1).tolist()
 
 
 def client_axis_size(mesh, client_axes) -> int:

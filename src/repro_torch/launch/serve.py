@@ -25,6 +25,14 @@ prompt, so its caches and decode positions count frontend_len + S
 positions.  Prints one JSON line with the timings (whisper's encode
 apart), the cache's bytes, frontend_len and the first generated tokens.
 
+``--mesh DxM`` serves a dense transformer (gemma2-2b, h2o-danube-1.8b,
+granite-3-8b, qwen2-72b) on a ("data", "model") mesh of D x M spawned
+ranks: tensor parallelism over "model", the batch over "data" (and FSDP
+over "data" for a pod-client arch), the same model and prompts as one
+device draws; ``nccl`` where every rank has a card of its own, else
+``gloo`` (ranks sharing one card, or ``--device cpu``).  Rank 0 prints
+the JSON line of its rows with the bytes its collectives moved.
+
 ``--dry-run --shape prefill_32k`` (or another prefill or decode shape)
 counts that step at the shape's batch and length on fake tensors
 (`launch/dryrun.py`), prints the per-device peak and the memory analysis,
@@ -41,9 +49,11 @@ import torch
 
 from repro_torch import device as device_lib
 from repro_torch.configs import get_config, get_profile, smoke_variant
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import decode_step, init_params, param_count
 from repro_torch.models.model import prefill_last
 from repro_torch.models.transformer import encode
+from repro_torch.sharding import parallel as P
 from repro_torch.tree import tree_leaves
 
 
@@ -84,7 +94,8 @@ def serve_batch(cfg, params: dict, prompts: torch.Tensor, new_tokens: int,
                 *, device=None, dispatch: str = "dense",
                 quantized_cache: bool = False,
                 frames: Optional[torch.Tensor] = None,
-                patch_embeds: Optional[torch.Tensor] = None) -> ServeResult:
+                patch_embeds: Optional[torch.Tensor] = None,
+                tp=None) -> ServeResult:
     """Greedy continuation of ``prompts`` (B, S) by ``new_tokens`` tokens:
     one prefill (which gives the first new token), then ``new_tokens - 1``
     decode steps, with the MoE ``dispatch`` and, if ``quantized_cache``,
@@ -94,7 +105,13 @@ def serve_batch(cfg, params: dict, prompts: torch.Tensor, new_tokens: int,
     decode step.  A vision model's ``patch_embeds`` go in front of the
     prompt: the caches hold frontend_len + S + new_tokens positions, and
     decode step i runs at position frontend_len + S + i.  Every timing
-    ends in a device synchronize."""
+    ends in a device synchronize.  On a mesh (``tp``, a dense
+    transformer's `sharding/parallel.TP`) ``params`` are this rank's
+    blocks and ``prompts`` its rows, the caches sized to a multiple of the
+    "model" size so that each rank holds a block of their slots (the
+    extra slots stay empty); the logits come vocab-sharded and the
+    greedy pick is each rank's maximum and index reduced over "model"
+    (`parallel.argmax_vocab`), never a gather of the logits."""
     dev = device_lib.resolve(device)
     if new_tokens < 1:
         raise ValueError(f"new_tokens={new_tokens} must be >= 1")
@@ -111,6 +128,9 @@ def serve_batch(cfg, params: dict, prompts: torch.Tensor, new_tokens: int,
         batch["patch_embeds"] = patch_embeds
         start += cfg.frontend_len
     max_len = start + new_tokens
+    if tp is not None and max_len % tp.size:
+        # whole blocks of cache slots a rank (the extra slots stay empty)
+        max_len += tp.size - max_len % tp.size
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     enc_out = None
@@ -124,15 +144,17 @@ def serve_batch(cfg, params: dict, prompts: torch.Tensor, new_tokens: int,
         t1 = time.perf_counter()
         logits, caches = prefill_last(cfg, params, batch, max_len,
                                       dispatch=dispatch,
-                                      quantized_cache=quantized_cache)
-        tok = logits.argmax(-1)[:, None]
+                                      quantized_cache=quantized_cache, tp=tp)
+        lo = P.vocab_range(tp, logits.shape[-1], cfg.vocab_padded)[0]
+        tok = P.argmax_vocab(tp, logits, lo)[:, None]
         _sync(dev)
         t2 = time.perf_counter()
         out = [tok]
         for i in range(new_tokens - 1):
             logits, caches = decode_step(cfg, params, caches, tok, start + i,
-                                         enc_out=enc_out, dispatch=dispatch)
-            tok = logits[:, 0].argmax(-1)[:, None]
+                                         enc_out=enc_out, dispatch=dispatch,
+                                         tp=tp)
+            tok = P.argmax_vocab(tp, logits[:, 0], lo)[:, None]
             out.append(tok)
         _sync(dev)
         t3 = time.perf_counter()
@@ -166,6 +188,9 @@ def main(argv=None) -> None:
                          "analyses, exit")
     ap.add_argument("--shape", default="decode_32k",
                     help="the dry run's prefill or decode shape")
+    ap.add_argument("--mesh", default=None,
+                    help="DxM: serve on a (data, model) mesh of D x M "
+                         "spawned ranks (the dense transformers)")
     args = ap.parse_args(argv)
     if args.dry_run:
         from repro_torch.configs.shapes import SHAPES
@@ -181,30 +206,51 @@ def main(argv=None) -> None:
         return
 
     dev = device_lib.resolve(args.device)
+    if args.mesh:
+        d, m = mesh_lib.parse_mesh(args.mesh)
+        mesh_lib.spawn_ranks(_serve_rank, d * m, (vars(args),),
+                             device_type=dev.type)
+        return
+    cfg, prof, kv_int8 = _config(args)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = init_params(cfg, gen)
+    prompts, front = _inputs(cfg, args, gen, dev)
+    res = serve_batch(cfg, params, prompts, args.tokens, device=dev,
+                      dispatch=prof.moe_dispatch, quantized_cache=kv_int8,
+                      **front)
+    print(json.dumps(_report(cfg, prof, kv_int8, args, dev, res,
+                             param_count(params))))
+
+
+def _config(args):
     cfg = get_config(args.arch)
     prof = get_profile(args.arch)
     kv_int8 = prof.kv_int8 if args.kv_int8 is None else args.kv_int8
     if args.smoke:
         cfg = smoke_variant(cfg)
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = init_params(cfg, gen)
+    return cfg, prof, kv_int8
+
+
+def _inputs(cfg, args, gen, dev):
+    """The prompts and, for a front end, its stubbed input (frames or
+    patch embeddings, 0.1 * normal), drawn from ``gen``."""
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen, device=dev)
-    # the stubbed front ends' inputs: frames or patch embeddings
     front = {}
     if cfg.frontend != "none":
         name = "frames" if cfg.is_enc_dec else "patch_embeds"
         front[name] = 0.1 * torch.randn(
             (args.batch, cfg.frontend_len, cfg.d_model), generator=gen,
             device=dev)
-    res = serve_batch(cfg, params, prompts, args.tokens, device=dev,
-                      dispatch=prof.moe_dispatch, quantized_cache=kv_int8,
-                      **front)
-    print(json.dumps({
+    return prompts, front
+
+
+def _report(cfg, prof, kv_int8, args, dev, res, params: int) -> dict:
+    return {
         "arch": cfg.name, "device": str(dev),
         "kind": torch.cuda.get_device_name(dev) if dev.type == "cuda"
         else "cpu",
-        "params": param_count(params), "dtype": cfg.dtype,
+        "params": params, "dtype": cfg.dtype,
         "moe_dispatch": prof.moe_dispatch if cfg.num_experts else None,
         "kv_int8": kv_int8, "cache_bytes": res.cache_bytes,
         "batch": args.batch, "prompt_len": args.prompt_len,
@@ -213,7 +259,45 @@ def main(argv=None) -> None:
         "decode_s": res.decode_s,
         "decode_tokens_per_s": res.decode_tokens_per_s,
         "peak_device_mem_mb": res.peak_device_mem_mb,
-        "first_tokens": res.tokens[:, :12].tolist()}))
+        "first_tokens": res.tokens[:, :12].tolist()}
+
+
+def _serve_rank(rank: int, world: int, opts: dict) -> None:
+    """One rank of ``--mesh DxM`` (`launch/mesh.spawn_ranks`): the same
+    random model and prompts as one device draws from ``--seed``, this
+    rank's blocks of the parameters (the ranks draw the full model one
+    after another, so one full copy exists at a time) and its rows of the
+    batch, served through the mesh program.  Rank 0 prints the JSON line
+    of its rows, with the mesh's shape and the bytes its collectives
+    moved."""
+    import argparse as _argparse
+    from repro_torch.launch import steps
+    args = _argparse.Namespace(**opts)
+    dev = device_lib.resolve(args.device)
+    d, m = mesh_lib.parse_mesh(args.mesh)
+    mesh = mesh_lib.make_mesh((d, m), device_type=dev.type)
+    cfg, prof, kv_int8 = _config(args)
+    tp = steps.mesh_program(mesh, cfg, prof)
+    specs = steps.param_specs(cfg, prof, mesh)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params, n_params = mesh_lib.local_blocks(
+        lambda: init_params(cfg, gen), specs, mesh)
+    prompts, front = _inputs(cfg, args, gen, dev)
+    if args.batch % d:
+        raise ValueError(f"--batch {args.batch} does not split over the "
+                         f"mesh's data size {d}")
+    rows = args.batch // d
+    lo = mesh.get_local_rank("data") * rows
+    P.reset_traffic()
+    res = serve_batch(cfg, params, prompts[lo:lo + rows], args.tokens,
+                      device=dev, dispatch=prof.moe_dispatch,
+                      quantized_cache=kv_int8, tp=tp,
+                      **{k: v[lo:lo + rows] for k, v in front.items()})
+    if rank == 0:
+        print(json.dumps(dict(
+            _report(cfg, prof, kv_int8, args, dev, res, n_params),
+            mesh={"data": d, "model": m}, rows=rows,
+            collective_bytes=P.traffic())), flush=True)
 
 
 if __name__ == "__main__":

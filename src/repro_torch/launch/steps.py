@@ -22,13 +22,23 @@ one of two forms that compute the same function:
   ``use_kernels`` is on (the reference's ``use_pallas``).  This is the
   reference's pytree form, the oracle its shard-map step is tested
   against, and how one card holds several clients.
-* **a client mesh, one client a rank** (``launch/mesh.py``; reference
-  ``:176-205``): each rank calls ``fn`` on its own rows, (1, ...) of the
-  stack and of the batch, and the aggregation is
+* **a mesh, one client per client-axis index** (``launch/mesh.py``;
+  reference ``:176-205``): each rank calls ``fn`` on its own rows, (1,
+  ...) of the stack and of the batch, holding its blocks of its client:
+  the whole client where the client is one rank, else (the dense
+  transformers) tensor parallelism over "model" and, for a pod-client
+  arch, FSDP and the batch over "data" (:func:`mesh_program`,
+  `sharding/parallel.py`).  The aggregation is
   ``core/aggregation_spmd.hierarchical_agg_shard`` over one process group
-  a cluster (:func:`~repro_torch.core.aggregation_spmd.make_cluster_groups`,
-  made when the step is built, by every rank).  The port has no tensor
-  parallelism, so the mesh's "model" axis must have size 1.
+  a cluster and block
+  (:func:`~repro_torch.core.aggregation_spmd.make_cluster_groups`, made
+  when the step is built, by every rank); with one client (a pod-client
+  arch on one pod) there is nothing to aggregate, as in the reference.
+
+The serving builders on a ``DeviceMesh`` run the same mesh program on a
+rank's blocks of the parameters and caches and its rows of the batch;
+on a mesh known by its shape alone they carry the placements and their
+``fn`` is the one-device step.
 
 The serving builders are thin wrappers over ``models.prefill_last`` and
 ``models.decode_step``.  ``launch/dryrun.py`` counts any bundle's step on
@@ -49,9 +59,11 @@ from repro_torch.configs.runtime import RunProfile
 from repro_torch.configs.shapes import InputShape
 from repro_torch.core import aggregation as agg
 from repro_torch.core import aggregation_spmd as spmd
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.mesh import client_axes_for, num_clients_for
 from repro_torch.models import model as M
 from repro_torch.models import transformer as T
+from repro_torch.sharding import parallel as P
 from repro_torch.sharding import rules
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -141,13 +153,22 @@ def _trips(n: int, trips=None):
 
 def _local_update(cfg, p, b, *, accum: int, micro: int, lr: float,
                   acc_dt: torch.dtype, remat: bool, dispatch: str,
-                  trips=None):
+                  trips=None, tp=None, data_summed=None):
     """One client's local SGD step with gradient accumulation (reference
     ``local_update``): ``accum`` microbatches of ``micro`` rows, each loss
     differentiated by autograd and its gradient summed into an ``acc_dt``
     accumulator; ``new_p = (p - lr * (1/accum) * g)`` in ``acc_dt``, cast
     back to p's dtype.  Returns (new_p, loss averaged over the
-    microbatches)."""
+    microbatches).
+
+    On a mesh (``tp``) ``p`` is this rank's blocks (the accumulator keeps
+    their sharding, as the reference's ``constrain``) and ``b`` its rows.
+    Where the batch is split over "data" (a pod-client layout, FSDP) each
+    rank differentiates its loss over the data size: an FSDP leaf's
+    gradient comes back reduce-scattered (summed), and the leaves FSDP
+    leaves whole (``data_summed``, one bool a leaf) are all-reduced over
+    "data"; the loss is the mean over "data"."""
+    dp = P.data_size(tp)
     leaves = tree_leaves(p)
     g_acc = [torch.zeros(x.shape, dtype=acc_dt, device=x.device)
              for x in leaves]
@@ -158,10 +179,15 @@ def _local_update(cfg, p, b, *, accum: int, micro: int, lr: float,
         ps = [x.detach().requires_grad_(True) for x in leaves]
         loss = M.loss_fn(cfg, tree_unflatten(p, ps),
                          {k: x[i] for k, x in mbs.items()},
-                         dispatch=dispatch, remat=remat)[0]
-        for a, g in zip(g_acc, torch.autograd.grad(loss, ps)):
-            a.add_(g)
+                         dispatch=dispatch, remat=remat, tp=tp)[0]
+        grads = torch.autograd.grad(loss / dp if dp > 1 else loss, ps)
+        for j, (a, g) in enumerate(zip(g_acc, grads)):
+            a.add_(P.sum_over_data(tp, g.contiguous())
+                   if dp > 1 and data_summed[j] else g)
+        del grads                # not live beside the next microbatch
         l_acc = l_acc + loss.detach()
+    if dp > 1:
+        l_acc = P.sum_over_data(tp, l_acc.reshape(1))[0] / dp
     scale = 1.0 / accum
     new = [(x.to(acc_dt) - lr * scale * g).to(x.dtype)
            for x, g in zip(leaves, g_acc)]
@@ -247,16 +273,38 @@ def build_train_step(arch: str, shape: InputShape, mesh=None, *,
                 use_kernels=use_kernels)
             return stack, losses.mean()
     else:
-        _check_one_client_a_rank(mesh, n_clients)
-        groups = spmd.make_cluster_groups(clusters)
+        tp = mesh_program(mesh, cfg, prof)
+        table = mesh_lib.client_rank_table(mesh, c_axes)
+        _check_layout(mesh, cfg, table, tp)
+        groups = (spmd.make_cluster_groups(clusters, table)
+                  if n_clients > 1 else None)
+        # the rows of a rank: its client's, or its block of them where
+        # the batch is split over "data"; every rank keeps the
+        # accumulation it can (the loss and gradient are the client's)
+        dp = P.data_size(tp)
+        rows = pcb // dp
+        rank_accum = max(a for a in range(1, min(accum, rows) + 1)
+                         if rows % a == 0)
+        specs = param_specs(cfg, prof, mesh)
 
         def train_step(stack, batch, round_idx, *, trips=None):
-            new_p, loss = local(tree_map(lambda x: x[0], stack),
-                                {k: x[0] for k, x in batch.items()}, trips)
+            p = tree_map(lambda x: x[0], stack)
+            data_summed = [not _on_axis(s_, "data")
+                           for s_ in rules.spec_leaves_like(p, specs)]
+            new_p, loss = _local_update(
+                cfg, p,
+                {k: x[0] for k, x in batch.items()}, accum=rank_accum,
+                micro=rows // rank_accum, lr=lr, acc_dt=acc_dt,
+                remat=prof.remat, dispatch=prof.moe_dispatch, trips=trips,
+                tp=tp, data_summed=data_summed)
+            loss = P.agree_over_model(tp, loss)
+            if groups is None:             # one client: nothing to reduce
+                return tree_map(lambda x: x[None], new_p), loss
             out = spmd.hierarchical_agg_shard(
                 new_p, 1.0 / loss.clamp_min(1e-8), float(pcb),
                 do_global(round_idx), groups=groups)
-            dist.all_reduce(loss)                 # the mean over clients
+            # the mean over clients
+            dist.all_reduce(loss, group=groups.across_of(dist.get_rank()))
             return tree_map(lambda x: x[None], out), loss / n_clients
 
     return StepBundle(
@@ -267,7 +315,9 @@ def build_train_step(arch: str, shape: InputShape, mesh=None, *,
                   n_clients=n_clients, clusters=clusters, pcb=pcb,
                   accum=accum, micro=micro, dtype=prof.param_dtype,
                   use_kernels=use_kernels,
-                  form="one-device" if mesh is None else "mesh"))
+                  form="one-device" if mesh is None else "mesh",
+                  **({} if mesh is None else dict(
+                      rank_accum=rank_accum, rank_rows=rows))))
 
 
 def _train_specs(cfg, prof, mesh, c_axes, n_clients: int, pcb: int,
@@ -284,9 +334,7 @@ def _train_specs(cfg, prof, mesh, c_axes, n_clients: int, pcb: int,
     in_specs = (params_structs, batch_structs, _spec((), torch.int32))
     if mesh is None:
         return in_specs, (None, None, None), (None, None)
-    fsdp = "data" if prof.client_axis == "pod" else None
-    pspec = rules.tree_param_specs(base_params, mesh, tp_axes="model",
-                                   fsdp_axes=fsdp)
+    pspec = _specs_of(base_params, prof, mesh)
     params_sh = rules.tree_shardings(_stacked_specs(pspec, c_axes), mesh)
     batch_axis = None if prof.client_axis == "data" else "data"
     batch_sh = {k: rules.placements(rules.P(c_axes, batch_axis), mesh)
@@ -301,7 +349,8 @@ def train_placements(arch: str, shape: InputShape, mesh, *,
                      profile: Optional[RunProfile] = None):
     """``(in_specs, in_shardings)`` of the train step on ``mesh`` without
     building the step: the shapes and placements of a layout the step
-    itself refuses (a "model" axis above 1: no tensor parallelism)."""
+    itself refuses (a family without a tensor-parallel design on a
+    "model" axis above 1: ROADMAP queue 1, slice 16b item 1b)."""
     cfg, prof = _resolve(arch, cfg, profile)
     n_clients = num_clients_for(mesh, prof.client_axis)
     c_axes = client_axes_for(mesh, prof.client_axis)
@@ -320,16 +369,60 @@ def _stacked_specs(pspec, c_axes):
     return tuple(_stacked_specs(v, c_axes) for v in pspec)
 
 
-def _check_one_client_a_rank(mesh, n_clients: int) -> None:
+def _specs_of(params, prof, mesh):
+    fsdp = "data" if prof.client_axis == "pod" else None
+    return rules.tree_param_specs(params, mesh, tp_axes="model",
+                                  fsdp_axes=fsdp)
+
+
+def param_specs(cfg, prof, mesh):
+    """The placement specs of one client's (or the served model's)
+    leaves on ``mesh``: `tp` over "model", `fsdp` over "data" for a
+    pod-client arch (`rules.local_shard` cuts a rank's blocks by
+    them)."""
+    return _specs_of(_param_structs(cfg), prof, mesh)
+
+
+def _on_axis(spec, axis: str) -> bool:
+    return any(e == axis or (isinstance(e, tuple) and axis in e)
+               for e in spec)
+
+
+def mesh_program(mesh, cfg, prof):
+    """This rank's `sharding/parallel.TP` on a ``DeviceMesh`` whose
+    "model" axis is above 1 or whose "data" axis shards a pod-client
+    arch's parameters (FSDP); None where no collective runs inside a
+    client or replica (no mesh, a "model" size of 1 without FSDP) or the
+    mesh is known by its shape alone (its bundle carries placements; its
+    ``fn`` is the one-device step).  A family without a tensor-parallel
+    design is refused by name."""
+    if mesh is None or not hasattr(mesh, "get_group"):
+        return None
+    sizes = rules.mesh_shape(mesh)
+    fsdp = prof.client_axis == "pod" and sizes.get("data", 1) > 1
+    if sizes.get("model", 1) == 1 and not fsdp:
+        return None
+    P.check_dense(cfg, True)
+    return P.TP.from_mesh(mesh, fsdp=fsdp)
+
+
+def _check_layout(mesh, cfg, table, tp) -> None:
+    """One client per client-axis index, its blocks on the other axes:
+    the world is the mesh, and a client spread over several ranks runs a
+    dense transformer's mesh program on a ``DeviceMesh``; the other
+    families are refused by name (ROADMAP queue 1, slice 16b item 1b)."""
     shape = rules.mesh_shape(mesh)
-    if shape.get("model", 1) != 1:
-        raise NotImplementedError(
-            f"mesh {shape}: the port's train step holds one whole client a "
-            f"rank (no tensor parallelism over 'model')")
-    if dist.get_world_size() != n_clients:
-        raise ValueError(f"mesh {shape}: {n_clients} clients on "
-                         f"{dist.get_world_size()} ranks; the train step "
-                         f"takes one client a rank")
+    world = dist.get_world_size()
+    if world != sum(len(row) for row in table):
+        raise ValueError(f"mesh {shape}: {len(table)} clients of "
+                         f"{len(table[0])} ranks each, on {world} ranks; "
+                         f"the train step takes one client per client-axis "
+                         f"index")
+    if len(table[0]) > 1:
+        P.check_dense(cfg, True)
+        if tp is None:
+            raise ValueError(f"mesh {shape}: a client on {len(table[0])} "
+                             f"ranks needs a DeviceMesh (launch/mesh.py)")
 
 
 # ==========================================================================
@@ -339,10 +432,7 @@ def _check_one_client_a_rank(mesh, n_clients: int) -> None:
 def _serve_param_shardings(prof, mesh, base_params):
     if mesh is None:
         return None
-    fsdp = "data" if prof.client_axis == "pod" else None
-    pspec = rules.tree_param_specs(base_params, mesh, tp_axes="model",
-                                   fsdp_axes=fsdp)
-    return rules.tree_shardings(pspec, mesh)
+    return rules.tree_shardings(_specs_of(base_params, prof, mesh), mesh)
 
 
 def _batch_axes(mesh, batch: int, fallback):
@@ -407,10 +497,12 @@ def build_prefill_step(arch: str, shape: InputShape, mesh=None, *,
     batch_structs.update(_frontend_specs(cfg, (B,),
                                          getattr(torch, cfg.dtype)))
 
+    tp = mesh_program(mesh, cfg, prof)
+
     def prefill_step(params, batch):
         return M.prefill_last(cfg, params, batch, S,
                               dispatch=prof.moe_dispatch,
-                              quantized_cache=prof.kv_int8)
+                              quantized_cache=prof.kv_int8, tp=tp)
 
     if mesh is None:
         in_sh, out_sh = (None, None), (None, None)
@@ -443,10 +535,12 @@ def build_decode_step(arch: str, shape: InputShape, mesh=None, *,
     base_params = _param_structs(cfg)
     cache_structs = _cache_structs(cfg, prof, B, S)
 
+    tp = mesh_program(mesh, cfg, prof)
+
     def decode_step(params, caches, token, pos, enc_out=None):
         logits, caches = M.decode_step(cfg, params, caches, token, pos,
                                        enc_out=enc_out,
-                                       dispatch=prof.moe_dispatch)
+                                       dispatch=prof.moe_dispatch, tp=tp)
         return logits[:, 0], caches
 
     in_specs = [base_params, cache_structs, _spec((B, 1), torch.int32),

@@ -24,6 +24,9 @@ rounds, 4 clusters, stage-2 every 5, and the shape's batch of 256).  The
 front ends train on 0.1 * normal frames (whisper-large-v3) or patch
 embeddings (pixtral-12b, whose text then takes the sequence less its
 patches), drawn each round.
+``--mesh DxM`` trains a dense transformer (gemma2-2b, h2o-danube-1.8b,
+granite-3-8b, qwen2-72b) on a ("data", "model") mesh of D x M spawned
+ranks, the clients the mesh lays out (`train_rank`).
 ``--smoke`` takes the config's ``smoke_variant`` and a 64-token sequence,
 as ``launch/serve.py`` does.  ``--dry-run`` counts the round step at the
 arguments given on fake tensors (`launch/dryrun.py`: nothing is run or
@@ -44,11 +47,13 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch import device as device_lib
-from repro_torch.configs import SHAPES, get_config, get_profile, smoke_variant
+from repro_torch.configs import (SHAPES, depth_cut, get_config, get_profile,
+                                 smoke_variant)
 from repro_torch.core import aggregation as agg
 from repro_torch.core import aggregation_spmd as spmd
 from repro_torch.core.clustering import balanced_clusters, kmeans
 from repro_torch.data.synthetic import synthetic_lm_batches
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models import init_params
 from repro_torch.orbits.constellation import Constellation
@@ -137,13 +142,17 @@ def train(arch: str = "gemma2-2b", *, shape: str = "train_4k",
           rounds: int = 3, clusters: int = 2, rounds_per_global: int = 2,
           lr: float = 0.01, clients: int = 4,
           global_batch: Optional[int] = 16, seed: int = 0, device=None,
-          smoke: bool = False, use_kernels: bool = True) -> TrainResult:
+          smoke: bool = False, use_kernels: bool = True,
+          layers: Optional[int] = None) -> TrainResult:
     """Run ``rounds`` FedHC rounds of ``arch`` on one device; see the
-    module docstring."""
+    module docstring.  ``layers`` cuts the depth (``configs.depth_cut``:
+    an encoder-decoder's encoder too)."""
     dev = device_lib.resolve(device)
     cfg = get_config(arch)
     if smoke:
         cfg = smoke_variant(cfg)
+    if layers:
+        cfg = depth_cut(cfg, layers)
     prof = get_profile(arch)
     shp = SHAPES[shape]
     if shp.mode != "train":
@@ -195,6 +204,80 @@ def train(arch: str = "gemma2-2b", *, shape: str = "train_4k",
     return TrainResult(records, peak, groups, meta, stack)
 
 
+def train_rank(rank: int, world: int, opts: dict) -> None:
+    """One rank of ``--mesh DxM`` (`launch/mesh.spawn_ranks`): the mesh
+    form of the train step (`launch/steps.py`) with one client per
+    client-axis index of the ("data", "model") mesh, tensor parallelism
+    over "model" inside a client and, for a pod-client arch, FSDP and the
+    batch over "data".  Every client starts from the model one device
+    draws from ``--seed`` (the ranks draw it one after another and keep
+    their blocks) and each round's batch is one device's draw, of which
+    the rank takes its client's rows (its block of them under FSDP).
+    Rank 0 prints a JSON line: s a round, the mean client CE, peak memory,
+    the bytes the collectives moved a round."""
+    from repro_torch.launch import steps
+    from repro_torch.sharding import parallel as P
+    from repro_torch.tree import tree_map
+    dev = device_lib.resolve(opts["device"])
+    d, m = mesh_lib.parse_mesh(opts["mesh"])
+    mesh = mesh_lib.make_mesh((d, m), device_type=dev.type)
+    cfg = get_config(opts["arch"])
+    if opts["smoke"]:
+        cfg = smoke_variant(cfg)
+    prof = get_profile(opts["arch"])
+    shp = dataclasses.replace(
+        SHAPES[opts["shape"]],
+        seq_len=SMOKE_SEQ if opts["smoke"] else SHAPES[opts["shape"]].seq_len,
+        global_batch=opts["global_batch"] or SHAPES[opts["shape"]]
+        .global_batch)
+    n_clients = mesh_lib.num_clients_for(mesh, prof.client_axis)
+    c_axes = mesh_lib.client_axes_for(mesh, prof.client_axis)
+    groups = orbital_clusters(n_clients, opts["clusters"], opts["seed"])
+    rpg = opts["rounds_per_global"]
+    bundle = build_train_step(opts["arch"], shp, mesh,
+                              num_clusters=len(groups), lr=opts["lr"],
+                              rounds_per_global=rpg, clusters=groups,
+                              cfg=cfg, profile=prof)
+    cfg = dataclasses.replace(cfg, dtype=prof.param_dtype)
+    specs = steps.param_specs(cfg, prof, mesh)
+    local, _ = mesh_lib.local_blocks(
+        lambda: init_model(cfg, opts["seed"], dev), specs, mesh)
+    stack = tree_map(lambda x: x[None], local)
+    del local
+    table = mesh_lib.client_rank_table(mesh, c_axes)
+    client = next(c for c, row in enumerate(table) if rank in row)
+    pcb, rows = bundle.meta["pcb"], bundle.meta["rank_rows"]
+    lo = (mesh.get_local_rank("data") * rows if rows != pcb else 0)
+    gen = torch.Generator(device=dev).manual_seed(opts["seed"] + 1)
+    text = shp.seq_len - (cfg.frontend_len if cfg.frontend == "vision"
+                          else 0)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    records = []
+    for r in range(opts["rounds"]):
+        t = synthetic_lm_batches(gen, n_clients, text, pcb)
+        t = t[client:client + 1, lo:lo + rows]
+        batch = {"tokens": t[..., :-1], "labels": t[..., 1:]}
+        P.reset_traffic()
+        _sync(dev)
+        t0 = time.perf_counter()
+        stack, loss = bundle.fn(stack, batch, r)
+        ce = float(loss)
+        _sync(dev)
+        s = time.perf_counter() - t0
+        records.append(dict(round=r, s=s, ce=ce,
+                            did_global=(r + 1) % rpg == 0,
+                            collective_bytes=P.traffic()))
+    line = {"arch": cfg.name, "device": str(dev), "mesh": {"data": d,
+                                                          "model": m},
+            "clients": n_clients, "clusters": groups, "pcb": pcb,
+            "rank_rows": rows, "rank_accum": bundle.meta["rank_accum"],
+            "rounds": records,
+            "peak_device_mem_mb": device_lib.peak_device_mem_mb(dev)}
+    if rank == 0:
+        print(json.dumps(line), flush=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="gemma2-2b")
@@ -212,6 +295,10 @@ def main(argv=None) -> None:
     ap.add_argument("--dry-run", action="store_true",
                     help="count the round step on fake tensors, print the "
                          "analyses, exit")
+    ap.add_argument("--mesh", default=None,
+                    help="DxM: train on a (data, model) mesh of D x M "
+                         "spawned ranks (the dense transformers; the "
+                         "mesh sets the clients)")
     args = ap.parse_args(argv)
     if args.dry_run:
         from repro_torch.launch import dryrun
@@ -222,6 +309,11 @@ def main(argv=None) -> None:
             rounds_per_global=args.rounds_per_global,
             seq_len=SMOKE_SEQ if args.smoke else SHAPES[args.shape].seq_len)
         dryrun.print_analyses(rec)
+        return
+    if args.mesh:
+        d, m = mesh_lib.parse_mesh(args.mesh)
+        mesh_lib.spawn_ranks(train_rank, d * m, (vars(args),),
+                             device_type=device_lib.resolve(args.device).type)
         return
     res = train(args.arch, shape=args.shape, rounds=args.rounds,
                 clusters=args.clusters,

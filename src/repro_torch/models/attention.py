@@ -64,6 +64,7 @@ import torch.nn.functional as F
 from repro_torch.configs.shapes import effective_cache_len
 from repro_torch.kernels import ops
 from repro_torch.models.layers import _init, apply_rope, rope_frequencies, softcap
+from repro_torch.sharding import parallel as P
 
 NEG_INF = -1e30
 
@@ -278,24 +279,27 @@ def direct_attention(cfg, q, k, v, q_pos, k_pos, *, causal: bool,
 # --------------------------------------------------------------------------
 
 def init_cache(cfg, kind: str, batch: int, max_len: int, dtype, device,
-               quantized: bool = False, lead=()) -> dict:
+               quantized: bool = False, lead=(), shards: int = 1) -> dict:
     """KV cache of one layer, with a leading ``lead`` shape (the cycles of
     a stacked pattern position).  ``quantized`` stores int8 K/V with
-    per-(B, slot, head) f32 scales: half the bytes of a bf16 cache."""
+    per-(B, slot, head) f32 scales: half the bytes of a bf16 cache.
+    ``shards`` (the "model" size of a mesh) keeps one block of the L
+    slots where it divides them; ``slot_pos`` always has all L."""
     L = effective_cache_len(cfg, kind, max_len)
+    Ll = L // shards if L % shards == 0 else L
     H, D = cfg.num_kv_heads, cfg.head_dim
     lead = tuple(lead)
     kv_dtype = torch.int8 if quantized else dtype
-    c = {"k": torch.zeros(lead + (batch, L, H, D), dtype=kv_dtype,
+    c = {"k": torch.zeros(lead + (batch, Ll, H, D), dtype=kv_dtype,
                           device=device),
-         "v": torch.zeros(lead + (batch, L, H, D), dtype=kv_dtype,
+         "v": torch.zeros(lead + (batch, Ll, H, D), dtype=kv_dtype,
                           device=device),
          "slot_pos": torch.full(lead + (L,), -1, dtype=torch.int32,
                                 device=device)}
     if quantized:
         for name in ("k_scale", "v_scale"):
-            c[name] = torch.zeros(lead + (batch, L, H), dtype=torch.float32,
-                                  device=device)
+            c[name] = torch.zeros(lead + (batch, Ll, H),
+                                  dtype=torch.float32, device=device)
     return c
 
 
@@ -357,15 +361,21 @@ def cache_from_prefill(cache, k, v):
 def apply_attention(cfg, p, x, *, kind: str, mode: str,
                     positions: torch.Tensor, cache: Optional[dict] = None,
                     kv_x: Optional[torch.Tensor] = None,
-                    causal: bool = True
+                    causal: bool = True, tp=None
                     ) -> Tuple[torch.Tensor, Optional[dict]]:
     """One attention layer.  mode: "train" | "prefill" | "decode";
     ``positions`` is (S,) absolute positions of x's tokens (in decode, one
     position).  ``kv_x`` (B, Sk, d_model), the cross-attention source,
     disables the cache, rope and the causal mask; ``causal=False`` (the
     encoder) attends over the whole sequence and keeps no cache.  Returns
-    (y, cache), the cache updated in place (None for cross-attention)."""
+    (y, cache), the cache updated in place (None for cross-attention).
+    ``tp`` (`sharding/parallel.TP`) runs the mesh program,
+    :func:`_apply_attention_tp`."""
     window = cfg.window_size if kind in ("swa", "local") else 0
+    if tp is not None and tp.active:
+        return _apply_attention_tp(cfg, p, x, window=window, mode=mode,
+                                   positions=positions, cache=cache,
+                                   causal=causal, tp=tp)
     q = _project_q(cfg, p, x)
     new_cache = None
     if kv_x is not None:                      # cross-attention (enc-dec)
@@ -418,3 +428,219 @@ def _flash(cfg, q, k, v, *, causal: bool, window: int = 0):
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         causal=causal, window=window,
         softcap=cfg.attn_softcap).transpose(1, 2)
+
+
+# --------------------------------------------------------------------------
+# The mesh program: tensor parallelism over "model", FSDP over "data"
+# --------------------------------------------------------------------------
+
+def _kv_for_heads(k, h0: int, h1: int, group: int):
+    """The kv heads that query heads ``[h0, h1)`` read, laid out so that
+    local query head ``i`` reads local kv head ``i // (h1 - h0) *
+    n_kv``: whole groups, one kv head for all of them, or (a range across
+    part of a group) one kv head a query head."""
+    a, b = h0 // group, (h1 - 1) // group + 1
+    if (h0 % group == 0 and (h1 - h0) % group == 0) or b - a == 1:
+        return k[:, :, a:b]
+    idx = torch.arange(h0, h1, device=k.device) // group
+    return k.index_select(2, idx)
+
+
+def _slot_positions(L: int, S: int, device) -> torch.Tensor:
+    """The position each slot of an L-slot cache holds after a prefill of
+    S positions (-1: empty), as :func:`cache_from_prefill` lays them."""
+    s = torch.arange(L, dtype=torch.int32, device=device)
+    if L >= S:
+        return torch.where(s < S, s, -1)
+    return (S - L) + torch.remainder(s - (S - L), L)
+
+
+def _new_entries(cache, k, v) -> dict:
+    new = {"k": k, "v": v}
+    if "k_scale" in cache:
+        new["k"], new["k_scale"] = _quantize_kv(k)
+        new["v"], new["v_scale"] = _quantize_kv(v)
+    return new
+
+
+def cache_from_prefill_block(cache, k, v, lo: int):
+    """:func:`cache_from_prefill` into a cache that holds slots ``[lo, lo +
+    L_local)`` of its L (``slot_pos`` whole, as the reference's
+    placement keeps it), from the full-sequence K/V, in place."""
+    Ll, L, S = cache["k"].shape[1], cache["slot_pos"].shape[0], k.shape[1]
+    pos = _slot_positions(L, S, k.device)
+    cache["slot_pos"].copy_(pos)
+    for name, x in _new_entries(cache, k, v).items():
+        if L >= S:
+            n = max(0, min(S - lo, Ll))
+            cache[name][:, :n] = x[:, lo:lo + n]
+        else:
+            cache[name].copy_(x.index_select(1, pos[lo:lo + Ll].long()))
+    return cache
+
+
+def _cache_write_decode_block(cache, k_new, v_new, pos: torch.Tensor,
+                              lo: int):
+    """:func:`_cache_write_decode` into a block of slots ``[lo, lo +
+    L_local)``: the token lands only on the rank that owns slot ``pos %
+    L`` (by slot, so a ring cache works); ``slot_pos`` is written on every
+    rank.  No host sync."""
+    Ll, L = cache["k"].shape[1], cache["slot_pos"].shape[0]
+    slot = torch.remainder(pos, L).long()
+    local = slot - lo
+    inside = (local >= 0) & (local < Ll)
+    idx = local.clamp(0, Ll - 1)
+    for name, x in _new_entries(cache, k_new, v_new).items():
+        keep = cache[name].index_select(1, idx)
+        cache[name].index_copy_(
+            1, idx, torch.where(inside.reshape((1,) * x.dim()), x, keep))
+    cache["slot_pos"].index_copy_(0, slot, pos.to(torch.int32))
+    return cache
+
+
+def _partial_attention(cfg, q, k, v, q_pos, k_pos, *, causal: bool,
+                       window: int = 0, k_scale=None, v_scale=None):
+    """:func:`direct_attention`'s sums over some of the slots, for a merge
+    across ranks: each query row's largest masked score ``m``, ``l = sum
+    exp(s - m)`` and ``o = sum exp(s - m) v`` (float32, unnormalized),
+    (B, Hkv, G * Sq) and (B, Hkv, G * Sq, D)."""
+    B, Sq, Hq, D = q.shape
+    L, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    block = _slot_block(B, L, Hkv, D)
+    qh = (q.float().reshape(B, Sq, Hkv, G, D).permute(0, 2, 3, 1, 4)
+          .reshape(B, Hkv, G * Sq, D))
+    s = torch.cat([qh @ _f32_heads(k, a, min(a + block, L)).transpose(-1, -2)
+                   for a in range(0, L, block)], -1)
+    s = s.view(B, Hkv, G, Sq, L) * (1.0 / math.sqrt(D))
+    if k_scale is not None:
+        s = s * k_scale.permute(0, 2, 1)[:, :, None, None, :]
+    if cfg.attn_softcap:
+        s = softcap(s, cfg.attn_softcap)
+    mask = k_pos[None, :] >= 0
+    if causal:
+        mask = mask & (k_pos[None, :] <= q_pos[:, None])
+    if window:
+        mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+    s = s.masked_fill(~mask, NEG_INF)
+    m = s.amax(-1)
+    e = torch.exp(s - m[..., None])
+    l = e.sum(-1)
+    if v_scale is not None:
+        e = e * v_scale.permute(0, 2, 1)[:, :, None, None, :]
+    e = e.reshape(B, Hkv, G * Sq, L)
+    o = None
+    for a in range(0, L, block):
+        part = e[..., a:a + block] @ _f32_heads(v, a, min(a + block, L))
+        o = part if o is None else o + part
+    return m.reshape(B, Hkv, G * Sq), l.reshape(B, Hkv, G * Sq), o
+
+
+def _decode_split(cfg, q, cache, positions, *, causal, window, tp, lo):
+    """Decode attention split over the sequence: every head over this
+    rank's slots, merged by log-sum-exp across "model" (a max, then one
+    all-reduce of the rescaled sums).  q (B, 1, Hq, D) whole."""
+    Ll = cache["k"].shape[1]
+    m, l, o = _partial_attention(
+        cfg, q, cache["k"], cache["v"], positions,
+        cache["slot_pos"][lo:lo + Ll], causal=causal, window=window,
+        k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))
+    a = torch.exp(m - P.max_over_model(tp, m))
+    lo_ = P.reduce_from_model(tp, torch.cat([(l * a)[..., None],
+                                             o * a[..., None]], -1))
+    out = lo_[..., 1:] / lo_[..., :1]
+    B, Sq, Hq, D = q.shape
+    Hkv = cache["k"].shape[2]
+    out = out.reshape(B, Hkv, Hq // Hkv, Sq, D).permute(0, 3, 1, 2, 4)
+    return out.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def _apply_attention_tp(cfg, p, x, *, window: int, mode: str, positions,
+                        cache, causal: bool, tp):
+    """One self-attention layer on a mesh.  ``wq``/``wk``/``wv`` are
+    column-parallel and ``wo`` row-parallel over "model" where their
+    widths divide (a rank's columns need not be whole heads); FSDP leaves
+    are gathered over "data" at use.  K and V are all-gathered over
+    "model" (small next to q).  Train and prefill compute, on each rank,
+    the heads that cover its q columns (q all-gathered first where a rank
+    holds part of a head), through the same routes as one device (the
+    chunked train attention; flash in prefill), and keep the rank's
+    columns for ``wo``, whose output is all-reduced.  The KV cache keeps
+    the reference's placement: its slots split over "model" where they
+    divide, ``slot_pos`` whole.  Prefill writes the rank's block of slots
+    from the gathered K/V; decode writes the new token on the rank that
+    owns its slot and attends over the sequence split
+    (:func:`_decode_split`)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    Hq, Hkv = cfg.num_heads, cfg.num_kv_heads
+    wq, wk, wv = (P.fsdp_gather(tp, p[n], -2, d) for n in ("wq", "wk", "wv"))
+    wo = P.fsdp_gather(tp, p["wo"], -1, d)
+    q_split = P.is_split(wq.shape[-1], cfg.q_dim)
+    kv_split = P.is_split(wk.shape[-1], cfg.kv_dim)
+    xc = P.copy_to_model(tp, x) if q_split or kv_split else x
+    B, S = x.shape[:2]
+
+    q = xc @ wq
+    if "bq" in p:
+        q = q + p["bq"]
+    kv = []
+    for w, b in ((wk, "bk"), (wv, "bv")):
+        t = (xc if kv_split else x) @ w
+        if b in p:
+            t = t + p[b]
+        if kv_split:
+            t = P.gather_model(tp, t, -1)
+        elif q_split:
+            t = P.copy_to_model(tp, t)       # whole, read split by heads
+        kv.append(t.reshape(B, S, Hkv, hd))
+    k, v = kv
+    sin, cos = rope_frequencies(cfg, positions)
+    k = apply_rope(k, sin, cos)
+
+    c0, c1 = P.block(tp, q.shape[-1], cfg.q_dim)   # this rank's q columns
+    whole = c0 % hd == 0 and c1 % hd == 0
+    if mode == "decode" or not whole:
+        q = P.gather_model(tp, q, -1) if q_split else q
+        h0, h1 = c0 // hd, -(-c1 // hd)
+        q = apply_rope(q.reshape(B, S, Hq, hd), sin, cos)
+    else:
+        h0, h1 = c0 // hd, c1 // hd
+        q = apply_rope(q.reshape(B, S, h1 - h0, hd), sin, cos)
+
+    new_cache = None
+    if mode == "decode":
+        Ll, L = cache["k"].shape[1], cache["slot_pos"].shape[0]
+        lo = P.block(tp, Ll, L)[0]
+        new_cache = _cache_write_decode_block(cache, k, v, positions, lo)
+        if Ll != L:
+            out = _decode_split(cfg, q, new_cache, positions, causal=causal,
+                                window=window, tp=tp, lo=lo)
+        else:
+            out = direct_attention(cfg, q, new_cache["k"], new_cache["v"],
+                                   positions, new_cache["slot_pos"],
+                                   causal=causal, window=window,
+                                   k_scale=new_cache.get("k_scale"),
+                                   v_scale=new_cache.get("v_scale"))
+        h0, h1 = 0, Hq
+    else:
+        if q.shape[2] == Hq:                # all heads: keep those of [c0, c1)
+            q = q[:, :, h0:h1]
+        G = Hq // Hkv
+        ks, vs = (_kv_for_heads(t, h0, h1, G) for t in (k, v))
+        if mode == "train":
+            if window:
+                out = windowed_full_attention(cfg, q, ks, vs, positions,
+                                              positions, window)
+            else:
+                out = chunk_attention(cfg, q, ks, vs, positions, positions,
+                                      causal=causal)
+        else:                               # prefill
+            out = _flash(cfg, q, ks, vs, causal=causal,
+                         window=window if causal else 0)
+            if cache is not None:
+                Ll, L = cache["k"].shape[1], cache["slot_pos"].shape[0]
+                new_cache = cache_from_prefill_block(
+                    cache, k, v, P.block(tp, Ll, L)[0])
+    out = out.reshape(B, S, (h1 - h0) * hd)[..., c0 - h0 * hd:c1 - h0 * hd]
+    y = out @ wo
+    return (P.reduce_from_model(tp, y) if q_split else y), new_cache

@@ -17,10 +17,12 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import parallel as P
+
 
 def _init(gen: torch.Generator, shape: Tuple[int, ...], scale: float,
           dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    x = torch.randn(shape, generator=gen, device=gen.device) * scale
+    x = torch.randn(shape, generator=gen, device=gen.device).mul_(scale)
     return x.to(device=device, dtype=dtype)
 
 
@@ -60,23 +62,42 @@ def init_embed(cfg, gen, dtype, device) -> dict:
     return p
 
 
-def embed_tokens(cfg, p, tokens):
-    x = p["embedding"][tokens]
+def embed_tokens(cfg, p, tokens, tp=None):
+    """Token embeddings.  Under tensor parallelism (``tp``, a
+    `sharding/parallel.TP`) a vocab-sharded table looks up the tokens in
+    its rows, zeroes the others and all-reduces over "model" (one nonzero
+    term a token: the sum is exact); an FSDP table is gathered first."""
+    table = P.fsdp_gather(tp, p["embedding"], 1, cfg.d_model)
+    lo, hi = P.vocab_range(tp, table.shape[0], cfg.vocab_padded)
+    if hi - lo == cfg.vocab_padded:
+        x = table[tokens]
+    else:
+        local = tokens - lo
+        inside = ((local >= 0) & (local < hi - lo))[..., None]
+        x = table[local.clamp(0, hi - lo - 1)].masked_fill(~inside, 0)
+        x = P.reduce_from_model(tp, x)
     if cfg.name.startswith("gemma") or cfg.name.startswith("recurrentgemma"):
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x
 
 
-def unembed(cfg, p, x):
-    """Logits over the padded vocab; padded entries are masked to -1e30."""
+def unembed(cfg, p, x, tp=None):
+    """Logits over the padded vocab; padded entries are masked to -1e30.
+    A vocab-sharded table (``tp``) gives this rank's slice of the logits,
+    (..., V_padded / model), the padded entries found by their global
+    index."""
     if cfg.tie_embeddings:
-        logits = x @ p["embedding"].T
+        w = P.fsdp_gather(tp, p["embedding"], 1, cfg.d_model).T
     else:
-        logits = x @ p["unembed"]
+        w = P.fsdp_gather(tp, p["unembed"], 0, cfg.d_model)
+    lo, hi = P.vocab_range(tp, w.shape[1], cfg.vocab_padded)
+    if hi - lo != cfg.vocab_padded:
+        x = P.copy_to_model(tp, x)
+    logits = x @ w
     if cfg.final_softcap:
         logits = softcap(logits, cfg.final_softcap)
     if cfg.vocab_padded != cfg.vocab_size:
-        pad = torch.arange(cfg.vocab_padded, device=x.device) >= cfg.vocab_size
+        pad = torch.arange(lo, hi, device=x.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e30)
     return logits
 
@@ -130,6 +151,17 @@ def activation(cfg, x):
     return F.silu(x)
 
 
-def apply_mlp(cfg, p, x):
-    h = activation(cfg, x @ p["w_gate"]) * (x @ p["w_up"])
-    return h @ p["w_down"]
+def apply_mlp(cfg, p, x, tp=None):
+    """The gated MLP.  Under tensor parallelism ``w_gate`` and ``w_up`` are
+    column-parallel and ``w_down`` row-parallel (where d_ff divides), the
+    output all-reduced over "model"; FSDP leaves are gathered at use."""
+    d = cfg.d_model
+    w_gate = P.fsdp_gather(tp, p["w_gate"], -2, d)
+    w_up = P.fsdp_gather(tp, p["w_up"], -2, d)
+    w_down = P.fsdp_gather(tp, p["w_down"], -1, d)
+    split = P.is_split(w_gate.shape[-1], cfg.d_ff)
+    if split:
+        x = P.copy_to_model(tp, x)
+    h = activation(cfg, x @ w_gate) * (x @ w_up)
+    y = h @ w_down
+    return P.reduce_from_model(tp, y) if split else y

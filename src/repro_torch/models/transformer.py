@@ -52,6 +52,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.sharding import parallel as P
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -92,18 +93,20 @@ def init_block(cfg, kind: str, gen, dtype, device, lead=(),
 
 def apply_block(cfg, kind: str, p: dict, x, *, mode: str, positions,
                 cache=None, enc_out=None, causal: bool = True,
-                dispatch: str = "dense"):
+                dispatch: str = "dense", tp=None):
     """Returns (x, cache, aux): the cache written in place, ``aux`` the MoE
     layer's f32 load-balance loss, or None without one (the reference's 0,
     which ``forward`` does not add).  A block with a cross-attention layer
     attends over ``enc_out`` after its self-attention; ``causal=False`` is
-    the encoder's self-attention."""
+    the encoder's self-attention.  ``tp`` (`sharding/parallel.TP`) runs
+    the dense block's mesh program."""
     aux = None
     h = L.apply_norm(cfg, p["norm1"], x)
     if kind in ATTN_KINDS:
         h, new_cache = attn.apply_attention(cfg, p["attn"], h, kind=kind,
                                             mode=mode, positions=positions,
-                                            cache=cache, causal=causal)
+                                            cache=cache, causal=causal,
+                                            tp=tp)
     elif kind == "rglru":
         h, new_cache = rglru_lib.apply_rglru(cfg, p["rglru"], h, mode=mode,
                                              cache=cache)
@@ -127,7 +130,7 @@ def apply_block(cfg, kind: str, p: dict, x, *, mode: str, positions,
     if cfg.num_experts:
         h, aux = moe_lib.apply_moe(cfg, p["moe"], h, dispatch)
     else:
-        h = L.apply_mlp(cfg, p["mlp"], h)
+        h = L.apply_mlp(cfg, p["mlp"], h, tp)
     if cfg.post_norm:
         h = L.apply_norm(cfg, p["postnorm2"], h)
     return x + h, new_cache, aux
@@ -173,10 +176,13 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                device, quantized: bool = False) -> dict:
+                device, quantized: bool = False, tp=None) -> dict:
     """Cache tree matching the layer structure (stacked over cycles): a
     ring-buffer KV cache for an attention layer (int8 with f32 scales if
-    ``quantized``), the recurrent state for an SSD or RG-LRU layer."""
+    ``quantized``), the recurrent state for an SSD or RG-LRU layer.  On a
+    mesh (``tp``) an attention cache holds this rank's block of slots
+    where the "model" size divides them (``slot_pos`` stays whole), the
+    reference's placement; ``batch`` is the rank's own rows."""
     pat = cfg.layer_pattern
     n_cycles = cfg.num_layers // len(pat)
     rem = cfg.num_layers % len(pat)
@@ -184,7 +190,8 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
     def one(kind, lead=()):
         if kind in ATTN_KINDS:
             return attn.init_cache(cfg, kind, batch, max_len, dtype, device,
-                                   quantized=quantized, lead=lead)
+                                   quantized=quantized, lead=lead,
+                                   shards=P.model_size(tp))
         if kind == "ssd":
             return ssm_lib.init_ssd_cache(cfg, batch, dtype, device, lead)
         return rglru_lib.init_rglru_cache(cfg, batch, dtype, device, lead)
@@ -252,14 +259,14 @@ def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor,
     return L.apply_norm(cfg, enc["final_norm"], x)
 
 
-def _embed_inputs(cfg, params, batch, mode, remat=False):
+def _embed_inputs(cfg, params, batch, mode, remat=False, tp=None):
     """(x, positions, enc_out): the tokens' embeddings with a vision
     prompt's projected patches in front, their absolute positions (in
     decode, ``batch["pos"]``), and an enc-dec model's encoder output
     (``batch["enc_out"]``, or ``batch["frames"]`` encoded here)."""
     tokens = batch["tokens"]
     dev = tokens.device
-    x = L.embed_tokens(cfg, params["embed"], tokens)
+    x = L.embed_tokens(cfg, params["embed"], tokens, tp)
     if mode == "decode":
         positions = torch.as_tensor(batch["pos"], device=dev).reshape(1)
     else:
@@ -280,7 +287,7 @@ def _embed_inputs(cfg, params, batch, mode, remat=False):
 
 def forward(cfg: ModelConfig, params: dict, batch: dict, *, mode: str,
             caches: Optional[dict] = None, dispatch: str = "dense",
-            last_only: bool = False, remat: bool = False
+            last_only: bool = False, remat: bool = False, tp=None
             ) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
     """Run the stack.  Returns (logits, caches, aux): the caches are the
     given ones, written in place; ``aux`` is the f32 sum over layers of the
@@ -294,8 +301,13 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *, mode: str,
     model reads "enc_out" (B, frontend_len, d_model) or "frames" from
     ``batch``, a vision model "patch_embeds" (B, frontend_len, d_model):
     its logits then cover frontend_len + S positions (:func:`_embed_inputs`).
+    ``tp`` (`sharding/parallel.TP`) runs the mesh program of the dense
+    family on this rank's blocks of ``params`` and ``caches``: the logits
+    are then its slice of the vocab.
     """
-    x, positions, enc_out = _embed_inputs(cfg, params, batch, mode, remat)
+    P.check_dense(cfg, tp is not None and tp.active)
+    x, positions, enc_out = _embed_inputs(cfg, params, batch, mode, remat,
+                                          tp)
     dev = x.device
     pat = cfg.layer_pattern
     n_cycles = cfg.num_layers // len(pat)
@@ -307,7 +319,7 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *, mode: str,
                      else tree_map(lambda t: t[c], caches["layers"][j]))
             x, _, a = apply_block(cfg, kind, layers[j][c], x, mode=mode,
                                   positions=positions, cache=cache,
-                                  enc_out=enc_out, dispatch=dispatch)
+                                  enc_out=enc_out, dispatch=dispatch, tp=tp)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -323,12 +335,12 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *, mode: str,
         cache = None if caches is None else caches["rem_layers"][j]
         x, _, a = apply_block(cfg, pat[j % len(pat)], lp, x, mode=mode,
                               positions=positions, cache=cache,
-                              enc_out=enc_out, dispatch=dispatch)
+                              enc_out=enc_out, dispatch=dispatch, tp=tp)
         if a is not None:
             aux = aux + a
 
     x = L.apply_norm(cfg, params["final_norm"], x)
     if last_only:
         x = x[:, -1:]
-    logits = L.unembed(cfg, params["embed"], x)
+    logits = L.unembed(cfg, params["embed"], x, tp)
     return logits, caches, aux

@@ -204,6 +204,30 @@ def tree_shardings(specs, mesh):
     return walk(specs)
 
 
+def spec_leaves(specs) -> list:
+    """The specs of a spec tree in leaf order (a spec is a tuple, so the
+    tree's own flatten would walk into it)."""
+    if isinstance(specs, PartitionSpec):
+        return [specs]
+    if isinstance(specs, dict):
+        return [x for v in specs.values() for x in spec_leaves(v)]
+    if isinstance(specs, (tuple, list)):
+        return [x for v in specs for x in spec_leaves(v)]
+    return []
+
+
+def spec_leaves_like(tree, specs) -> list:
+    """The specs of ``tree``'s leaves in ``tree``'s own leaf order (its
+    dicts matched to ``specs`` by key, whatever their order)."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in spec_leaves_like(v, specs[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v, s in zip(tree, specs)
+                for x in spec_leaves_like(v, s)]
+    return [specs]
+
+
 def batch_spec(batch_axes) -> PartitionSpec:
     """Spec for (global_batch, ...) data arrays."""
     return PartitionSpec(batch_axes)
@@ -218,3 +242,84 @@ def client_spec(mesh, client_axes, num_clients: int) -> PartitionSpec:
     if num_clients % axis_size(mesh, client_axes) != 0:
         return PartitionSpec()
     return PartitionSpec(client_axes)
+
+
+# --------------------------------------------------------------------------
+# Local blocks: a rank's shard of a full tree, and back
+# --------------------------------------------------------------------------
+
+def coordinates(mesh) -> Dict[str, int]:
+    """This rank's coordinate on each axis of a ``DeviceMesh``."""
+    return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+
+
+def _splits(spec: PartitionSpec, mesh, coords: Dict[str, int]):
+    """``(dim, parts, index)`` of each sharded dim of ``spec``: a dim over
+    a tuple of axes is split over their product, the first axis
+    outermost."""
+    shape = mesh_shape(mesh)
+    out = []
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        parts, index = 1, 0
+        for a in axes:
+            index = index * shape[a] + coords[a]
+            parts *= shape[a]
+        out.append((d, parts, index))
+    return out
+
+
+def _walk2(fn, tree, specs):
+    if isinstance(tree, dict):
+        return {k: _walk2(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        out = [_walk2(fn, v, s) for v, s in zip(tree, specs)]
+        return tuple(out) if isinstance(tree, tuple) else out
+    if tree is None:
+        return None
+    return fn(tree, specs)
+
+
+def local_shard(tree, specs, mesh, coords: Optional[Dict[str, int]] = None):
+    """This rank's blocks of a full tree (for example
+    ``transformer.params_from_numpy`` of the reference's arrays): each
+    leaf cut along the dims its spec shards, at the rank's mesh
+    coordinates (``coords``, default the ``DeviceMesh``'s own).  The specs
+    come from :func:`tree_param_specs`, so a dim the divisibility
+    fallback left whole stays whole; a spec that does not divide its dim
+    raises."""
+    coords = coordinates(mesh) if coords is None else coords
+
+    def one(x, spec):
+        for d, parts, index in _splits(spec, mesh, coords):
+            if x.shape[d] % parts:
+                raise ValueError(f"dim {d} of a {tuple(x.shape)} leaf does "
+                                 f"not split into {parts} blocks ({spec})")
+            n = x.shape[d] // parts
+            x = x.narrow(d, index * n, n)
+        return x.clone()
+
+    return _walk2(one, tree, specs)
+
+
+def gather_full(tree, specs, mesh):
+    """The inverse of :func:`local_shard`, on every rank: each leaf
+    all-gathered along its sharded dims, over each axis's process group
+    (the innermost axis of a tuple first).  For tests and checkpoints."""
+    from repro_torch.sharding import parallel
+    shape = mesh_shape(mesh)
+    coords = coordinates(mesh)
+
+    def one(x, spec):
+        for d, entry in enumerate(spec):
+            if entry is None:
+                continue
+            axes = (entry,) if isinstance(entry, str) else tuple(entry)
+            for a in reversed(axes):
+                x = parallel.all_gather(x, d, mesh.get_group(a), shape[a],
+                                        coords[a], a)
+        return x
+
+    return _walk2(one, tree, specs)

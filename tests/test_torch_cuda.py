@@ -711,3 +711,57 @@ def test_frontend_serving_on_the_card_matches_the_cpu(cuda_device, arch):
                             if cfg.is_enc_dec else n)
     for a, b in zip(outs["card"], outs["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def _tp_prefill_rank(rank: int, world: int, out: str) -> None:
+    """One rank of a (1, 2) mesh on the one card (gloo): the smoke
+    gemma2-2b in bf16, its blocks of the model, the mesh program's
+    prefill with the counts set to 0 just before it, and one device's
+    prefill of the same model; the rank's vocab slice of both to
+    ``out``."""
+    from repro_torch.configs import (get_config, get_profile, replace,
+                                     smoke_variant)
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.models import init_params
+    from repro_torch.models.model import prefill_last
+    from repro_torch.sharding import rules
+    mesh = mesh_lib.make_mesh((1, 2), device_type="cuda")
+    cfg = replace(smoke_variant(get_config("gemma2-2b")), dtype="bfloat16")
+    prof = get_profile("gemma2-2b")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    full = init_params(cfg, gen)
+    toks = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen,
+                         device="cuda")
+    local = rules.local_shard(full, steps.param_specs(cfg, prof, mesh), mesh)
+    tp = steps.mesh_program(mesh, cfg, prof)
+    with torch.inference_mode():
+        want, _ = prefill_last(cfg, full, {"tokens": toks}, 256)
+        ops.reset_launches()
+        got, _ = prefill_last(cfg, local, {"tokens": toks}, 256, tp=tp)
+        torch.cuda.synchronize()
+    v = got.shape[-1]
+    torch.save({"got": got.float().cpu(),
+                "want": want[:, tp.rank * v:(tp.rank + 1) * v].float().cpu(),
+                "launches": dict(ops.LAUNCHES), "layers": cfg.num_layers},
+               f"{out}.{rank}.pt")
+
+
+@pytest.mark.cuda
+def test_tensor_parallel_prefill_on_the_card(cuda_device, tmp_path):
+    """Two ranks sharing the card over gloo, tensor parallelism over
+    "model" (smoke gemma2-2b, bf16): each rank's vocab slice of the
+    last-position logits within the bf16 serving bar (0.1, as
+    ``test_torch_transformer.py``'s bf16 models) of one device's, and
+    every layer's prefill through the flash kernel on each rank's
+    heads."""
+    from repro_torch.launch import mesh as mesh_lib
+    out = str(tmp_path / "tp")
+    mesh_lib.spawn_ranks(_tp_prefill_rank, 2, (out,), device_type="cuda",
+                         timeout_s=600)
+    for r in range(2):
+        res = torch.load(f"{out}.{r}.pt")
+        assert res["got"].shape == res["want"].shape
+        assert torch.isfinite(res["got"]).all()
+        assert (res["got"] - res["want"]).abs().max() <= 0.1
+        assert res["launches"]["flash_attention"] == res["layers"]

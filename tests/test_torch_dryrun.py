@@ -27,8 +27,9 @@ against the JAX package's, and against hand counts, on the CPU.
   Nothing is built or launched.
 * The live-byte peak and the alias of a hand-made step, the CLI's exit
   codes, the layouts (``clients`` leaves no process group, even on an
-  error; ``single`` and ``multi`` skip every pair naming the missing
-  tensor parallelism), and the launchers' ``--dry-run``.
+  error; ``single`` and ``multi`` count the dense transformers' pairs
+  and skip every other family's naming its missing tensor-parallel
+  design), and the launchers' ``--dry-run``.
 """
 import dataclasses
 import importlib.util
@@ -378,33 +379,75 @@ def test_clients_layout_leaves_no_process_group(monkeypatch):
     assert not dist.is_initialized()
 
 
-def test_every_production_mesh_pair_names_tensor_parallelism(capsys):
-    """``--mesh both``: every pair of every arch skipped, each reason
-    naming the missing tensor parallelism (and, for a long_500k pair that
-    ``shape_applicable`` rejects, its reason too); the exit code 0."""
-    assert dryrun.main(["--all", "--mesh", "both"]) == 0
+DENSE = [a for a in tconfigs.ARCH_NAMES
+         if tconfigs.get_config(a).family == "dense"]
+OTHER = [a for a in tconfigs.ARCH_NAMES if a not in DENSE]
+
+
+@pytest.mark.parametrize("family", ["dense", "other"])
+def test_every_production_mesh_pair_names_tensor_parallelism(family,
+                                                             capsys):
+    """``--mesh both``.  The six families without a tensor-parallel design
+    (full size): every pair skipped, each reason naming item 1b (and, for
+    a long_500k pair that ``shape_applicable`` rejects, its reason too).
+    The dense transformers (their smoke variants at ``decode_32k``: a
+    full-size count takes minutes): every pair counted, ``ok``.  Exit
+    code 0."""
+    archs = DENSE if family == "dense" else OTHER
+    extra = ["--smoke", "--shape", "decode_32k"] if family == "dense" else []
+    for arch in archs:
+        assert dryrun.main(["--arch", arch, "--mesh", "both"] + extra) == 0
     lines = [x for x in capsys.readouterr().out.splitlines()
              if " x " in x]
-    assert len(lines) == 2 * len(tconfigs.ARCH_NAMES) * len(tshapes.SHAPES)
+    shapes = 1 if family == "dense" else len(tshapes.SHAPES)
+    assert len(lines) == 2 * len(archs) * shapes
+    if family == "dense":
+        assert all(": ok hbm/dev=" in x for x in lines), lines
+        return
     assert all(": skipped (" + dryrun.NO_TP in x for x in lines)
+    assert "slice 16b item 1b" in dryrun.NO_TP
     rec = dryrun.run_one("grok-1-314b", "long_500k", "16x16")
     assert rec["reason"].endswith("no windowed variant implemented")
 
 
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])
-def test_production_meshes_skip_naming_tensor_parallelism(shape):
-    """16x16: skipped for want of tensor parallelism, with the bytes a
-    device holds under the placements: the full gemma2-2b's arguments
-    split where they divide (its 256,000-row embedding over "model", the
-    clients of a train step over "data")."""
-    rec = dryrun.run_one("gemma2-2b", shape, "16x16")
-    assert rec["status"] == "skipped" and rec["reason"] == dryrun.NO_TP
+@pytest.mark.parametrize("arch", ["gemma2-2b", "mixtral-8x22b"])
+def test_production_meshes_skip_naming_tensor_parallelism(arch, shape):
+    """16x16, 256 devices.  gemma2-2b (dense; its smoke variant) counts as
+    rank 0 of a fake group, and the arguments it holds are its blocks
+    under the placements (the client stack's rows over "data", the
+    vocab and projections over "model"); its collectives run over
+    "model" (and, training, over the clients).  mixtral-8x22b (MoE, full
+    size) is skipped naming item 1b, with the bytes a device would hold
+    under the placements: its arguments split where they divide."""
+    smoke = arch in DENSE
+    rec = dryrun.run_one(arch, shape, "16x16", smoke=smoke)
     assert rec["devices"] == 256
-    cfg = tconfigs.get_config("gemma2-2b")
-    params = tsteps._param_structs(cfg)
-    full = sum(s.numel() * 2 for s in tree_leaves(params))    # bf16
+    cfg = tconfigs.get_config(arch)
+    if smoke:
+        cfg = tconfigs.smoke_variant(cfg)
     per_device = rec["memory"]["argument_size_in_bytes"]
-    assert 0 < per_device < full
+    if not smoke:
+        assert rec["status"] == "skipped" and rec["reason"] == dryrun.NO_TP
+        params = tsteps._param_structs(cfg)
+        full = sum(s.numel() * 2 for s in tree_leaves(params))    # bf16
+        assert 0 < per_device < full
+        return
+    assert rec["status"] == "ok", rec
+    mesh = dryrun.ShapeMesh({"data": 16, "model": 16})
+    if shape == "train_4k":
+        specs, sh = tsteps.train_placements(arch, tshapes.SHAPES[shape],
+                                            mesh, cfg=cfg)
+    else:
+        b = tsteps.build_step(arch, tshapes.SHAPES[shape], mesh, cfg=cfg)
+        specs, sh = b.in_specs, b.in_shardings
+    want = dryrun._per_device_bytes(specs, sh, [16, 16])
+    # the round index: a 0-d int32 among the placements, a Python int in
+    # the step
+    assert per_device == want - (4 if shape == "train_4k" else 0)
+    axes = rec["collectives_by_axis"]
+    assert axes["model"]["all-reduce"] > 0
+    assert ("clients" in axes) == (shape == "train_4k")
 
 
 def test_launchers_dry_run(capsys):

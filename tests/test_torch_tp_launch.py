@@ -1,0 +1,61 @@
+"""The ``--mesh DxM`` launchers on the CPU: ``launch/serve.py`` and
+``launch/train.py`` run their step on D x M spawned gloo ranks
+(``launch/mesh.spawn_ranks``, each rank drawing the one-device model and
+keeping its blocks through ``launch/mesh.local_blocks``), and rank 0's
+JSON line meets the one-device run of the same command line.
+
+* Serving (gemma2-2b smoke, float32, (1, 2)): rank 0 serves every row,
+  and its greedy tokens equal the one-device run's.
+* Training (gemma2-2b smoke, bfloat16 as its profile, (2, 2): two
+  clients of two model ranks, the clients set by the mesh): round 0's
+  mean client CE meets the one-device run's with two clients at 1e-2
+  relative, the bar of ``tests/test_torch_train.py``'s bf16 round.
+"""
+import json
+
+import pytest
+
+from repro_torch.launch import serve, train
+
+BF16_CE_RTOL = 1e-2
+
+
+def _line(capfd, main, argv):
+    """The last JSON line ``main(argv)`` prints (rank 0's on a mesh:
+    spawned ranks write to the same file descriptor)."""
+    capfd.readouterr()
+    main(argv)
+    out = capfd.readouterr().out
+    return json.loads([s for s in out.splitlines() if s.startswith("{")][-1])
+
+
+@pytest.fixture(autouse=True)
+def _one_thread(monkeypatch):
+    # each spawned rank inherits the environment: one thread a rank
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+
+
+def test_serve_mesh_1x2_matches_one_device(capfd):
+    argv = ["--arch", "gemma2-2b", "--smoke", "--device", "cpu",
+            "--batch", "2", "--prompt-len", "24", "--tokens", "5"]
+    one = _line(capfd, serve.main, argv)
+    got = _line(capfd, serve.main, argv + ["--mesh", "1x2"])
+    assert got["mesh"] == {"data": 1, "model": 2}
+    assert got["rows"] == 2
+    assert got["params"] == one["params"]
+    assert got["first_tokens"] == one["first_tokens"]
+    # the prefill's K/V gathers and the row-parallel all-reduces ran
+    assert got["collective_bytes"]["model"]["all-reduce"] > 0
+
+
+def test_train_mesh_2x2_matches_one_device(capfd):
+    argv = ["--arch", "gemma2-2b", "--smoke", "--device", "cpu",
+            "--rounds", "1", "--global-batch", "4", "--clusters", "2"]
+    one = _line(capfd, train.main, argv + ["--clients", "2"])
+    got = _line(capfd, train.main, argv + ["--mesh", "2x2"])
+    assert got["mesh"] == {"data": 2, "model": 2}
+    assert got["clients"] == one["clients"] == 2
+    assert got["clusters"] == one["clusters"]
+    ce, want = got["rounds"][0]["ce"], one["rounds"][0]["ce"]
+    assert abs(ce - want) <= BF16_CE_RTOL * abs(want), (ce, want)
+    assert got["rounds"][0]["collective_bytes"]["model"]["all-reduce"] > 0
