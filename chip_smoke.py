@@ -56,15 +56,25 @@ qwen2-72b at full width with its depth cut to 16 layers served on a (1,
 gemma2-2b at full width, 12 layers, trained one round on a (2, 2) mesh
 (2 clients of TP 2), the ranks spawned processes sharing the card over
 gloo, each against the same weights on one rank without a mesh, with
-flash at one rank's heads (row 4h), trains the full gemma2-2b through
+flash at one rank's heads (row 4h), runs the mesh program of the other
+families the same way on a (1, 2) mesh (phase ``tp_families``):
+grok-1-314b at full width and 4 layers (per-expert TP, B = 2 x 4096, the
+held run fed one rank's routing; every token the mesh would have routed
+apart must be a router near-tie), whisper-large-v3 at 8 + 8 layers (4 clips encoded on
+the mesh, cross-attention on a rank's heads) and pixtral-12b at 8 layers
+(1024 patches projected column-parallel), each a prefill and 8 decode
+steps held against one rank, with flash at a rank's heads (grok-1's
+layer, whisper's encoder and its cross-attention in decode), trains the
+full gemma2-2b through
 ``repro_torch.launch.train.train`` (4 clients stacked on the card, K = 2,
 4096-token sequences, 3 rounds with stage-2 in round 2; round 1's stage-1
 held against the plain version on its own stack and timed; one stage-1
-launch a round; rounds 1-2 again with the kernels off), then mamba2-1.3b,
-recurrentgemma-2b and whisper-large-v3 (their depth cut: 24, 12 and 16 +
-16 layers) the same way for 2 rounds (round 1 again with the kernels off; one
-stage-1 launch a round for each dtype of their leaves), dry-runs each of
-those serves and trainings and the tp runs on the host
+launch a round; rounds 1-2 again with the kernels off), then mamba2-1.3b
+and recurrentgemma-2b at full depth and whisper-large-v3 (its depth cut
+to 16 + 16 layers) the same way for 2 rounds (round 1 again with the
+kernels off; one stage-1 launch a round for each dtype of their leaves),
+dry-runs each of those serves and trainings and the tp and tp_families
+runs on the host
 (``repro_torch.launch.dryrun``, fake tensors, in worker processes that
 count while the card trains) and holds its predicted peak within 0.5-2x
 of the measured one, and prints one JSON line per phase.  The line
@@ -877,7 +887,7 @@ def check_flash_moe(gen) -> dict:
     return rows
 
 
-def check_flash_frontend(gen) -> dict:
+def check_flash_frontend(gen, shapes=None) -> dict:
     """The bf16 flash kernel at the front-end models' shapes (rows 4e-4g,
     FLASH_FRONTEND): whisper's encoder layer (non-causal, Sq = Sk = 1500,
     which is 23 kv tiles of 64 and 28 keys), its cross-attention in
@@ -886,11 +896,13 @@ def check_flash_frontend(gen) -> dict:
     8192), each from the model's (B, S, H, D) layout, held against the
     plain version (a kv head at a time past PLAIN_SCORES_MAX) at gemma2's
     layer bars and timed (``bf16_flash_layer``) beside SDPA, which
-    computes the same function here (no soft-cap, no window)."""
+    computes the same function here (no soft-cap, no window).  ``shapes``
+    takes other shapes of the same form (FLASH_TPF: a rank's heads)."""
     import torch
     import torch.nn.functional as F
     rows = {}
-    for name, (b, hq, hkv, sq, sk, d, causal) in FLASH_FRONTEND.items():
+    for name, (b, hq, hkv, sq, sk, d, causal) in (
+            shapes or FLASH_FRONTEND).items():
         q = (torch.randn((b, sq, hq, d), generator=gen, device=DEV)
              .bfloat16().transpose(1, 2))
         k, v = (torch.randn((b, sk, hkv, d), generator=gen, device=DEV)
@@ -2422,8 +2434,6 @@ MESH_TIMEOUT_S = 600
 # differs printed with the one-rank run's top-2 gap there)
 TP_ARCH, TP_LAYERS, TP_MESH = "qwen2-72b", 16, (1, 2)
 TP_BATCH, TP_PROMPT, TP_DECODE, TP_SEED = 2, 4096, 16, 7
-# the caches serve_batch sizes on the mesh: the prompt and the new tokens,
-# rounded up to whole blocks of slots a rank
 # gemma2-2b trains one round on a (2, 2) mesh: 2 clients of TP 2, K = 1,
 # 2 rows of 4096 tokens a client (2 microbatches), at full width with its
 # depth cut 26 -> 12: four ranks share the card's 80 GB (the dry run
@@ -2431,7 +2441,6 @@ TP_BATCH, TP_PROMPT, TP_DECODE, TP_SEED = 2, 4096, 16, 7
 # one-device step on the same two-client stack, each leaf within one bf16
 # ulp of the leaf's largest magnitude (the one-device update printed in
 # the same ulps beside it), the mean client CE at TP_CE_RTOL
-TP_CACHE = -(-(TP_PROMPT + TP_DECODE + 1) // TP_MESH[1]) * TP_MESH[1]
 TP_TRAIN_ARCH, TP_TRAIN_LAYERS, TP_TRAIN_MESH = "gemma2-2b", 12, (2, 2)
 TP_TRAIN_BATCH, TP_TRAIN_SEQ = 4, 4096
 # the zero-initialized norm scales are, after one round, lr times a bf16
@@ -2461,6 +2470,42 @@ TP_TIMEOUT_S = 900
 # row 4h: the bf16 flash kernel at qwen2-72b's heads on one rank of the
 # (1, 2) mesh: B, Hq, Hkv, S, D (causal, no window or soft-cap)
 FLASH_TP = (TP_BATCH, 32, 4, TP_PROMPT, 128)
+# tensor parallelism for the mixtures of experts, the encoder-decoder and
+# the vision front end (phase tp_families): each arch at full width, its
+# depth cut to fit the phase's time, served on a (1, 2) mesh of two
+# spawned ranks sharing the card over gloo and held, as the tp phase
+# holds qwen2-72b, against the same weights on one rank without a mesh
+# (one process for the three archs one after another, the two ranks
+# spawned once for all three): grok-1-314b 64 -> 4 layers (4 x 9.66 GB
+# of experts + 1.6 GB of embedding: ~41 GB whole, ~21 GB a rank; int8
+# cache, scan dispatch), B = 2 x 4096 tokens; whisper-large-v3 32 + 32
+# -> 8 + 8 layers, B = 4 clips of 1500 frames and 128 tokens;
+# pixtral-12b 40 -> 8 layers, B = 1 x (1024 patches + 1024 tokens); a
+# prefill, then 8 greedy decode steps; grok-1's routing (each layer's
+# top-2 experts of every token) compared too
+TPF_ARCHS = ("grok-1-314b", "whisper-large-v3", "pixtral-12b")
+# every served mesh run (phases tp and tp_families) on TP_MESH: arch ->
+# (layers, B, text tokens, decode steps, seed)
+TP_SERVES = {TP_ARCH: (TP_LAYERS, TP_BATCH, TP_PROMPT, TP_DECODE, TP_SEED),
+             "grok-1-314b": (4, 2, 4096, 8, 11),
+             "whisper-large-v3": (8, 4, 128, 8, 11),
+             "pixtral-12b": (8, 1, 1024, 8, 11)}
+# a token the mesh would route to other experts than one rank (fed one
+# rank's routing, so that the two runs' hidden states part by rounding
+# alone) must be a router near-tie: one rank's k-th and (k+1)-th router
+# logits at most this far apart (8 bf16 ulps at magnitude 1; the logits
+# are N(0, 1)-sized, an rms-normalized x against a router of scale
+# d^-1/2, and the two runs' residual streams differ by bf16 rounding
+# order, ~1e-2 relative)
+TPF_ROUTER_TIE = 0.0625
+# the bf16 flash kernel at one rank's heads on the (1, 2) mesh: B, Hq,
+# Hkv, Sq, Sk, D, causal (grok-1's layer; whisper's encoder layer and its
+# cross-attention in decode)
+FLASH_TPF = {
+    "grok_tp": (2, 24, 4, 4096, 4096, 128, True),
+    "whisper_encoder_tp": (4, 10, 10, 1500, 1500, 64, False),
+    "whisper_cross_decode_tp": (4, 10, 10, 1, 1500, 64, False),
+}
 
 
 def mesh_scenarios() -> dict:
@@ -2680,36 +2725,6 @@ def tp_out(tmp: str, tag: str, rank: int) -> Path:
     return Path(tmp) / f"{tag}_rank{rank}.json"
 
 
-def tp_one_serve(rank: int, world: int, tmp: str, tag: str) -> None:
-    """The qwen2-72b serve on one rank without a mesh: the same weights
-    and prompts (TP_SEED), ``serve_batch`` with the counts set to 0 just
-    before it, then :func:`tp_steps` fed its own greedy tokens; its
-    record, the tokens in it, to :func:`tp_out`."""
-    import torch
-    from repro_torch.kernels import ops
-    from repro_torch.launch.serve import serve_batch
-    from repro_torch.models import init_params
-    from repro_torch.tree import tree_leaves
-    cfg, prof = tp_config(TP_ARCH, TP_LAYERS)
-    g = torch.Generator(device=DEV).manual_seed(TP_SEED)
-    params = init_params(cfg, g)
-    prompts = torch.randint(0, cfg.vocab_size, (TP_BATCH, TP_PROMPT),
-                            generator=g, device=DEV)
-    serve = dict(dispatch=prof.moe_dispatch, quantized_cache=prof.kv_int8)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    res = serve_batch(cfg, params, prompts, TP_DECODE + 1, device=DEV,
-                      **serve)
-    out = tp_out(tmp, tag, rank)
-    rec = tp_serve_record(res, dict(ops.LAUNCHES), {})
-    rec.update(tp_steps(cfg, params, prompts, serve, None, out,
-                        res.tokens.to(DEV)))
-    rec["param_bytes"] = sum(x.numel() * x.element_size()
-                             for x in tree_leaves(params))
-    out.write_text(json.dumps(rec))
-
-
 def tp_one_train(rank: int, world: int, tmp: str, tag: str,
                  want: str) -> None:
     """The gemma2-2b round on one device: the one-device step over the
@@ -2740,105 +2755,14 @@ def tp_one_train(rank: int, world: int, tmp: str, tag: str,
     tp_out(tmp, tag, rank).write_text(json.dumps(rec))
 
 
-def tp_serve_rank(rank: int, world: int, tmp: str, tag: str,
-                  one: str) -> None:
-    """One rank of the qwen2-72b (1, 2) serve: its blocks of the model
-    (the one-rank run's weights and prompts, drawn from TP_SEED;
-    `launch/mesh.local_blocks`), then ``serve_batch`` over the mesh
-    program with the counts set to 0 just before it; then
-    :func:`tp_steps` fed the one-rank run's greedy tokens (its record
-    ``one``).  Writes its record to :func:`tp_out`."""
-    import torch
-    from repro_torch.kernels import ops
-    from repro_torch.launch import mesh as mesh_lib
-    from repro_torch.launch import steps
-    from repro_torch.launch.serve import serve_batch
-    from repro_torch.models import init_params
-    from repro_torch.sharding import parallel as P
-    from repro_torch.tree import tree_leaves
-    mesh = mesh_lib.make_mesh(TP_MESH, device_type="cuda")
-    cfg, prof = tp_config(TP_ARCH, TP_LAYERS)
-    tp = steps.mesh_program(mesh, cfg, prof)
-    gen = torch.Generator(device=DEV).manual_seed(TP_SEED)
-    params, _ = mesh_lib.local_blocks(lambda: init_params(cfg, gen),
-                                      steps.param_specs(cfg, prof, mesh),
-                                      mesh)
-    prompts = torch.randint(0, cfg.vocab_size, (TP_BATCH, TP_PROMPT),
-                            generator=gen, device=DEV)
-    serve = dict(dispatch=prof.moe_dispatch, quantized_cache=prof.kv_int8)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    P.reset_traffic()
-    res = serve_batch(cfg, params, prompts, TP_DECODE + 1, device=DEV,
-                      tp=tp, **serve)
-    launches = dict(ops.LAUNCHES)
-    traffic = P.traffic()
-    out = tp_out(tmp, tag, rank)
-    rec = tp_serve_record(res, launches, traffic)
-    tokens = torch.tensor(json.loads(Path(one).read_text())["tokens"],
-                          device=DEV)
-    rec.update(tp_steps(cfg, params, prompts, serve, tp, out, tokens))
-    rec.update(rank=rank, model_rank=tp.rank,
-               param_bytes=sum(x.numel() * x.element_size()
-                               for x in tree_leaves(params)))
-    out.write_text(json.dumps(rec))
-
-
-def tp_serve_record(res, launches, traffic) -> dict:
+def tp_serve_record(res, launches, traffic, steps: int) -> dict:
     return {"tokens": res.tokens.tolist(), "prefill_s": res.prefill_s,
-            "decode_s": res.decode_s, "decode_s_per_step":
-            res.decode_s / TP_DECODE,
+            "encode_s": res.encode_s, "decode_s": res.decode_s,
+            "decode_s_per_step": res.decode_s / steps,
             "decode_tokens_per_s": res.decode_tokens_per_s,
             "peak_device_mem_mb": res.peak_device_mem_mb,
             "cache_bytes": res.cache_bytes, "launches": launches,
             "serve_bytes_by_axis": traffic}
-
-
-def tp_steps(cfg, params, prompts, serve, tp, out: Path, tokens) -> dict:
-    """A prefill at TP_CACHE slots, then TP_DECODE decode steps fed
-    ``tokens`` (the one-rank run's greedy tokens: decode step i feeds
-    column i - 1 at position TP_PROMPT + i - 1, as ``serve_batch`` does),
-    each step's collectives timed (`parallel.timed`: the card
-    synchronized around each).  Returns the prefill's and the first
-    decode step's seconds, collective seconds and bytes by axis and
-    gloo share; each step's logits (the prefill's last position, then
-    each decode step's; this rank's vocab slice, every column with ``tp``
-    None) go to ``out + ".pt"`` as one (B, 1 + TP_DECODE, V) f32
-    tensor."""
-    import torch
-    from repro_torch.models import decode_step
-    from repro_torch.models.model import prefill_last
-    from repro_torch.sharding import parallel as P
-    timed, rows = {}, []
-    with torch.inference_mode():
-        for i in range(TP_DECODE + 1):
-            P.reset_traffic()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with P.timed() as secs:
-                if i == 0:
-                    logits, caches = prefill_last(
-                        cfg, params, {"tokens": prompts}, TP_CACHE, tp=tp,
-                        **serve)
-                else:
-                    logits, caches = decode_step(
-                        cfg, params, caches, tokens[:, i - 1:i],
-                        TP_PROMPT + i - 1, tp=tp,
-                        dispatch=serve["dispatch"])
-                    logits = logits[:, 0]
-                torch.cuda.synchronize()
-                s = time.perf_counter() - t0
-                coll = dict(secs)
-            if i < 2:
-                timed["decode" if i else "prefill"] = {
-                    "s": s, "collective_s": coll,
-                    "gloo_share": sum(coll.values()) / s,
-                    "bytes_by_axis": P.traffic()}
-            rows.append(logits.float().cpu())
-        del caches
-    torch.save(torch.stack(rows, 1), f"{out}.pt")
-    return {"timed_steps": timed}
 
 
 def tp_train_rank(rank: int, world: int, tmp: str, tag: str,
@@ -2999,39 +2923,16 @@ def check_flash_tp(gen) -> dict:
     return row
 
 
-def tp_phase(smi: str, tmp: Path, gen) -> tuple:
-    """Tensor parallelism over "model" and FSDP over "data" on the card
-    (`sharding/parallel.py`): qwen2-72b served on a (1, 2) mesh and
-    gemma2-2b trained one round on a (2, 2) mesh, each against the same
-    weights on one rank without a mesh, the ranks spawned processes
-    sharing the card over gloo; then row 4h (flash at qwen2-72b's heads
-    on one rank).  The serve is held by the prefill's last-position
-    logits and, fed the one-rank run's greedy tokens, every decode
-    step's (the int8 cache's writes on the rank that owns a slot, the
-    log-sum-exp merge over "model"), and by its own greedy tokens, each
-    that differs printed with the one-rank run's top-2 gap there.
-    Returns the phase line, row 4h and the flash launches a tp rank made
-    on the serve path."""
+def hold_serve(cfg, want, got, one_rec: dict, ranks: list) -> dict:
+    """A mesh serve held against one rank's: ``want`` and ``got`` (B, 1 +
+    decode steps, V) f32 logits (the prefill's last position, then each
+    decode step fed the one-rank run's tokens; ``got`` the ranks' vocab
+    slices concatenated), within CONSIST_TOL_BF16 at every step; every
+    rank's greedy tokens alike, the first equal to one rank's; each token
+    that differs listed with the one-rank run's top-2 gap there, and
+    where a row first parts that gap within twice the logits' distance
+    (the same history: only a near-tie can part them)."""
     import torch
-    tmp = tmp.resolve()
-    t_phase = time.perf_counter()
-
-    # ---- qwen2-72b, one rank, no mesh: the same weights and prompts (a
-    # spawned process, so that its memory goes with it) ------------------
-    cfg, prof = tp_config(TP_ARCH, TP_LAYERS)
-    one_rec = tp_spawn(tp_one_serve, 1, tmp, "tp_one")[0]
-    one_path = tp_out(tmp, "tp_one", 0)
-
-    # ---- qwen2-72b on the (1, 2) mesh -------------------------------------
-    world = TP_MESH[0] * TP_MESH[1]
-    t0 = time.perf_counter()
-    ranks = tp_spawn(tp_serve_rank, world, tmp, "tp_serve", str(one_path))
-    serve_wall = time.perf_counter() - t0
-    # (B, 1 + TP_DECODE, V): the prefill's last position, then each
-    # decode step fed the one-rank run's tokens
-    want = torch.load(f"{one_path}.pt")
-    got = torch.cat([torch.load(f"{tp_out(tmp, 'tp_serve', r)}.pt")
-                     for r in range(world)], -1)
     assert got.shape == want.shape, (got.shape, want.shape)
     got, want = got[..., :cfg.vocab_size], want[..., :cfg.vocab_size]
     assert torch.isfinite(got).all()
@@ -3057,7 +2958,6 @@ def tp_phase(smi: str, tmp: Path, gen) -> tuple:
     toks = torch.tensor(one_rec["tokens"])
     for r in ranks:
         assert r["tokens"] == ranks[0]["tokens"], "ranks disagree"
-        assert r["launches"]["flash_attention"] == TP_LAYERS, r["launches"]
     mesh_toks = torch.tensor(ranks[0]["tokens"])
     assert torch.equal(mesh_toks[:, 0], toks[:, 0]), (mesh_toks, toks)
     agree = (mesh_toks == toks)
@@ -3074,12 +2974,108 @@ def tp_phase(smi: str, tmp: Path, gen) -> tuple:
                                      - got[b, i, toks[b, i]])}
                for b, i in agree.logical_not().nonzero().tolist()]
     replay = int((want.argmax(-1) == toks).sum())
-    # where a row first parts, the two runs had the same history: the
-    # mesh can pick another token only where one rank's top two logits
-    # lie within twice the logits' distance
     for d in differs:
         if d["first_in_row"]:
             assert d["one_rank_top2_gap"] <= 2 * decode["max_abs_err"], d
+    return {"logits_vs_one_rank": logits,
+            "decode_logits_vs_one_rank": decode,
+            "first_token_equal": True,
+            "decoded_tokens_agree": int(agree.sum()),
+            "decoded_tokens": agree.numel(),
+            "first_disagreement_at": first_off,
+            "tokens_that_differ": differs,
+            "one_rank_replay_agrees": replay}
+
+
+def hold_routing(cfg, one: list, ranks: list) -> dict:
+    """A MoE serve's routing on the mesh against one rank's: ``one`` and
+    each rank's ``ranks[r]`` hold, a step (the prefill, then each decode
+    step), a layer's (sorted top-k experts (B, S, k), log probabilities
+    (B, S, E)), the mesh's the experts it would have picked itself.  The
+    ranks route alike (the first rank's indices,
+    `parallel.agree_over_model`).  The mesh run was fed one rank's
+    routing, so its hidden states follow one rank's within rounding at
+    every layer and position: every token a layer it would have routed
+    otherwise must be a near-tie, one rank's gap between its k-th and
+    (k+1)-th router logits at most TPF_ROUTER_TIE.  Returns the routings
+    (a token a layer) and those apart, by step, the largest gap and
+    router-log-probability distance among them, and the first 16."""
+    import torch
+    k = cfg.experts_per_token
+    mesh = ranks[0]
+    for r in ranks[1:]:
+        assert all(torch.equal(a[0], b[0]) for sa, sb in zip(r, mesh)
+                   for a, b in zip(sa, sb)), "the ranks routed apart"
+    assert len(one) == len(mesh)
+    apart, tokens, by_step = [], 0, []
+    for i, (s_one, s_mesh) in enumerate(zip(one, mesh)):
+        assert len(s_one) == len(s_mesh) == cfg.num_layers
+        n = 0
+        for lay, ((ia, la), (ib, lb)) in enumerate(zip(s_mesh, s_one)):
+            off = (ia != ib).any(-1)                      # (B, S)
+            tokens += off.numel()
+            n += int(off.sum())
+            for b, t in off.nonzero().tolist():
+                top = lb[b, t].sort(descending=True).values
+                apart.append({"step": i, "layer": lay, "row": b,
+                              "token": t,
+                              "one_rank_gap": float(top[k - 1] - top[k]),
+                              "router_distance": float(
+                                  (la[b, t] - lb[b, t]).abs().max())})
+                assert apart[-1]["one_rank_gap"] <= TPF_ROUTER_TIE, \
+                    apart[-1]
+        by_step.append(n)
+    return {"routings": tokens, "routed_apart": len(apart),
+            "share_whose_topk_differ": len(apart) / tokens,
+            "apart_by_step": by_step,
+            "max_one_rank_gap": max((a["one_rank_gap"] for a in apart),
+                                    default=None),
+            "max_router_distance": max((a["router_distance"]
+                                        for a in apart), default=None),
+            "tie_bar": TPF_ROUTER_TIE, "first_apart": apart[:16]}
+
+
+def tp_phase(smi: str, tmp: Path, gen) -> tuple:
+    """Tensor parallelism over "model" and FSDP over "data" on the card
+    (`sharding/parallel.py`): qwen2-72b served on a (1, 2) mesh and
+    gemma2-2b trained one round on a (2, 2) mesh, each against the same
+    weights on one rank without a mesh, the ranks spawned processes
+    sharing the card over gloo; then row 4h (flash at qwen2-72b's heads
+    on one rank).  The serve is held by the prefill's last-position
+    logits and, fed the one-rank run's greedy tokens, every decode
+    step's (the int8 cache's writes on the rank that owns a slot, the
+    log-sum-exp merge over "model"), and by its own greedy tokens, each
+    that differs printed with the one-rank run's top-2 gap there.
+    Returns the phase line, row 4h and the flash launches a tp rank made
+    on the serve path."""
+    import torch
+    tmp = tmp.resolve()
+    t_phase = time.perf_counter()
+
+    # ---- qwen2-72b, one rank, no mesh: the same weights and prompts (a
+    # spawned process, so that its memory goes with it) ------------------
+    cfg, prof = tp_serve_config(TP_ARCH)
+    one_rec = tp_spawn(tp_serve_rank, 1, tmp, "tp_one",
+                       (TP_ARCH,))[0][TP_ARCH]
+
+    # ---- qwen2-72b on the (1, 2) mesh -------------------------------------
+    world = TP_MESH[0] * TP_MESH[1]
+    t0 = time.perf_counter()
+    ranks = [r[TP_ARCH] for r in tp_spawn(tp_serve_rank, world, tmp,
+                                          "tp_serve", (TP_ARCH,),
+                                          "tp_one")]
+    serve_wall = time.perf_counter() - t0
+    # (B, 1 + TP_DECODE, V): the prefill's last position, then each
+    # decode step fed the one-rank run's tokens
+    want = torch.load(f"{tp_out(tmp, f'tp_one_{TP_ARCH}', 0)}.pt")["logits"]
+    got = torch.cat([torch.load(
+        f"{tp_out(tmp, f'tp_serve_{TP_ARCH}', r)}.pt")["logits"]
+        for r in range(world)], -1)
+    for r in ranks:
+        assert r["launches"]["flash_attention"] == TP_LAYERS, r["launches"]
+    held = hold_serve(cfg, want, got, one_rec, ranks)
+    logits, decode = held["logits_vs_one_rank"], \
+        held["decode_logits_vs_one_rank"]
     assert one_rec["launches"]["flash_attention"] == TP_LAYERS
 
     # ---- gemma2-2b, one round: the one-device step on the two-client
@@ -3109,15 +3105,7 @@ def tp_phase(smi: str, tmp: Path, gen) -> tuple:
                   "mesh": {"data": TP_MESH[0], "model": TP_MESH[1]},
                   "batch": TP_BATCH, "prompt": TP_PROMPT,
                   "decode_steps": TP_DECODE, "kv_int8": prof.kv_int8,
-                  "logits_vs_one_rank": logits,
-                  "decode_logits_vs_one_rank": decode,
-                  "first_token_equal": True,
-                  "decoded_tokens_agree": int(agree.sum()),
-                  "decoded_tokens": agree.numel(),
-                  "first_disagreement_at": first_off,
-                  "tokens_that_differ": differs,
-                  "one_rank_replay_agrees": replay,
-                  "one_rank": one_rec, "ranks": ranks,
+                  **held, "one_rank": one_rec, "ranks": ranks,
                   "ranks_wall_s": serve_wall},
         "train": {"arch": TP_TRAIN_ARCH, "layers": TP_TRAIN_LAYERS,
                   "reduced": f"depth 26 -> {TP_TRAIN_LAYERS}",
@@ -3136,6 +3124,265 @@ def tp_phase(smi: str, tmp: Path, gen) -> tuple:
                   "ranks": trank, "ranks_wall_s": train_wall},
         "flash_tp": flash, "phase_s": time.perf_counter() - t_phase}
     return line, flash, ranks[0]["launches"]["flash_attention"]
+
+
+def tp_serve_config(arch: str):
+    """The config (depth cut, an encoder-decoder's encoder too; the
+    profile's dtype) and profile of a served mesh run (TP_SERVES)."""
+    from repro_torch.configs import (depth_cut, get_config, get_profile,
+                                     replace)
+    prof = get_profile(arch)
+    return replace(depth_cut(get_config(arch), TP_SERVES[arch][0]),
+                   dtype=prof.param_dtype), prof
+
+
+def tp_serve_reduced(arch: str) -> str:
+    """The depth cut of a served mesh run, as PERF.md's ``reduced``."""
+    from repro_torch.configs import get_config
+    full, cut = get_config(arch), tp_serve_config(arch)[0]
+    if full.encoder_layers:
+        return (f"depth {full.encoder_layers} + {full.num_layers} -> "
+                f"{cut.encoder_layers} + {cut.num_layers}")
+    return f"depth {full.num_layers} -> {cut.num_layers}"
+
+
+def tp_serve_cache(arch: str) -> int:
+    """The cache slots ``serve_batch`` sizes on the mesh: a vision
+    prompt's patches, the text and the new tokens, rounded up to whole
+    blocks of slots a rank."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    _, _, text, n_dec, _ = TP_SERVES[arch]
+    patches = cfg.frontend_len if cfg.frontend == "vision" else 0
+    n = patches + text + n_dec + 1
+    return -(-n // TP_MESH[1]) * TP_MESH[1]
+
+
+def tp_serve_rank(rank: int, world: int, tmp: str, tag: str, archs: tuple,
+                  one: "str | None" = None) -> None:
+    """One process of a served mesh run (TP_SERVES), ``archs`` one after
+    another: without ``one`` the one-rank run (the whole model, no mesh),
+    else a rank of the TP_MESH mesh (its blocks of the same model,
+    `launch/mesh.local_blocks`), ``one`` the one-rank run's tag.  Each
+    arch's weights, prompts and front-end input drawn from its seed,
+    ``serve_batch`` with the counts set to 0 just before it (launches,
+    flash calls by shape, the collectives' bytes), then
+    :func:`tp_serve_steps` fed the one-rank run's greedy tokens (its own,
+    or the run ``one``'s) and, on the mesh, a MoE arch the one-rank run's
+    routing.  Writes {arch: record} to :func:`tp_out`."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import init_params
+    from repro_torch.sharding import parallel as P
+    from repro_torch.tree import tree_leaves
+    mesh = (None if one is None
+            else mesh_lib.make_mesh(TP_MESH, device_type="cuda"))
+    recs = {}
+    for arch in archs:
+        t0 = time.perf_counter()
+        cfg, prof = tp_serve_config(arch)
+        _, b, text, n_dec, seed = TP_SERVES[arch]
+        gen = torch.Generator(device=DEV).manual_seed(seed)
+        tp = None if mesh is None else steps.mesh_program(mesh, cfg, prof)
+        if mesh is None:
+            params = init_params(cfg, gen)
+        else:
+            params, _ = mesh_lib.local_blocks(
+                lambda: init_params(cfg, gen),
+                steps.param_specs(cfg, prof, mesh), mesh)
+        prompts = torch.randint(0, cfg.vocab_size, (b, text), generator=gen,
+                                device=DEV)
+        front = {}
+        if cfg.frontend != "none":
+            front["frames" if cfg.is_enc_dec else "patch_embeds"] = (
+                0.1 * torch.randn((b, cfg.frontend_len, cfg.d_model),
+                                  generator=gen, device=DEV))
+        serve = dict(dispatch=prof.moe_dispatch,
+                     quantized_cache=prof.kv_int8)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        P.reset_traffic()
+        with flash_calls() as calls:
+            res = serve_batch(cfg, params, prompts, n_dec + 1, device=DEV,
+                              tp=tp, **serve, **front)
+        rec = tp_serve_record(res, dict(ops.LAUNCHES), P.traffic(), n_dec)
+        rec["flash_by_shape"] = by_shape(calls)
+        tokens, force = res.tokens, None
+        if one is not None:
+            tokens = torch.tensor(json.loads(
+                tp_out(tmp, one, 0).read_text())[arch]["tokens"])
+            if cfg.num_experts:
+                force = [[idx for idx, _ in step] for step in torch.load(
+                    f"{tp_out(tmp, f'{one}_{arch}', 0)}.pt")["routes"]]
+        out = tp_out(tmp, f"{tag}_{arch}", rank)
+        rec.update(tp_serve_steps(cfg, arch, params, prompts, front, serve,
+                                  tp, out, tokens.to(DEV), force))
+        rec.update(param_bytes=sum(x.numel() * x.element_size()
+                                   for x in tree_leaves(params)),
+                   arch_s=time.perf_counter() - t0)
+        if tp is not None:
+            rec.update(rank=rank, model_rank=tp.rank)
+        recs[arch] = rec
+        del params, res, front, prompts
+        gc.collect()
+        torch.cuda.empty_cache()
+    tp_out(tmp, tag, rank).write_text(json.dumps(recs))
+
+
+def tp_serve_steps(cfg, arch: str, params, prompts, front: dict,
+                   serve: dict, tp, out: Path, tokens, force=None) -> dict:
+    """A prefill at :func:`tp_serve_cache` slots (whisper's frames encoded
+    first, on the mesh where ``tp`` is one; pixtral's patches in front of
+    the prompt), then the arch's decode steps fed ``tokens`` (the
+    one-rank run's greedy tokens: decode step i feeds column i - 1 at the
+    position after the prompt and i - 1 tokens, as ``serve_batch``
+    does), each step's collectives timed (`parallel.timed`: the card
+    synchronized around each).  ``force`` (a step's layers' (B, S, k)
+    top-k experts: the one-rank run's routing) replaces each MoE layer's
+    own top-k, its weights the router's probabilities at those experts
+    made to sum to 1 (the softmax over their logits).  Returns the prefill's and the first
+    decode step's seconds, collective seconds and bytes by axis and gloo
+    share; the logits (B, 1 + steps, V) f32 (this rank's vocab slice,
+    every column with ``tp`` None) and, for a MoE arch, every step's
+    routing (each layer's (B, S, k) top-k experts, sorted, and (B, S, E)
+    log probabilities: the layer's own, before ``force``) go to ``out +
+    ".pt"``."""
+    import torch
+    from repro_torch.models import decode_step
+    from repro_torch.models import moe
+    from repro_torch.models.model import prefill_last
+    from repro_torch.models.transformer import encode
+    from repro_torch.sharding import parallel as P
+    off = cfg.frontend_len if "patch_embeds" in front else 0
+    text = prompts.shape[1]
+    routes = []                    # a step's layers: (top-k, log probs)
+    real = moe.router_probs
+
+    def recording(*args, **kw):
+        got = real(*args, **kw)
+        routes[-1].append((got[1].sort(-1).values.cpu(),
+                           got[2].log().cpu()))
+        if force is None:
+            return got
+        idx = force[len(routes) - 1][len(routes[-1]) - 1].to(got[1].device)
+        w = got[2].gather(-1, idx)
+        return w / w.sum(-1, keepdim=True), idx, got[2]
+    timed, rows = {}, []
+    moe.router_probs = recording
+    try:
+        with torch.inference_mode():
+            for i in range(TP_SERVES[arch][3] + 1):
+                routes.append([])
+                P.reset_traffic()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with P.timed() as secs:
+                    if i == 0:
+                        batch, enc = {"tokens": prompts}, None
+                        if "frames" in front:
+                            enc = encode(cfg, params, front["frames"],
+                                         mode="prefill", tp=tp)
+                            batch["enc_out"] = enc
+                        if off:
+                            batch["patch_embeds"] = front["patch_embeds"]
+                        logits, caches = prefill_last(
+                            cfg, params, batch, tp_serve_cache(arch), tp=tp,
+                            **serve)
+                    else:
+                        logits, caches = decode_step(
+                            cfg, params, caches, tokens[:, i - 1:i],
+                            off + text + i - 1, enc_out=enc, tp=tp,
+                            dispatch=serve["dispatch"])
+                        logits = logits[:, 0]
+                    torch.cuda.synchronize()
+                    s = time.perf_counter() - t0
+                    coll = dict(secs)
+                if i < 2:
+                    timed["decode" if i else "prefill"] = {
+                        "s": s, "collective_s": coll,
+                        "gloo_share": sum(coll.values()) / s if coll
+                        else 0.0,
+                        "bytes_by_axis": P.traffic()}
+                rows.append(logits.float().cpu())
+            del caches, enc
+    finally:
+        moe.router_probs = real
+    torch.save({"logits": torch.stack(rows, 1), "routes": routes},
+               f"{out}.pt")
+    return {"timed_steps": timed}
+
+
+def tp_families_phase(smi: str, tmp: Path, gen) -> tuple:
+    """Tensor parallelism for the mixtures of experts (per-expert TP), the
+    encoder-decoder (its encoder and cross-attention) and the vision
+    front end (its patch projection) on the card: grok-1-314b,
+    whisper-large-v3 and pixtral-12b at full width, served on a (1, 2)
+    mesh of two spawned ranks sharing the card over gloo, each held
+    against the same weights on one rank without a mesh
+    (:func:`hold_serve`: the prefill's and every decode step's logits,
+    the greedy tokens); grok-1's prefill routing compared layer by layer;
+    then flash at a rank's heads (grok-1's layer, whisper's encoder and
+    its cross-attention in decode).  Returns the phase line, the flash
+    rows and the flash launches a rank made at their shapes on the serve
+    path."""
+    import torch
+    tmp = tmp.resolve()
+    t_phase = time.perf_counter()
+    one = tp_spawn(tp_serve_rank, 1, tmp, "tpf_one", TPF_ARCHS)[0]
+    world = TP_MESH[0] * TP_MESH[1]
+    t0 = time.perf_counter()
+    ranks = tp_spawn(tp_serve_rank, world, tmp, "tpf_mesh", TPF_ARCHS,
+                     "tpf_one")
+    mesh_wall = time.perf_counter() - t0
+    archs = {}
+    for arch in TPF_ARCHS:
+        cfg, prof = tp_serve_config(arch)
+        _, b, text, n_dec, _ = TP_SERVES[arch]
+        want = torch.load(f"{tp_out(tmp, f'tpf_one_{arch}', 0)}.pt")
+        parts = [torch.load(f"{tp_out(tmp, f'tpf_mesh_{arch}', r)}.pt")
+                 for r in range(world)]
+        got = torch.cat([p["logits"] for p in parts], -1)
+        recs = [r[arch] for r in ranks]
+        for r in recs:
+            assert r["flash_by_shape"] == one[arch]["flash_by_shape"], (
+                r["flash_by_shape"], one[arch]["flash_by_shape"])
+        held = hold_serve(cfg, want["logits"], got, one[arch], recs)
+        routing = (hold_routing(cfg, want["routes"],
+                                [p["routes"] for p in parts])
+                   if cfg.num_experts else None)
+        archs[arch] = {
+            "layers": cfg.num_layers,
+            "encoder_layers": cfg.encoder_layers or None,
+            "reduced": tp_serve_reduced(arch),
+            "batch": b, "text": text,
+            "frontend_len": cfg.frontend_len or None,
+            "decode_steps": n_dec, "kv_int8": prof.kv_int8,
+            "moe_dispatch": prof.moe_dispatch if cfg.num_experts else None,
+            **held, "routing_vs_one_rank": routing,
+            "one_rank": one[arch], "ranks": recs}
+    flash = check_flash_frontend(gen, FLASH_TPF)
+    grok, whisper = ranks[0]["grok-1-314b"], ranks[0]["whisper-large-v3"]
+    launches = {
+        "grok_tp": grok["flash_by_shape"].get("4096x4096, causal", 0),
+        "whisper_encoder_tp": whisper["flash_by_shape"].get(
+            "1500x1500, non-causal", 0),
+        "whisper_cross_decode_tp": whisper["flash_by_shape"].get(
+            "1x1500, non-causal", 0)}
+    g_layers, w_layers = (TP_SERVES[a][0] for a in ("grok-1-314b",
+                                                    "whisper-large-v3"))
+    assert launches == {"grok_tp": g_layers, "whisper_encoder_tp": w_layers,
+                        "whisper_cross_decode_tp":
+                            w_layers * TP_SERVES["whisper-large-v3"][3]}, \
+        launches
+    line = {"phase": "tp_families", "nvidia_smi": smi,
+            "backend": "gloo over CUDA tensors (ranks share the card)",
+            "mesh": {"data": TP_MESH[0], "model": TP_MESH[1]},
+            "archs": archs, "ranks_wall_s": mesh_wall,
+            "flash_tp": flash, "phase_s": time.perf_counter() - t_phase}
+    return line, flash, launches
 
 
 def events_ms(fn, reps: int = 5, warmup: int = 1) -> float:
@@ -3587,9 +3834,11 @@ def start_dryrun():
             device="cuda", batch=batch, num_layers=MOE_LAYERS.get(arch),
             seq_len=text if arch == "whisper-large-v3" else SERVE_PROMPT)))
     # the tp runs, each as rank 0 of its mesh
-    tasks.append((f"tp serve {TP_ARCH}", TP_ARCH, "prefill_32k", dict(
-        device="cuda", mesh="x".join(map(str, TP_MESH)), batch=TP_BATCH,
-        seq_len=TP_CACHE, num_layers=TP_LAYERS)))
+    for arch, (layers, batch, _, _, _) in TP_SERVES.items():
+        key = "tp serve" if arch == TP_ARCH else "tpf serve"
+        tasks.append((f"{key} {arch}", arch, "prefill_32k", dict(
+            device="cuda", mesh="x".join(map(str, TP_MESH)), batch=batch,
+            seq_len=tp_serve_cache(arch), num_layers=layers)))
     tasks.append((f"tp train {TP_TRAIN_ARCH}", TP_TRAIN_ARCH, "train_4k",
                   dict(device="cuda", mesh="x".join(map(str, TP_TRAIN_MESH)),
                        global_batch=TP_TRAIN_BATCH, clusters=1,
@@ -3606,7 +3855,7 @@ def start_dryrun():
 
 
 def dryrun_phase(smi: str, serve_lines: dict, train_lines: list,
-                 started, tp_line: dict) -> dict:
+                 started, tp_line: dict, tpf_line: dict) -> dict:
     """The dry run of every serve and training run above
     (``repro_torch.launch.dryrun.run_one`` on the host, fake tensors on
     the card's device, counted by :func:`start_dryrun`'s workers): the
@@ -3636,6 +3885,9 @@ def dryrun_phase(smi: str, serve_lines: dict, train_lines: list,
     ranks = tp_line["train"]["ranks"]
     measured[f"tp train {TP_TRAIN_ARCH}"] = (ranks, statistics.median(
         r["s"] for r in ranks))
+    for arch, line in tpf_line["archs"].items():
+        measured[f"tpf serve {arch}"] = (line["ranks"], statistics.median(
+            r["prefill_s"] + r["encode_s"] for r in line["ranks"]))
     recs = {key: rec for key, rec, _ in done}
     launched = [(key, n) for key, _, n in done if set(n.values()) != {0}]
     assert not launched, launched
@@ -3988,6 +4240,15 @@ def main() -> int:
     tp_line, flash_tp, tp_flash = tp_phase(smi, tmp, gen)
     emit(tp_line)
 
+    # ---- 8b'''. tensor parallelism for the other families: grok-1-314b
+    # (per-expert TP), whisper-large-v3 (encoder, cross-attention) and
+    # pixtral-12b (patch projection) at full width on a (1, 2) mesh, each
+    # against one rank; flash at a rank's heads (grok-1's layer, whisper's
+    # encoder and cross-attention in decode); the counts are set to 0 in
+    # each process just before each serve and read after it
+    tpf_line, flash_tpf, tpf_flash = tp_families_phase(smi, tmp, gen)
+    emit(tpf_line)
+
     # ---- 8c. transformer FL training: gemma2-2b, then the recurrent
     # families and whisper-large-v3, 4 clients on the card, stage-1 through
     # the kernel; the counts are set to 0 before each run and read after
@@ -4008,7 +4269,8 @@ def main() -> int:
 
         # ---- 8d. the dry run of every run above: its predicted peak
         # against the card's, its flops over the card's seconds
-        emit(dryrun_phase(smi, serve_lines, train_lines, started, tp_line))
+        emit(dryrun_phase(smi, serve_lines, train_lines, started, tp_line,
+                          tpf_line))
     finally:
         started[0].shutdown(cancel_futures=True)
 
@@ -4096,6 +4358,16 @@ def main() -> int:
                  **{k: flash_tp[k] for k in (
                      "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                      "library_ms", "shape")}})
+    # the same kernel at a rank's heads of the tp_families serves: grok-1's
+    # layer, whisper's encoder and its cross-attention in decode
+    for key in FLASH_TPF:
+        rows.append({"name": f"flash_attention_{key}", "route": "cuda",
+                     "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
+                     "replaces": "src/repro/kernels/flash_attention.py:88",
+                     "launches": tpf_flash[key],
+                     **{k: flash_tpf[key][k] for k in (
+                         "max_abs_err", "ms", "plain_ms", "bound_ms",
+                         "bound_by", "library_ms", "shape")}})
     rows.extend(train_rows)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -30,17 +30,19 @@ both count the card's route.
   counted as rank 0 of a ``fake`` process group.  Serving pairs are
   skipped: the port's serving steps have no mesh program.
 * ``single``, ``multi``, ``both``: the reference's 16x16 and 2x16x16
-  meshes, the dense transformers' pairs counted as rank 0 of a ``fake``
-  process group of 256 or 512 ranks with the mesh's subgroups
+  meshes, the pairs of the dense, MoE, encoder-decoder and vision
+  families counted as rank 0 of a ``fake`` process group of 256 or 512
+  ranks with the mesh's subgroups
   (`launch/mesh.py`): tensor parallelism over "model", FSDP over "data"
   for a pod-client arch (`sharding/parallel.py`), the rank's blocks of
   the arguments under `sharding/rules.py`'s placements, the collectives
   by kind and by axis (``collectives_by_axis``).  A train step runs at
   the shape's global batch, K = 4, a stage-2 round of the reference
-  launcher's cadence, its microbatches scaled by their trips.  The six
-  other families have no tensor-parallel design yet: their pairs are
-  skipped with that reason (``NO_TP``), ``memory.argument_size_in_bytes``
-  the bytes a device would hold under the placements.
+  launcher's cadence, its microbatches scaled by their trips.  The
+  recurrent families (SSD, RG-LRU) have no tensor-parallel design yet:
+  their pairs are skipped with that reason (``NO_TP``),
+  ``memory.argument_size_in_bytes`` the bytes a device would hold under
+  the placements.
 
 A record keeps the reference's keys and statuses (``ok``, ``skipped``,
 ``error``), ``count_s`` in place of ``lower_s``/``compile_s``.  The exit
@@ -64,13 +66,14 @@ from repro_torch.configs.shapes import SHAPES, InputShape, shape_applicable
 from repro_torch.launch import hlo_analysis as H
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps
+from repro_torch.sharding import parallel as P
 from repro_torch.tree import tree_leaves, tree_map
 
 LAYOUTS = {"one": ["one"], "clients": ["clients"], "single": ["16x16"],
            "multi": ["2x16x16"], "both": ["16x16", "2x16x16"]}
 NO_TP = ("no tensor-parallel design for this family yet (the port's mesh "
-         "program covers the dense transformers; ROADMAP queue 1, slice "
-         "16b item 1b)")
+         "program covers the dense, MoE, encoder-decoder and vision "
+         "families; ROADMAP queue 1, slice 16b item 1c)")
 NO_SERVE_MESH = "the port's serving steps have no mesh program"
 # launch/train.py's defaults: the one-card run
 TRAIN_CLIENTS, TRAIN_CLUSTERS, TRAIN_BATCH, TRAIN_RPG = 4, 2, 16, 2
@@ -212,8 +215,9 @@ def _clients(arch, shape: InputShape, cfg, prof, overrides, device):
 
 
 def _on_mesh(arch, shape: InputShape, layout, cfg, prof, overrides, device):
-    """A dense transformer's step on the reference's mesh ``layout``, as
-    rank 0 of a fake process group with the mesh's subgroups."""
+    """A step on the reference's mesh ``layout`` (a family with a
+    tensor-parallel design), as rank 0 of a fake process group with the
+    mesh's subgroups."""
     from torch.distributed.device_mesh import init_device_mesh
     sizes = _production(layout).shape
     world = math.prod(sizes.values())
@@ -284,7 +288,7 @@ def run_one(arch: str, shape_name: str, mesh: str = "one",
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh}
     ok, reason = shape_applicable(cfg, shape)
     production = mesh not in ("one", "clients")
-    if production and cfg.family != "dense":
+    if production and cfg.family not in P.MESH_FAMILIES:
         if ok:
             rec.update(_skipped_on_mesh(arch, shape, mesh, cfg, prof))
         else:               # no step to place either

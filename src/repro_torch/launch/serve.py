@@ -25,13 +25,17 @@ prompt, so its caches and decode positions count frontend_len + S
 positions.  Prints one JSON line with the timings (whisper's encode
 apart), the cache's bytes, frontend_len and the first generated tokens.
 
-``--mesh DxM`` serves a dense transformer (gemma2-2b, h2o-danube-1.8b,
-granite-3-8b, qwen2-72b) on a ("data", "model") mesh of D x M spawned
-ranks: tensor parallelism over "model", the batch over "data" (and FSDP
-over "data" for a pod-client arch), the same model and prompts as one
-device draws; ``nccl`` where every rank has a card of its own, else
-``gloo`` (ranks sharing one card, or ``--device cpu``).  Rank 0 prints
-the JSON line of its rows with the bytes its collectives moved.
+``--mesh DxM`` serves on a ("data", "model") mesh of D x M spawned ranks
+a dense transformer (gemma2-2b, h2o-danube-1.8b, granite-3-8b,
+qwen2-72b), a mixture of experts (grok-1-314b, mixtral-8x22b: per-expert
+tensor parallelism), whisper-large-v3 (its encoder and cross-attention)
+or pixtral-12b (its patch projection): tensor parallelism over "model",
+the batch over "data" (and FSDP over "data" for a pod-client arch), the
+same model, prompts and front-end inputs as one device draws; ``nccl``
+where every rank has a card of its own, else ``gloo`` (ranks sharing one
+card, or ``--device cpu``).  Rank 0 prints the JSON line of its rows
+with the bytes its collectives moved.  The recurrent families
+(mamba2-1.3b, recurrentgemma-2b) have no mesh program yet.
 
 ``--dry-run --shape prefill_32k`` (or another prefill or decode shape)
 counts that step at the shape's batch and length on fake tensors
@@ -105,9 +109,10 @@ def serve_batch(cfg, params: dict, prompts: torch.Tensor, new_tokens: int,
     decode step.  A vision model's ``patch_embeds`` go in front of the
     prompt: the caches hold frontend_len + S + new_tokens positions, and
     decode step i runs at position frontend_len + S + i.  Every timing
-    ends in a device synchronize.  On a mesh (``tp``, a dense
-    transformer's `sharding/parallel.TP`) ``params`` are this rank's
-    blocks and ``prompts`` its rows, the caches sized to a multiple of the
+    ends in a device synchronize.  On a mesh (``tp``,
+    `sharding/parallel.TP`) ``params`` are this rank's blocks and
+    ``prompts`` (and a front end's input) its rows, the encoder run on
+    the mesh too, the caches sized to a multiple of the
     "model" size so that each rank holds a block of their slots (the
     extra slots stay empty); the logits come vocab-sharded and the
     greedy pick is each rank's maximum and index reduced over "model"
@@ -138,7 +143,7 @@ def serve_batch(cfg, params: dict, prompts: torch.Tensor, new_tokens: int,
         _sync(dev)
         t0 = time.perf_counter()
         if frames is not None:
-            enc_out = encode(cfg, params, frames, mode="prefill")
+            enc_out = encode(cfg, params, frames, mode="prefill", tp=tp)
             batch["enc_out"] = enc_out
         _sync(dev)
         t1 = time.perf_counter()
@@ -190,7 +195,8 @@ def main(argv=None) -> None:
                     help="the dry run's prefill or decode shape")
     ap.add_argument("--mesh", default=None,
                     help="DxM: serve on a (data, model) mesh of D x M "
-                         "spawned ranks (the dense transformers)")
+                         "spawned ranks (the dense, MoE, encoder-decoder "
+                         "and vision archs)")
     args = ap.parse_args(argv)
     if args.dry_run:
         from repro_torch.configs.shapes import SHAPES
@@ -267,7 +273,9 @@ def _serve_rank(rank: int, world: int, opts: dict) -> None:
     random model and prompts as one device draws from ``--seed``, this
     rank's blocks of the parameters (the ranks draw the full model one
     after another, so one full copy exists at a time) and its rows of the
-    batch, served through the mesh program.  Rank 0 prints the JSON line
+    batch and of a front end's frames or patches (drawn from ``--seed`` on
+    every rank alike, after the model), served through the mesh
+    program.  Rank 0 prints the JSON line
     of its rows, with the mesh's shape and the bytes its collectives
     moved."""
     import argparse as _argparse

@@ -25,10 +25,10 @@ one of two forms that compute the same function:
 * **a mesh, one client per client-axis index** (``launch/mesh.py``;
   reference ``:176-205``): each rank calls ``fn`` on its own rows, (1,
   ...) of the stack and of the batch, holding its blocks of its client:
-  the whole client where the client is one rank, else (the dense
-  transformers) tensor parallelism over "model" and, for a pod-client
-  arch, FSDP and the batch over "data" (:func:`mesh_program`,
-  `sharding/parallel.py`).  The aggregation is
+  the whole client where the client is one rank, else tensor parallelism
+  over "model" and, for a pod-client arch, FSDP and the batch over "data"
+  (:func:`mesh_program`, `sharding/parallel.py`; the dense, MoE,
+  encoder-decoder and vision families).  The aggregation is
   ``core/aggregation_spmd.hierarchical_agg_shard`` over one process group
   a cluster and block
   (:func:`~repro_torch.core.aggregation_spmd.make_cluster_groups`, made
@@ -283,17 +283,21 @@ def build_train_step(arch: str, shape: InputShape, mesh=None, *,
         # accumulation it can (the loss and gradient are the client's)
         dp = P.data_size(tp)
         rows = pcb // dp
-        rank_accum = max(a for a in range(1, min(accum, rows) + 1)
-                         if rows % a == 0)
+        rank_accum, shares = _rank_microbatches(arch, cfg, dp, pcb, accum,
+                                                micro)
+        if shares:
+            tp = dataclasses.replace(tp, microbatch_over_data=True)
         specs = param_specs(cfg, prof, mesh)
 
         def train_step(stack, batch, round_idx, *, trips=None):
             p = tree_map(lambda x: x[0], stack)
             data_summed = [not _on_axis(s_, "data")
                            for s_ in rules.spec_leaves_like(p, specs)]
+            rank_batch = {k: x[0] for k, x in batch.items()}
+            if shares:
+                rank_batch = _microbatch_shares(tp, rank_batch, accum, micro)
             new_p, loss = _local_update(
-                cfg, p,
-                {k: x[0] for k, x in batch.items()}, accum=rank_accum,
+                cfg, p, rank_batch, accum=rank_accum,
                 micro=rows // rank_accum, lr=lr, acc_dt=acc_dt,
                 remat=prof.remat, dispatch=prof.moe_dispatch, trips=trips,
                 tp=tp, data_summed=data_summed)
@@ -317,7 +321,58 @@ def build_train_step(arch: str, shape: InputShape, mesh=None, *,
                   use_kernels=use_kernels,
                   form="one-device" if mesh is None else "mesh",
                   **({} if mesh is None else dict(
-                      rank_accum=rank_accum, rank_rows=rows))))
+                      rank_accum=rank_accum, rank_rows=rows,
+                      microbatch_shares=shares))))
+
+
+def _rank_microbatches(arch: str, cfg, dp: int, pcb: int, accum: int,
+                       micro: int) -> Tuple[int, bool]:
+    """(the microbatches a rank runs, whether each is its share of one of
+    the client's) where the client's ``pcb`` rows are split over ``dp``
+    "data" ranks, a block of ``pcb / dp`` rows each.  A MoE client's
+    load-balance loss is not linear in its rows, so its microbatches are
+    the reference's (``accum`` of ``micro`` rows, in row order): a rank
+    whose block holds whole microbatches runs its ``accum / dp`` of them;
+    where a microbatch is wider than a block and splits over "data"
+    (:func:`_microbatch_shares`), each rank runs its share of every one,
+    the load-balance means summed over "data"; any other layout is
+    refused.  Elsewhere the loss is a mean over tokens, and each rank runs
+    as many microbatches of its rows as divide them, up to ``accum``."""
+    rows = pcb // dp
+    if dp == 1:
+        return accum, False
+    if not cfg.num_experts:
+        return max(a for a in range(1, min(accum, rows) + 1)
+                   if rows % a == 0), False
+    if rows % micro == 0:
+        return rows // micro, False
+    if micro % dp == 0:
+        return accum, True
+    raise ValueError(
+        f"{arch}: {accum} microbatches of {micro} rows over {dp} \"data\" "
+        f"ranks of {rows} rows: a rank holds neither whole microbatches nor "
+        f"an equal share of each (its load-balance loss would not be the "
+        f"reference's)")
+
+
+def _microbatch_shares(tp, batch: Dict[str, torch.Tensor], accum: int,
+                       micro: int) -> Dict[str, torch.Tensor]:
+    """The rank's share of each of the client's ``accum`` microbatches of
+    ``micro`` rows, from its block of rows (the batch's placement over
+    "data"): the client's rows gathered over "data" (token ids: a few KB),
+    then microbatch i's rows ``[i micro + r m, i micro + (r + 1) m)`` for
+    data rank r, m = micro / data size, in microbatch order.  The union of
+    the ranks' microbatch i is then the client's microbatch i, as the
+    reference's step forms it."""
+    dp, r = tp.data_size, tp.data_rank
+    m = micro // dp
+    out = {}
+    for k, x in batch.items():
+        full = P.all_gather(x, 0, tp.data_group, dp, r, "data")
+        full = full.reshape((accum, micro) + tuple(x.shape[1:]))
+        out[k] = full[:, r * m:(r + 1) * m].reshape(
+            (accum * m,) + tuple(x.shape[1:]))
+    return out
 
 
 def _train_specs(cfg, prof, mesh, c_axes, n_clients: int, pcb: int,
@@ -350,7 +405,7 @@ def train_placements(arch: str, shape: InputShape, mesh, *,
     """``(in_specs, in_shardings)`` of the train step on ``mesh`` without
     building the step: the shapes and placements of a layout the step
     itself refuses (a family without a tensor-parallel design on a
-    "model" axis above 1: ROADMAP queue 1, slice 16b item 1b)."""
+    "model" axis above 1: ROADMAP queue 1, slice 16b item 1c)."""
     cfg, prof = _resolve(arch, cfg, profile)
     n_clients = num_clients_for(mesh, prof.client_axis)
     c_axes = client_axes_for(mesh, prof.client_axis)
@@ -395,22 +450,22 @@ def mesh_program(mesh, cfg, prof):
     client or replica (no mesh, a "model" size of 1 without FSDP) or the
     mesh is known by its shape alone (its bundle carries placements; its
     ``fn`` is the one-device step).  A family without a tensor-parallel
-    design is refused by name."""
+    design (the recurrent ones) is refused by name."""
     if mesh is None or not hasattr(mesh, "get_group"):
         return None
     sizes = rules.mesh_shape(mesh)
     fsdp = prof.client_axis == "pod" and sizes.get("data", 1) > 1
     if sizes.get("model", 1) == 1 and not fsdp:
         return None
-    P.check_dense(cfg, True)
+    P.check_mesh_family(cfg, True)
     return P.TP.from_mesh(mesh, fsdp=fsdp)
 
 
 def _check_layout(mesh, cfg, table, tp) -> None:
     """One client per client-axis index, its blocks on the other axes:
-    the world is the mesh, and a client spread over several ranks runs a
-    dense transformer's mesh program on a ``DeviceMesh``; the other
-    families are refused by name (ROADMAP queue 1, slice 16b item 1b)."""
+    the world is the mesh, and a client spread over several ranks runs the
+    mesh program on a ``DeviceMesh``; the recurrent families are refused
+    by name (ROADMAP queue 1, slice 16b item 1c)."""
     shape = rules.mesh_shape(mesh)
     world = dist.get_world_size()
     if world != sum(len(row) for row in table):
@@ -419,7 +474,7 @@ def _check_layout(mesh, cfg, table, tp) -> None:
                          f"the train step takes one client per client-axis "
                          f"index")
     if len(table[0]) > 1:
-        P.check_dense(cfg, True)
+        P.check_mesh_family(cfg, True)
         if tp is None:
             raise ValueError(f"mesh {shape}: a client on {len(table[0])} "
                              f"ranks needs a DeviceMesh (launch/mesh.py)")

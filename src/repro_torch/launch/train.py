@@ -24,9 +24,10 @@ rounds, 4 clusters, stage-2 every 5, and the shape's batch of 256).  The
 front ends train on 0.1 * normal frames (whisper-large-v3) or patch
 embeddings (pixtral-12b, whose text then takes the sequence less its
 patches), drawn each round.
-``--mesh DxM`` trains a dense transformer (gemma2-2b, h2o-danube-1.8b,
-granite-3-8b, qwen2-72b) on a ("data", "model") mesh of D x M spawned
-ranks, the clients the mesh lays out (`train_rank`).
+``--mesh DxM`` trains on a ("data", "model") mesh of D x M spawned ranks,
+the clients the mesh lays out (`train_rank`), a dense transformer, a
+mixture of experts, whisper-large-v3 or pixtral-12b (not yet the
+recurrent families).
 ``--smoke`` takes the config's ``smoke_variant`` and a 64-token sequence,
 as ``launch/serve.py`` does.  ``--dry-run`` counts the round step at the
 arguments given on fake tensors (`launch/dryrun.py`: nothing is run or
@@ -258,6 +259,12 @@ def train_rank(rank: int, world: int, opts: dict) -> None:
         t = synthetic_lm_batches(gen, n_clients, text, pcb)
         t = t[client:client + 1, lo:lo + rows]
         batch = {"tokens": t[..., :-1], "labels": t[..., 1:]}
+        if cfg.frontend != "none":           # as one device draws them
+            front = 0.1 * torch.randn((n_clients, pcb, cfg.frontend_len,
+                                       cfg.d_model), generator=gen,
+                                      device=dev)
+            batch["frames" if cfg.is_enc_dec else "patch_embeds"] = \
+                front[client:client + 1, lo:lo + rows]
         P.reset_traffic()
         _sync(dev)
         t0 = time.perf_counter()
@@ -297,7 +304,7 @@ def main(argv=None) -> None:
                          "analyses, exit")
     ap.add_argument("--mesh", default=None,
                     help="DxM: train on a (data, model) mesh of D x M "
-                         "spawned ranks (the dense transformers; the "
+                         "spawned ranks (not the recurrent archs; the "
                          "mesh sets the clients)")
     args = ap.parse_args(argv)
     if args.dry_run:

@@ -375,7 +375,7 @@ def apply_attention(cfg, p, x, *, kind: str, mode: str,
     if tp is not None and tp.active:
         return _apply_attention_tp(cfg, p, x, window=window, mode=mode,
                                    positions=positions, cache=cache,
-                                   causal=causal, tp=tp)
+                                   causal=causal, tp=tp, kv_x=kv_x)
     q = _project_q(cfg, p, x)
     new_cache = None
     if kv_x is not None:                      # cross-attention (enc-dec)
@@ -555,9 +555,13 @@ def _decode_split(cfg, q, cache, positions, *, causal, window, tp, lo):
     return out.reshape(B, Sq, Hq, D).to(q.dtype)
 
 
+def _rope(x, sin, cos):
+    return x if sin is None else apply_rope(x, sin, cos)
+
+
 def _apply_attention_tp(cfg, p, x, *, window: int, mode: str, positions,
-                        cache, causal: bool, tp):
-    """One self-attention layer on a mesh.  ``wq``/``wk``/``wv`` are
+                        cache, causal: bool, tp, kv_x=None):
+    """One attention layer on a mesh.  ``wq``/``wk``/``wv`` are
     column-parallel and ``wo`` row-parallel over "model" where their
     widths divide (a rank's columns need not be whole heads); FSDP leaves
     are gathered over "data" at use.  K and V are all-gathered over
@@ -570,45 +574,72 @@ def _apply_attention_tp(cfg, p, x, *, window: int, mode: str, positions,
     divide, ``slot_pos`` whole.  Prefill writes the rank's block of slots
     from the gathered K/V; decode writes the new token on the rank that
     owns its slot and attends over the sequence split
-    (:func:`_decode_split`)."""
+    (:func:`_decode_split`).
+
+    Cross-attention (``kv_x``, whisper's decoder over the encoder's
+    output) projects K and V from ``kv_x`` with the rank's ``wk``/``wv``
+    columns (``kv_x`` through `parallel.copy_to_model`: every decoder
+    layer's share of its gradient is summed over "model"), keeps no cache,
+    ropes nothing, masks nothing, and in every mode, decode (Sq = 1)
+    included, attends on the heads that cover the rank's q columns: flash
+    in prefill and decode, the chunked route in training.  Where the
+    rank's K/V columns are the kv heads of its whole groups of q heads,
+    they stay on the rank (no gather, as the reference's placement
+    computes them); else they are gathered as self-attention's are."""
     d, hd = cfg.d_model, cfg.head_dim
     Hq, Hkv = cfg.num_heads, cfg.num_kv_heads
     wq, wk, wv = (P.fsdp_gather(tp, p[n], -2, d) for n in ("wq", "wk", "wv"))
     wo = P.fsdp_gather(tp, p["wo"], -1, d)
     q_split = P.is_split(wq.shape[-1], cfg.q_dim)
     kv_split = P.is_split(wk.shape[-1], cfg.kv_dim)
-    xc = P.copy_to_model(tp, x) if q_split or kv_split else x
+    cross = kv_x is not None
+    if cross:
+        causal, window = False, 0
+        xc = P.copy_to_model(tp, x) if q_split else x
+        src = kv_x
+        src_c = P.copy_to_model(tp, kv_x) if kv_split else kv_x
+    else:
+        xc = P.copy_to_model(tp, x) if q_split or kv_split else x
+        src, src_c = x, xc
     B, S = x.shape[:2]
+    Sk = src.shape[1]
+    G = Hq // Hkv
 
+    c0, c1 = P.block(tp, wq.shape[-1], cfg.q_dim)   # this rank's q columns
+    whole = c0 % hd == 0 and c1 % hd == 0
+    # cross-attention keeps its K/V columns where they are the kv heads of
+    # the rank's whole groups of q heads (no cache wants the rest)
+    k0, k1 = P.block(tp, wk.shape[-1], cfg.kv_dim)
+    own_kv = (cross and kv_split and c0 % (hd * G) == 0
+              and c1 % (hd * G) == 0 and (k0, k1) == (c0 // G, c1 // G))
     q = xc @ wq
     if "bq" in p:
         q = q + p["bq"]
     kv = []
     for w, b in ((wk, "bk"), (wv, "bv")):
-        t = (xc if kv_split else x) @ w
+        t = (src_c if kv_split else src) @ w
         if b in p:
             t = t + p[b]
-        if kv_split:
+        if kv_split and not own_kv:
             t = P.gather_model(tp, t, -1)
-        elif q_split:
+        elif q_split and not kv_split:
             t = P.copy_to_model(tp, t)       # whole, read split by heads
-        kv.append(t.reshape(B, S, Hkv, hd))
+        kv.append(t.reshape(B, Sk, -1, hd))
     k, v = kv
-    sin, cos = rope_frequencies(cfg, positions)
-    k = apply_rope(k, sin, cos)
+    # cross-attention ropes neither q nor k
+    sin, cos = (None, None) if cross else rope_frequencies(cfg, positions)
+    k = _rope(k, sin, cos)
 
-    c0, c1 = P.block(tp, q.shape[-1], cfg.q_dim)   # this rank's q columns
-    whole = c0 % hd == 0 and c1 % hd == 0
-    if mode == "decode" or not whole:
+    if (mode == "decode" and not cross) or not whole:
         q = P.gather_model(tp, q, -1) if q_split else q
         h0, h1 = c0 // hd, -(-c1 // hd)
-        q = apply_rope(q.reshape(B, S, Hq, hd), sin, cos)
+        q = _rope(q.reshape(B, S, Hq, hd), sin, cos)
     else:
         h0, h1 = c0 // hd, c1 // hd
-        q = apply_rope(q.reshape(B, S, h1 - h0, hd), sin, cos)
+        q = _rope(q.reshape(B, S, h1 - h0, hd), sin, cos)
 
     new_cache = None
-    if mode == "decode":
+    if mode == "decode" and not cross:
         Ll, L = cache["k"].shape[1], cache["slot_pos"].shape[0]
         lo = P.block(tp, Ll, L)[0]
         new_cache = _cache_write_decode_block(cache, k, v, positions, lo)
@@ -625,19 +656,21 @@ def _apply_attention_tp(cfg, p, x, *, window: int, mode: str, positions,
     else:
         if q.shape[2] == Hq:                # all heads: keep those of [c0, c1)
             q = q[:, :, h0:h1]
-        G = Hq // Hkv
-        ks, vs = (_kv_for_heads(t, h0, h1, G) for t in (k, v))
+        ks, vs = ((k, v) if own_kv
+                  else (_kv_for_heads(t, h0, h1, G) for t in (k, v)))
+        k_pos = (torch.arange(Sk, dtype=torch.int32, device=x.device)
+                 if cross else positions)
         if mode == "train":
             if window:
                 out = windowed_full_attention(cfg, q, ks, vs, positions,
                                               positions, window)
             else:
-                out = chunk_attention(cfg, q, ks, vs, positions, positions,
+                out = chunk_attention(cfg, q, ks, vs, positions, k_pos,
                                       causal=causal)
-        else:                               # prefill
+        else:                               # prefill; cross-attention decode
             out = _flash(cfg, q, ks, vs, causal=causal,
                          window=window if causal else 0)
-            if cache is not None:
+            if cache is not None and not cross:
                 Ll, L = cache["k"].shape[1], cache["slot_pos"].shape[0]
                 new_cache = cache_from_prefill_block(
                     cache, k, v, P.block(tp, Ll, L)[0])

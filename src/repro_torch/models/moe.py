@@ -20,6 +20,16 @@ Three dispatches, as in the reference:
 The reference computes all three in XLA, with no Pallas kernel, so here
 they are torch ops; the expert products are ``torch.matmul``.
 
+On a mesh (``tp``, `sharding/parallel.TP`) the reference's placement
+holds: the experts dim replicated, each expert's ``w_gate``/``w_up`` (d,
+f) and ``w_down`` (f, d) split on f over "model" and on d over "data"
+under FSDP, the router (d, E) replicated over "model".  Every dispatch
+runs the experts on the rank's f columns and all-reduces their combined
+partial sums once a layer; the routing is the first rank's of each
+"model" group.  Under FSDP every dispatch runs one expert at a time and
+gathers that expert's blocks over "data" inside its checkpoint, never
+the whole (E, d, f) stack.
+
 Top-k: ``jax.lax.top_k`` puts the lower index first among equal values,
 and the router's logits are cast to f32 from the model's dtype, so in
 bf16 two experts often tie.  ``torch.topk`` promises no order among
@@ -36,6 +46,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.models.layers import _init, activation
+from repro_torch.sharding import parallel as P
 
 
 def _init_experts(gen, shape, scale, dtype, device) -> torch.Tensor:
@@ -70,23 +81,40 @@ def top_k(logits: torch.Tensor, k: int
     return vals[..., :k], idx[..., :k]
 
 
-def router_probs(cfg, p, x) -> Tuple[torch.Tensor, torch.Tensor,
-                                     torch.Tensor]:
+def router_probs(cfg, p, x, tp=None) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
     """Returns (top-k weights (.., k) f32, top-k indices (.., k), full
-    probabilities (.., E) f32)."""
-    logits = (x @ p["router"]).float()
+    probabilities (.., E) f32).  On a mesh (``tp``) the router is
+    replicated over "model" (gathered over "data" under FSDP) and every
+    rank of a "model" group routes its replicated ``x`` alike; the first
+    rank's top-k indices are taken by all (`parallel.agree_over_model`),
+    so that no bf16 tie resolves two ways, and the weights are the rank's
+    own logits at them (the same values, still differentiable)."""
+    router = P.fsdp_gather(tp, p["router"], -2, cfg.d_model)
+    logits = (x @ router).float()
     top_logits, top_idx = top_k(logits, cfg.experts_per_token)
+    if P.model_size(tp) > 1:
+        top_idx = P.agree_over_model(tp, top_idx)
+        top_logits = logits.gather(-1, top_idx)
     return (torch.softmax(top_logits, dim=-1), top_idx,
             torch.softmax(logits, dim=-1))
 
 
-def load_balance_loss(cfg, probs, top_idx) -> torch.Tensor:
+def load_balance_loss(cfg, probs, top_idx, tp=None) -> torch.Tensor:
     """Switch-style auxiliary load-balance loss (mean probability x mean
-    dispatch)."""
+    dispatch).  Where a train step splits each microbatch's rows over
+    "data" (``tp.microbatch_over_data``) the two means are the
+    microbatch's, each rank's summed over "data"
+    (`parallel.sum_over_data_both`: the gradient of the probabilities'
+    mean reaches every rank's rows from every rank's loss)."""
     e = cfg.num_experts
     dispatch = F.one_hot(top_idx.long(), e).float().sum(-2)
     frac_tokens = dispatch.reshape(-1, e).mean(0)
     frac_probs = probs.reshape(-1, e).mean(0)
+    if tp is not None and tp.microbatch_over_data and tp.data_size > 1:
+        both = P.sum_over_data_both(
+            tp, torch.cat([frac_tokens, frac_probs])) / tp.data_size
+        frac_tokens, frac_probs = both[:e], both[e:]
     return e * (frac_tokens * frac_probs).sum()
 
 
@@ -96,17 +124,70 @@ def _expert_mlp(cfg, p, x):
     return h @ p["w_down"]
 
 
-def apply_moe_dense(cfg, p, x) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dense dispatch: all experts on all tokens (the oracle)."""
+def _expert(cfg, tp, x, wg, wu, wd, ce=None):
+    """One expert's gated MLP on the rows ``x``, weighted by its (..)
+    routing weights ``ce`` (0 where a token is not routed to it) where
+    given.  Under FSDP the expert's blocks are gathered over "data" here
+    (the identity otherwise): under the expert's checkpoint the gather
+    runs again in backward instead of the whole expert being kept."""
+    d = cfg.d_model
+    wg, wu = (P.fsdp_gather(tp, w, -2, d) for w in (wg, wu))
+    wd = P.fsdp_gather(tp, wd, -1, d)
+    y = (activation(cfg, x @ wg) * (x @ wu)) @ wd
+    return y if ce is None else y * ce[..., None].to(x.dtype)
+
+
+def _run_expert(cfg, tp, p, e: int, x, ce=None):
+    """:func:`_expert` ``e`` on ``x``, under ``torch.utils.checkpoint``
+    where autograd records (the reference's ``jax.checkpoint``: its hidden
+    activations, and under FSDP its gathered blocks, are recomputed in
+    the backward pass)."""
+    args = (x, p["w_gate"][e], p["w_up"][e], p["w_down"][e], ce)
+    if torch.is_grad_enabled() and (x.requires_grad
+                                    or p["w_gate"].requires_grad):
+        return torch.utils.checkpoint.checkpoint(
+            _expert, cfg, tp, *args, use_reentrant=False)
+    return _expert(cfg, tp, *args)
+
+
+def _experts(cfg, p, xs, tp):
+    """xs (E, C, d): each expert's gated MLP on its own rows, one batched
+    product; under FSDP one expert after another
+    (:func:`_run_expert`)."""
+    if P.data_size(tp) == 1:
+        return _expert_mlp(cfg, p, xs)
+    return torch.stack([_run_expert(cfg, tp, p, e, xs[e])
+                        for e in range(cfg.num_experts)])
+
+
+def _on_mesh(tp) -> bool:
+    return tp is not None and tp.active
+
+
+def _split(cfg, p, tp) -> bool:
+    """Whether the experts' f columns are split over "model" (per-expert
+    TP: a rank's experts give partial sums)."""
+    return _on_mesh(tp) and P.is_split(p["w_gate"].shape[-1], cfg.d_ff)
+
+
+def apply_moe_dense(cfg, p, x, tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense dispatch: all experts on all tokens (the oracle).  On a mesh
+    each rank runs every expert on its f columns and the combined partial
+    sums are all-reduced over "model" once."""
     B, S, d = x.shape
     T, E = B * S, cfg.num_experts
-    top_w, top_idx, probs = router_probs(cfg, p, x)
-    ye = _expert_mlp(cfg, p, x.reshape(1, T, d).expand(E, T, d))  # (E, T, d)
+    top_w, top_idx, probs = router_probs(cfg, p, x, tp)
     combine = torch.zeros((T, E), dtype=torch.float32, device=x.device)
     combine.scatter_add_(1, top_idx.reshape(T, -1).long(),
                          top_w.reshape(T, -1))
+    split = _split(cfg, p, tp)
+    if split:
+        x, combine = P.copy_to_model(tp, x), P.copy_to_model(tp, combine)
+    ye = _experts(cfg, p, x.reshape(1, T, d).expand(E, T, d), tp)
     y = torch.einsum("te,etd->td", combine.to(x.dtype), ye)
-    return y.reshape(B, S, d), load_balance_loss(cfg, probs, top_idx)
+    if split:
+        y = P.reduce_from_model(tp, y)
+    return y.reshape(B, S, d), load_balance_loss(cfg, probs, top_idx, tp)
 
 
 def capacity(T: int, cfg, capacity_factor: float = 1.25) -> int:
@@ -116,22 +197,29 @@ def capacity(T: int, cfg, capacity_factor: float = 1.25) -> int:
     return min(int(math.ceil(T * K / E * capacity_factor)), T)
 
 
-def apply_moe_capacity(cfg, p, x, capacity_factor: float = 1.25
+def apply_moe_capacity(cfg, p, x, capacity_factor: float = 1.25, tp=None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Capacity dispatch: token slots sorted by expert (stable), each
     expert's first ``cap`` slots into a fixed (E, cap) buffer, the expert
     MLPs, then a scatter-add back with the router's weights.  A slot past
-    its expert's capacity goes to an overflow row and contributes 0."""
+    its expert's capacity goes to an overflow row and contributes 0.  On a
+    mesh every rank routes alike (the agreed indices), runs the experts
+    on its f columns and all-reduces the scattered partial sums once;
+    where the batch is split over "data" a rank's capacity counts its own
+    rows (the reference's counts the whole batch's)."""
     B, S, d = x.shape
     T = B * S
     E, K = cfg.num_experts, cfg.experts_per_token
     cap = capacity(T, cfg, capacity_factor)
 
-    top_w, top_idx, probs = router_probs(cfg, p, x)
-    aux = load_balance_loss(cfg, probs, top_idx)
-    xt = x.reshape(T, d)
+    top_w, top_idx, probs = router_probs(cfg, p, x, tp)
+    aux = load_balance_loss(cfg, probs, top_idx, tp)
+    split = _split(cfg, p, tp)
+    xt = (P.copy_to_model(tp, x) if split else x).reshape(T, d)
     flat_e = top_idx.reshape(T * K).long()            # expert of each slot
     flat_w = top_w.reshape(T * K)
+    if split:
+        flat_w = P.copy_to_model(tp, flat_w)
     flat_t = torch.arange(T, device=x.device).repeat_interleave(K)
 
     order = torch.argsort(flat_e, stable=True)        # slots by expert
@@ -144,52 +232,58 @@ def apply_moe_capacity(cfg, p, x, capacity_factor: float = 1.25
 
     buf = torch.zeros((E * cap + 1, d), dtype=x.dtype, device=x.device)
     buf = buf.index_put((slot,), xt[t_sorted])
-    ye = _expert_mlp(cfg, p, buf[:-1].reshape(E, cap, d)).reshape(E * cap, d)
+    ye = _experts(cfg, p, buf[:-1].reshape(E, cap, d), tp).reshape(E * cap, d)
     ye = torch.cat([ye, ye.new_zeros((1, d))], 0)
 
     contrib = ye[slot] * w_sorted[:, None].to(x.dtype)
     y = torch.zeros((T, d), dtype=x.dtype, device=x.device).index_add(
         0, t_sorted, torch.where(keep[:, None], contrib, 0))
+    if split:
+        y = P.reduce_from_model(tp, y)
     return y.reshape(B, S, d), aux
 
 
-def _expert_out(cfg, x, wg, wu, wd, ce):
-    """One expert on every token, weighted by its (B, S) routing weights
-    ``ce`` (0 where the token is not routed to it)."""
-    h = activation(cfg, x @ wg) * (x @ wu)
-    return (h @ wd) * ce[..., None].to(x.dtype)
-
-
-def apply_moe_scan(cfg, p, x) -> Tuple[torch.Tensor, torch.Tensor]:
+def apply_moe_scan(cfg, p, x, tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scan-over-experts dispatch: the dense dispatch's numerics, one
-    expert after another, so the live intermediate is one expert's
-    activations.  The experts' E / k extra FLOP are the price of no
-    sort or scatter."""
-    top_w, top_idx, probs = router_probs(cfg, p, x)
-    aux = load_balance_loss(cfg, probs, top_idx)
+    expert after another (the reference's ``lax.scan``), so the live
+    intermediate is one expert's activations.  The experts' E / k extra
+    FLOP are the price of no sort or scatter.  On one device the experts
+    add into an accumulator of x's dtype in expert order, so bf16 rounds
+    as the reference's does.
+
+    On a mesh (per-expert TP, the reference's placement) each expert is a
+    column-parallel then row-parallel product on the rank's f columns: the
+    rank's partial outputs, weighted by ``combine``, are summed over the
+    experts in float32 and all-reduced over "model" once a layer, after
+    the experts and outside their checkpoints (one B S d all-reduce, not
+    one an expert).  ``x`` and ``combine`` enter through
+    `parallel.copy_to_model`: their gradients from each rank's partial
+    outputs are summed over "model", so the router's gradient is whole
+    and the same on every rank.  The float32 sum rounds once where one
+    device's bf16 accumulator rounds after every expert."""
+    top_w, top_idx, probs = router_probs(cfg, p, x, tp)
+    aux = load_balance_loss(cfg, probs, top_idx, tp)
     # combine[b, s, e]: the routing weight (0 if unrouted), from a one-hot
     combine = (F.one_hot(top_idx.long(), cfg.num_experts).float()
                * top_w[..., None]).sum(-2)
-    grad = torch.is_grad_enabled() and (
-        x.requires_grad or p["w_gate"].requires_grad)
-    acc = torch.zeros_like(x)
+    split = _split(cfg, p, tp)
+    if split:
+        x, combine = P.copy_to_model(tp, x), P.copy_to_model(tp, combine)
+    acc = torch.zeros(x.shape, device=x.device,
+                      dtype=torch.float32 if _on_mesh(tp) else x.dtype)
     for e in range(cfg.num_experts):
-        args = (x, p["w_gate"][e], p["w_up"][e], p["w_down"][e],
-                combine[..., e])
-        if grad:
-            out = torch.utils.checkpoint.checkpoint(
-                _expert_out, cfg, *args, use_reentrant=False)
-        else:
-            out = _expert_out(cfg, *args)
-        acc = acc + out
-    return acc, aux
+        acc = acc + _run_expert(cfg, tp, p, e, x, combine[..., e]).to(
+            acc.dtype)
+    y = acc.to(x.dtype)
+    return (P.reduce_from_model(tp, y) if split else y), aux
 
 
-def apply_moe(cfg, p, x, dispatch: str = "dense"
+def apply_moe(cfg, p, x, dispatch: str = "dense", tp=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(y (B, S, d) in x's dtype, the f32 load-balance loss)."""
+    """(y (B, S, d) in x's dtype, the f32 load-balance loss).  ``tp``
+    runs the mesh program (`sharding/parallel.TP`)."""
     if dispatch == "capacity":
-        return apply_moe_capacity(cfg, p, x)
+        return apply_moe_capacity(cfg, p, x, tp=tp)
     if dispatch == "scan":
-        return apply_moe_scan(cfg, p, x)
-    return apply_moe_dense(cfg, p, x)
+        return apply_moe_scan(cfg, p, x, tp=tp)
+    return apply_moe_dense(cfg, p, x, tp=tp)

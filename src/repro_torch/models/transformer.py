@@ -99,7 +99,8 @@ def apply_block(cfg, kind: str, p: dict, x, *, mode: str, positions,
     which ``forward`` does not add).  A block with a cross-attention layer
     attends over ``enc_out`` after its self-attention; ``causal=False`` is
     the encoder's self-attention.  ``tp`` (`sharding/parallel.TP`) runs
-    the dense block's mesh program."""
+    the block's mesh program: its attention, cross-attention, MLP or MoE
+    layer on this rank's blocks."""
     aux = None
     h = L.apply_norm(cfg, p["norm1"], x)
     if kind in ATTN_KINDS:
@@ -122,13 +123,13 @@ def apply_block(cfg, kind: str, p: dict, x, *, mode: str, positions,
         h = L.apply_norm(cfg, p["norm_cross"], x)
         h, _ = attn.apply_attention(cfg, p["cross"], h, kind="attn",
                                     mode=mode, positions=positions,
-                                    kv_x=enc_out)
+                                    kv_x=enc_out, tp=tp)
         x = x + h
     if kind == "ssd":
         return x, new_cache, aux
     h = L.apply_norm(cfg, p["norm2"], x)
     if cfg.num_experts:
-        h, aux = moe_lib.apply_moe(cfg, p["moe"], h, dispatch)
+        h, aux = moe_lib.apply_moe(cfg, p["moe"], h, dispatch, tp=tp)
     else:
         h = L.apply_mlp(cfg, p["mlp"], h, tp)
     if cfg.post_norm:
@@ -235,20 +236,24 @@ def _cycles(tree: Any, n: int) -> list:
 
 
 def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor,
-           remat: bool = False, mode: str = "train") -> torch.Tensor:
+           remat: bool = False, mode: str = "train", tp=None
+           ) -> torch.Tensor:
     """Whisper-style encoder over precomputed frame embeddings (the stubbed
     front end): frames (B, frontend_len, d_model) -> (B, frontend_len,
     d_model), cast to the parameters' dtype before ``enc_pos`` is added.
     ``mode`` picks the attention route: "train" (chunked, differentiable;
     what the reference always runs) or "prefill" (the flash kernel, for
-    serving).  ``remat`` checkpoints each layer in train mode."""
+    serving).  ``remat`` checkpoints each layer in train mode.  ``tp``
+    runs the non-causal blocks' mesh program on this rank's blocks;
+    ``enc_pos`` is replicated (the reference's rules), and so is the
+    output."""
     enc = params["encoder"]
     x = frames.to(params["enc_pos"].dtype) + params["enc_pos"]
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
 
     def layer(x, lp):
         return apply_block(cfg, "attn", lp, x, mode=mode,
-                           positions=positions, causal=False)[0]
+                           positions=positions, causal=False, tp=tp)[0]
 
     for lp in _cycles(enc["layers"][0], cfg.encoder_layers):
         if remat and mode == "train":
@@ -257,6 +262,18 @@ def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor,
         else:
             x = layer(x, lp)
     return L.apply_norm(cfg, enc["final_norm"], x)
+
+
+def project_patches(cfg, w, patch_embeds, tp=None):
+    """The vision front end's patches in the model's width, ``patch_embeds
+    @ proj``.  On a mesh ``proj`` (d, d) is column-parallel over "model"
+    (gathered over "data" under FSDP), the reference's (fsdp, tp), and the
+    rank's columns are gathered whole (`parallel.gather_whole`) before
+    they join the replicated residual stream."""
+    w = P.fsdp_gather(tp, w, -2, cfg.d_model)
+    if not P.is_split(w.shape[-1], cfg.d_model):
+        return patch_embeds @ w
+    return P.gather_whole(tp, P.copy_to_model(tp, patch_embeds) @ w, -1)
 
 
 def _embed_inputs(cfg, params, batch, mode, remat=False, tp=None):
@@ -272,7 +289,8 @@ def _embed_inputs(cfg, params, batch, mode, remat=False, tp=None):
     else:
         positions = torch.arange(tokens.shape[1], device=dev)
     if cfg.frontend == "vision" and "patch_embeds" in batch:
-        pe = batch["patch_embeds"].to(x.dtype) @ params["proj"]
+        pe = project_patches(cfg, params["proj"],
+                             batch["patch_embeds"].to(x.dtype), tp)
         x = torch.cat([pe, x], 1)
         if mode != "decode":
             positions = torch.arange(x.shape[1], device=dev)
@@ -281,7 +299,8 @@ def _embed_inputs(cfg, params, batch, mode, remat=False, tp=None):
         enc_out = batch.get("enc_out")
         if enc_out is None:
             enc_out = encode(cfg, params, batch["frames"], remat=remat,
-                             mode="train" if mode == "train" else "prefill")
+                             mode="train" if mode == "train" else "prefill",
+                             tp=tp)
     return x, positions.to(torch.int32), enc_out
 
 
@@ -301,11 +320,12 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *, mode: str,
     model reads "enc_out" (B, frontend_len, d_model) or "frames" from
     ``batch``, a vision model "patch_embeds" (B, frontend_len, d_model):
     its logits then cover frontend_len + S positions (:func:`_embed_inputs`).
-    ``tp`` (`sharding/parallel.TP`) runs the mesh program of the dense
-    family on this rank's blocks of ``params`` and ``caches``: the logits
-    are then its slice of the vocab.
+    ``tp`` (`sharding/parallel.TP`) runs the mesh program (the dense,
+    MoE, encoder-decoder and vision families) on this rank's blocks of
+    ``params`` and ``caches``: the logits are then its slice of the
+    vocab.
     """
-    P.check_dense(cfg, tp is not None and tp.active)
+    P.check_mesh_family(cfg, tp is not None and tp.active)
     x, positions, enc_out = _embed_inputs(cfg, params, batch, mode, remat,
                                           tp)
     dev = x.device

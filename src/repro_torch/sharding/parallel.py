@@ -1,5 +1,6 @@
 """Tensor parallelism over "model" and FSDP over "data": the explicit
-collectives the dense transformers' mesh program is made of.
+collectives the mesh program is made of (the dense transformers, the
+mixtures of experts, the encoder-decoder and the vision front end).
 
 The reference places its arrays (`sharding/rules.py`) and lets GSPMD
 insert the collectives.  The port has no such compiler: each rank holds
@@ -17,7 +18,12 @@ with its adjoint:
 * :func:`gather_model`, :func:`fsdp_gather`: all-gather forward,
   reduce-scatter backward: a sharded value every rank then uses a part of
   (K and V over "model"; an FSDP weight over "data" at use, freed after
-  the layer).
+  the layer);
+* :func:`gather_whole`: all-gather forward, the rank's block of the
+  gradient backward: a sharded value every rank then uses whole (the
+  vision front end's projected patches, into the residual stream);
+* :func:`sum_over_data_both`: all-reduce over "data" both ways: a
+  client-level mean of rows split over "data" (the MoE load balance).
 
 A :class:`TP` of ``None`` is one device: every helper is then the
 identity and the layers run their one-device code, unchanged.  The layers
@@ -87,13 +93,17 @@ def traffic() -> Dict[str, Dict[str, int]]:
 class TP:
     """This rank's place on the mesh: the "model" group, its size and this
     rank's coordinate on it, and, for FSDP, the "data" group (``None``
-    without FSDP)."""
+    without FSDP).  ``microbatch_over_data``: a train step's microbatch
+    is split over "data", each rank holding a share of its rows (the MoE
+    load-balance means are then summed over "data";
+    `launch/steps.py::build_train_step` sets it)."""
     group: Any
     size: int
     rank: int
     data_group: Any = None
     data_size: int = 1
     data_rank: int = 0
+    microbatch_over_data: bool = False
 
     @property
     def active(self) -> bool:
@@ -239,6 +249,29 @@ class _Gather(torch.autograd.Function):
         return (reduce_scatter(g, *ctx.args),) + (None,) * 5
 
 
+class _SumBoth(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.group, ctx.axis = group, axis
+        return all_reduce(x.contiguous().clone(), group, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.group, ctx.axis), \
+            None, None
+
+
+class _GatherWhole(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, size, rank, axis):
+        ctx.dim, ctx.rank, ctx.n = dim, rank, x.shape[dim]
+        return all_gather(x, dim, group, size, rank, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n),) + (None,) * 5
+
+
 def copy_to_model(tp: Optional[TP], x: torch.Tensor) -> torch.Tensor:
     """Identity forward, all-reduce over "model" backward."""
     if tp is None or tp.size == 1:
@@ -259,6 +292,27 @@ def gather_model(tp: Optional[TP], x: torch.Tensor, dim: int) -> torch.Tensor:
     if tp is None or tp.size == 1:
         return x
     return _Gather.apply(x, dim, tp.group, tp.size, tp.rank, "model")
+
+
+def gather_whole(tp: Optional[TP], x: torch.Tensor, dim: int) -> torch.Tensor:
+    """All-gather over "model" along ``dim`` forward, this rank's block of
+    the gradient backward: a column-parallel output made whole for
+    consumers every rank runs alike (the replicated residual stream), whose
+    gradient each rank then holds whole (a reduce-scatter would count it
+    once a rank)."""
+    if tp is None or tp.size == 1:
+        return x
+    return _GatherWhole.apply(x, dim, tp.group, tp.size, tp.rank, "model")
+
+
+def sum_over_data_both(tp: Optional[TP], x: torch.Tensor) -> torch.Tensor:
+    """The sum over "data" of ``x``, forward and backward (an all-reduce
+    both ways): a client-level statistic of rows split over "data" that
+    every rank's loss reads (the MoE load-balance means), so that its
+    gradient reaches each rank's rows from every rank's loss."""
+    if tp is None or tp.data_size == 1:
+        return x
+    return _SumBoth.apply(x, tp.data_group, "data")
 
 
 def fsdp_gather(tp: Optional[TP], w: torch.Tensor, dim: int,
@@ -312,16 +366,23 @@ def vocab_range(tp: Optional[TP], v_local: int,
     return block(tp, v_local, v_padded)
 
 
-def check_dense(cfg, active: bool) -> None:
+# the families whose layers have a tensor-parallel design: the dense
+# transformers, the mixtures of experts (per-expert TP), the
+# encoder-decoder (its encoder and cross-attention) and the vision front
+# end (its patch projection)
+MESH_FAMILIES = ("dense", "moe", "audio", "vlm")
+
+
+def check_mesh_family(cfg, active: bool) -> None:
     """Refuse an active mesh program for a family whose layers have no
-    tensor-parallel design yet."""
-    if active and cfg.family != "dense":
+    tensor-parallel design yet (the recurrent ones: SSD, RG-LRU)."""
+    if active and cfg.family not in MESH_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: tensor parallelism over 'model' and FSDP over "
-            f"'data' cover the dense transformers (gemma2-2b, "
-            f"h2o-danube-1.8b, granite-3-8b, qwen2-72b); the "
+            f"'data' cover the dense transformers, the mixtures of experts, "
+            f"the encoder-decoder and the vision front end; the "
             f"{cfg.family} family needs its own design (ROADMAP queue 1, "
-            f"slice 16b item 1b)")
+            f"slice 16b item 1c)")
 
 
 def agree_over_model(tp: Optional[TP], x: torch.Tensor) -> torch.Tensor:

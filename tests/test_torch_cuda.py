@@ -713,12 +713,13 @@ def test_frontend_serving_on_the_card_matches_the_cpu(cuda_device, arch):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
-def _tp_prefill_rank(rank: int, world: int, out: str) -> None:
+def _tp_prefill_rank(rank: int, world: int, out: str,
+                     arch: str = "gemma2-2b") -> None:
     """One rank of a (1, 2) mesh on the one card (gloo): the smoke
-    gemma2-2b in bf16, its blocks of the model, the mesh program's
-    prefill with the counts set to 0 just before it, and one device's
-    prefill of the same model; the rank's vocab slice of both to
-    ``out``."""
+    ``arch`` in bf16 (its profile's MoE dispatch and KV cache), its
+    blocks of the model, the mesh program's prefill with the counts set
+    to 0 just before it, and one device's prefill of the same model; the
+    rank's vocab slice of both to ``out``."""
     from repro_torch.configs import (get_config, get_profile, replace,
                                      smoke_variant)
     from repro_torch.launch import mesh as mesh_lib
@@ -727,8 +728,9 @@ def _tp_prefill_rank(rank: int, world: int, out: str) -> None:
     from repro_torch.models.model import prefill_last
     from repro_torch.sharding import rules
     mesh = mesh_lib.make_mesh((1, 2), device_type="cuda")
-    cfg = replace(smoke_variant(get_config("gemma2-2b")), dtype="bfloat16")
-    prof = get_profile("gemma2-2b")
+    cfg = replace(smoke_variant(get_config(arch)), dtype="bfloat16")
+    prof = get_profile(arch)
+    serve = dict(dispatch=prof.moe_dispatch, quantized_cache=prof.kv_int8)
     gen = torch.Generator(device="cuda").manual_seed(3)
     full = init_params(cfg, gen)
     toks = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen,
@@ -736,9 +738,10 @@ def _tp_prefill_rank(rank: int, world: int, out: str) -> None:
     local = rules.local_shard(full, steps.param_specs(cfg, prof, mesh), mesh)
     tp = steps.mesh_program(mesh, cfg, prof)
     with torch.inference_mode():
-        want, _ = prefill_last(cfg, full, {"tokens": toks}, 256)
+        want, _ = prefill_last(cfg, full, {"tokens": toks}, 256, **serve)
         ops.reset_launches()
-        got, _ = prefill_last(cfg, local, {"tokens": toks}, 256, tp=tp)
+        got, _ = prefill_last(cfg, local, {"tokens": toks}, 256, tp=tp,
+                              **serve)
         torch.cuda.synchronize()
     v = got.shape[-1]
     torch.save({"got": got.float().cpu(),
@@ -759,6 +762,25 @@ def test_tensor_parallel_prefill_on_the_card(cuda_device, tmp_path):
     out = str(tmp_path / "tp")
     mesh_lib.spawn_ranks(_tp_prefill_rank, 2, (out,), device_type="cuda",
                          timeout_s=600)
+    for r in range(2):
+        res = torch.load(f"{out}.{r}.pt")
+        assert res["got"].shape == res["want"].shape
+        assert torch.isfinite(res["got"]).all()
+        assert (res["got"] - res["want"]).abs().max() <= 0.1
+        assert res["launches"]["flash_attention"] == res["layers"]
+
+
+@pytest.mark.cuda
+def test_tensor_parallel_moe_prefill_on_the_card(cuda_device, tmp_path):
+    """The same for grok-1-314b's smoke variant (per-expert TP over
+    "model", the scan dispatch, the int8 cache): each rank's vocab slice
+    within 0.1 of one device's (the mesh sums a rank's experts in float32
+    where one device adds them in bf16), every layer through the flash
+    kernel on each rank's heads."""
+    from repro_torch.launch import mesh as mesh_lib
+    out = str(tmp_path / "tp_moe")
+    mesh_lib.spawn_ranks(_tp_prefill_rank, 2, (out, "grok-1-314b"),
+                         device_type="cuda", timeout_s=600)
     for r in range(2):
         res = torch.load(f"{out}.{r}.pt")
         assert res["got"].shape == res["want"].shape

@@ -381,46 +381,58 @@ def test_clients_layout_leaves_no_process_group(monkeypatch):
 
 DENSE = [a for a in tconfigs.ARCH_NAMES
          if tconfigs.get_config(a).family == "dense"]
-OTHER = [a for a in tconfigs.ARCH_NAMES if a not in DENSE]
+DESIGNED = [a for a in tconfigs.ARCH_NAMES
+            if tconfigs.get_config(a).family in ("moe", "audio", "vlm")]
+RECURRENT = [a for a in tconfigs.ARCH_NAMES
+             if a not in DENSE and a not in DESIGNED]
 
 
-@pytest.mark.parametrize("family", ["dense", "other"])
+@pytest.mark.parametrize("family", ["dense", "designed", "recurrent"])
 def test_every_production_mesh_pair_names_tensor_parallelism(family,
                                                              capsys):
-    """``--mesh both``.  The six families without a tensor-parallel design
-    (full size): every pair skipped, each reason naming item 1b (and, for
-    a long_500k pair that ``shape_applicable`` rejects, its reason too).
-    The dense transformers (their smoke variants at ``decode_32k``: a
-    full-size count takes minutes): every pair counted, ``ok``.  Exit
-    code 0."""
-    archs = DENSE if family == "dense" else OTHER
-    extra = ["--smoke", "--shape", "decode_32k"] if family == "dense" else []
+    """``--mesh both``.  The recurrent families, without a tensor-parallel
+    design (full size): every pair skipped, each reason naming item 1c.
+    The dense transformers and the MoE, encoder-decoder and vision archs
+    (their smoke variants at ``decode_32k``: a full-size count takes
+    minutes): every pair counted, ``ok`` (a full-size long_500k pair that
+    ``shape_applicable`` rejects is skipped with its reason).  Exit code
+    0."""
+    archs = {"dense": DENSE, "designed": DESIGNED,
+             "recurrent": RECURRENT}[family]
+    assert len(archs) == {"dense": 4, "designed": 4, "recurrent": 2}[family]
+    smoke = family != "recurrent"
+    extra = ["--smoke", "--shape", "decode_32k"] if smoke else []
     for arch in archs:
         assert dryrun.main(["--arch", arch, "--mesh", "both"] + extra) == 0
     lines = [x for x in capsys.readouterr().out.splitlines()
              if " x " in x]
-    shapes = 1 if family == "dense" else len(tshapes.SHAPES)
+    shapes = 1 if smoke else len(tshapes.SHAPES)
     assert len(lines) == 2 * len(archs) * shapes
-    if family == "dense":
+    if smoke:
         assert all(": ok hbm/dev=" in x for x in lines), lines
+        if family == "designed":
+            rec = dryrun.run_one("grok-1-314b", "long_500k", "16x16")
+            assert rec["status"] == "skipped"
+            assert rec["reason"].endswith("no windowed variant implemented")
         return
     assert all(": skipped (" + dryrun.NO_TP in x for x in lines)
-    assert "slice 16b item 1b" in dryrun.NO_TP
-    rec = dryrun.run_one("grok-1-314b", "long_500k", "16x16")
-    assert rec["reason"].endswith("no windowed variant implemented")
+    assert "slice 16b item 1c" in dryrun.NO_TP
 
 
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])
-@pytest.mark.parametrize("arch", ["gemma2-2b", "mixtral-8x22b"])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "mixtral-8x22b",
+                                  "mamba2-1.3b"])
 def test_production_meshes_skip_naming_tensor_parallelism(arch, shape):
-    """16x16, 256 devices.  gemma2-2b (dense; its smoke variant) counts as
-    rank 0 of a fake group, and the arguments it holds are its blocks
-    under the placements (the client stack's rows over "data", the
-    vocab and projections over "model"); its collectives run over
-    "model" (and, training, over the clients).  mixtral-8x22b (MoE, full
-    size) is skipped naming item 1b, with the bytes a device would hold
-    under the placements: its arguments split where they divide."""
-    smoke = arch in DENSE
+    """16x16, 256 devices.  gemma2-2b (dense) and mixtral-8x22b (MoE),
+    their smoke variants, count as rank 0 of a fake group, and the
+    arguments each holds are its blocks under the placements (gemma2's
+    client stack's rows over "data"; mixtral's one client's leaves over
+    "data" by FSDP; the vocab, projections and experts' f over "model");
+    their collectives run over "model" (and, training, over the clients
+    or, under FSDP, over "data").  mamba2-1.3b (SSD, full size) is skipped
+    naming item 1c, with the bytes a device would hold under the
+    placements: its arguments split where they divide."""
+    smoke = arch != "mamba2-1.3b"
     rec = dryrun.run_one(arch, shape, "16x16", smoke=smoke)
     assert rec["devices"] == 256
     cfg = tconfigs.get_config(arch)
@@ -447,7 +459,9 @@ def test_production_meshes_skip_naming_tensor_parallelism(arch, shape):
     assert per_device == want - (4 if shape == "train_4k" else 0)
     axes = rec["collectives_by_axis"]
     assert axes["model"]["all-reduce"] > 0
-    assert ("clients" in axes) == (shape == "train_4k")
+    pod_client = tconfigs.get_profile(arch).client_axis == "pod"
+    assert ("clients" in axes) == (shape == "train_4k" and not pod_client)
+    assert ("data" in axes) == pod_client
 
 
 def test_launchers_dry_run(capsys):

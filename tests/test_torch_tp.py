@@ -579,20 +579,22 @@ def test_train_collective_bytes_equal_a_hand_count():
     assert "clients" not in rec["collectives_by_axis"]
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "mamba2-1.3b",
-                                  "whisper-large-v3"])
-def test_other_families_are_refused_by_name(arch):
+@pytest.mark.parametrize("builder", ["train", "prefill"])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b"])
+def test_other_families_are_refused_by_name(arch, builder):
     """A "model" axis above 1 for a family without a tensor-parallel
-    design: the train and serving builders refuse it naming ROADMAP item
-    1b (on a fake (1, 2) group: nothing runs)."""
+    design (the recurrent ones: SSD, RG-LRU): the train and serving
+    builders refuse it naming ROADMAP item 1c (on a fake (1, 2) group:
+    nothing runs)."""
     from torch.distributed.device_mesh import init_device_mesh
     with H.fake_process_group(2):
         mesh = init_device_mesh("cpu", (1, 2), mesh_dim_names=("data",
                                                                "model"))
-        with pytest.raises(NotImplementedError, match="slice 16b item 1b"):
-            tsteps.build_train_step(arch, InputShape("t", 32, 4, "train"),
-                                    mesh, num_clusters=1)
-        with pytest.raises(NotImplementedError, match="slice 16b item 1b"):
-            tsteps.build_prefill_step(arch,
-                                      InputShape("p", 32, 2, "prefill"), mesh)
+        with pytest.raises(NotImplementedError, match="slice 16b item 1c"):
+            if builder == "train":
+                tsteps.build_train_step(arch, InputShape("t", 32, 4, "train"),
+                                        mesh, num_clusters=1)
+            else:
+                tsteps.build_prefill_step(
+                    arch, InputShape("p", 32, 2, "prefill"), mesh)
     assert not dist.is_initialized()

@@ -4,8 +4,9 @@
 keeping its blocks through ``launch/mesh.local_blocks``), and rank 0's
 JSON line meets the one-device run of the same command line.
 
-* Serving (gemma2-2b smoke, float32, (1, 2)): rank 0 serves every row,
-  and its greedy tokens equal the one-device run's.
+* Serving (gemma2-2b, grok-1-314b and whisper-large-v3 smoke, float32,
+  (1, 2)): rank 0 serves every row, and its greedy tokens equal the
+  one-device run's.
 * Training (gemma2-2b smoke, bfloat16 as its profile, (2, 2): two
   clients of two model ranks, the clients set by the mesh): round 0's
   mean client CE meets the one-device run's with two clients at 1e-2
@@ -46,6 +47,26 @@ def test_serve_mesh_1x2_matches_one_device(capfd):
     assert got["first_tokens"] == one["first_tokens"]
     # the prefill's K/V gathers and the row-parallel all-reduces ran
     assert got["collective_bytes"]["model"]["all-reduce"] > 0
+
+
+@pytest.mark.parametrize("arch", ["grok-1-314b", "whisper-large-v3"])
+def test_serve_mesh_1x2_new_families_match_one_device(capfd, arch):
+    """grok-1-314b (per-expert TP, scan dispatch, int8 cache) and
+    whisper-large-v3 (frames drawn from ``--seed`` on every rank alike,
+    encoded on the mesh; cross-attention on a rank's heads): rank 0's
+    greedy tokens equal the one-device run's."""
+    argv = ["--arch", arch, "--smoke", "--device", "cpu",
+            "--batch", "2", "--prompt-len", "24", "--tokens", "5"]
+    one = _line(capfd, serve.main, argv)
+    got = _line(capfd, serve.main, argv + ["--mesh", "1x2"])
+    assert got["mesh"] == {"data": 1, "model": 2}
+    assert got["params"] == one["params"]
+    assert got["first_tokens"] == one["first_tokens"]
+    assert got["collective_bytes"]["model"]["all-reduce"] > 0
+    if arch == "grok-1-314b":           # the routing agreed over "model"
+        assert got["collective_bytes"]["model"]["broadcast"] > 0
+    else:
+        assert got["encode_s"] > 0
 
 
 def test_train_mesh_2x2_matches_one_device(capfd):
