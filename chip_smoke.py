@@ -51,7 +51,7 @@ counted by shape and stage, prefill + decode against a longer prefill in
 bf16 and on an f32 depth cut, and profiles of the encode, a prefill and
 decode steps (flash at their shapes: rows 4e-4g of ``kernels_vs_plain``,
 against SDPA), runs tensor parallelism over "model" (phase ``tp``):
-qwen2-72b at full width with its depth cut to 16 layers served on a (1,
+qwen2-72b at full width with its depth cut to 8 layers served on a (1,
 2) mesh (a prefill of B = 2 x 4096 tokens, 16 greedy decode steps) and
 gemma2-2b at full width, 12 layers, trained one round on a (2, 2) mesh
 (2 clients of TP 2), the ranks spawned processes sharing the card over
@@ -64,7 +64,12 @@ apart must be a router near-tie), whisper-large-v3 at 8 + 8 layers (4 clips enco
 the mesh, cross-attention on a rank's heads) and pixtral-12b at 8 layers
 (1024 patches projected column-parallel), each a prefill and 8 decode
 steps held against one rank, with flash at a rank's heads (grok-1's
-layer, whisper's encoder and its cross-attention in decode), trains the
+layer, whisper's encoder and its cross-attention in decode), runs the
+mesh program of the recurrent pair the same way on (1, 2) (phase
+``tp_recurrent``): mamba2-1.3b at full width and 16 layers (the SSD by
+heads) and recurrentgemma-2b at 8 (the RG-LRU by channels, its local
+attention on a rank's heads), B = 2 x 4096, 8 decode steps each, with
+flash at one rank's local layer (row 4l), trains the
 full gemma2-2b through
 ``repro_torch.launch.train.train`` (4 clients stacked on the card, K = 2,
 4096-token sequences, 3 rounds with stage-2 in round 2; round 1's stage-1
@@ -73,8 +78,8 @@ launch a round; rounds 1-2 again with the kernels off), then mamba2-1.3b
 and recurrentgemma-2b at full depth and whisper-large-v3 (its depth cut
 to 16 + 16 layers) the same way for 2 rounds (round 1 again with the
 kernels off; one stage-1 launch a round for each dtype of their leaves),
-dry-runs each of those serves and trainings and the tp and tp_families
-runs on the host
+dry-runs each of those serves and trainings and the tp, tp_families
+and tp_recurrent runs on the host
 (``repro_torch.launch.dryrun``, fake tensors, in worker processes that
 count while the card trains) and holds its predicted peak within 0.5-2x
 of the measured one, and prints one JSON line per phase.  The line
@@ -2424,15 +2429,16 @@ MESH_RANKS = 2                # ranks sharing the one card (over gloo)
 MESH_TIMEOUT_S = 600
 # tensor parallelism over "model" (phase tp): qwen2-72b at full width
 # (d_model 8192, 64 q / 8 kv heads of 128, d_ff 29,568, vocab 152,064,
-# bf16, int8 KV cache as its profile) with its depth cut 80 -> 16 (about
-# 33 GB whole, 16.5 GB a rank), served on a (1, 2) mesh of two spawned
+# bf16, int8 KV cache as its profile) with its depth cut 80 -> 8 (about
+# 19 GB whole, 9.5 GB a rank; 16 layers until the recurrent pair's phase
+# took the script's last seconds), served on a (1, 2) mesh of two spawned
 # ranks that share the card over gloo: a prefill of B = 2 x 4096 tokens,
 # then 16 greedy decode steps, held against the same weights on one rank
 # without a mesh: the prefill's last-position logits and, fed the one-rank
 # run's tokens, the 16 decode steps' logits at CONSIST_TOL_BF16, the first
 # greedy token equal, the decoded tokens that agree counted (each that
 # differs printed with the one-rank run's top-2 gap there)
-TP_ARCH, TP_LAYERS, TP_MESH = "qwen2-72b", 16, (1, 2)
+TP_ARCH, TP_LAYERS, TP_MESH = "qwen2-72b", 8, (1, 2)
 TP_BATCH, TP_PROMPT, TP_DECODE, TP_SEED = 2, 4096, 16, 7
 # gemma2-2b trains one round on a (2, 2) mesh: 2 clients of TP 2, K = 1,
 # 2 rows of 4096 tokens a client (2 microbatches), at full width with its
@@ -2489,7 +2495,30 @@ TPF_ARCHS = ("grok-1-314b", "whisper-large-v3", "pixtral-12b")
 TP_SERVES = {TP_ARCH: (TP_LAYERS, TP_BATCH, TP_PROMPT, TP_DECODE, TP_SEED),
              "grok-1-314b": (4, 2, 4096, 8, 11),
              "whisper-large-v3": (8, 4, 128, 8, 11),
-             "pixtral-12b": (8, 1, 1024, 8, 11)}
+             "pixtral-12b": (8, 1, 1024, 8, 11),
+             "mamba2-1.3b": (16, 2, 4096, 8, 11),
+             "recurrentgemma-2b": (8, 2, 4096, 8, 11)}
+# the recurrent pair on the (1, 2) mesh (phase tp_recurrent), at full
+# width with the depth cut to the ~40 s the script has left, each
+# family's layer pattern kept: mamba2-1.3b 48 -> 16 SSD layers (a rank
+# its 32 of 64 heads), recurrentgemma-2b 26 -> 8 (2 cycles of rglru,
+# rglru, local and the 2 leftover rglru layers: its rem path and 2 flash
+# layers; a rank its 1280 of 2560 RG-LRU channels and 5 of 10 heads)
+TPR_ARCHS = ("mamba2-1.3b", "recurrentgemma-2b")
+# their held logits (the mesh against one rank): recurrentgemma-2b at
+# gemma2's bar; mamba2-1.3b at the recurrent families' bf16 bars
+# (CONSIST_REC_*): its bf16 rounding grows with depth, and a mesh rounds
+# in other places than one rank (a rank's columns of in_proj in a GEMM of
+# another width, the out_proj halves summed), a distance of the size of
+# one device's own bf16 error (tests/tp_bf16_rounding.py on the CPU at
+# full width, 16 layers, B = 1 x 512: the mesh 0.590 from one device, rms
+# 0.123; one device 0.650 from the same weights in float32, rms 0.144)
+TPR_BARS = {"mamba2-1.3b": (CONSIST_REC_MAX_BF16, CONSIST_REC_RMS_BF16),
+            "recurrentgemma-2b": (CONSIST_TOL_BF16, None)}
+# row 4l: the bf16 flash kernel at one recurrentgemma-2b rank's local
+# layer on the (1, 2) mesh: B, Hq, Hkv (the kv head gathered whole), S, D,
+# window (causal, no soft-cap)
+FLASH_TPR = (2, 5, 1, 4096, 256, 2048)
 # a token the mesh would route to other experts than one rank (fed one
 # rank's routing, so that the two runs' hidden states part by rounding
 # alone) must be a router near-tie: one rank's k-th and (k+1)-th router
@@ -2923,11 +2952,14 @@ def check_flash_tp(gen) -> dict:
     return row
 
 
-def hold_serve(cfg, want, got, one_rec: dict, ranks: list) -> dict:
+def hold_serve(cfg, want, got, one_rec: dict, ranks: list,
+               bars=(CONSIST_TOL_BF16, None)) -> dict:
     """A mesh serve held against one rank's: ``want`` and ``got`` (B, 1 +
     decode steps, V) f32 logits (the prefill's last position, then each
     decode step fed the one-rank run's tokens; ``got`` the ranks' vocab
-    slices concatenated), within CONSIST_TOL_BF16 at every step; every
+    slices concatenated), within ``bars`` at every step (the largest
+    distance, and where given the rms distance over the logits' rms;
+    CONSIST_TOL_BF16 by default); every
     rank's greedy tokens alike, the first equal to one rank's; each token
     that differs listed with the one-rank run's top-2 gap there, and
     where a row first parts that gap within twice the logits' distance
@@ -2944,7 +2976,7 @@ def hold_serve(cfg, want, got, one_rec: dict, ranks: list) -> dict:
               "argmax_agree": float((got[:, 0].argmax(-1)
                                      == want[:, 0].argmax(-1))
                                     .float().mean()),
-              "tol": CONSIST_TOL_BF16}
+              "tol": bars[0], "rms_share_tol": bars[1]}
     decode = {"max_abs_err": float(step_err[1:].max()),
               "max_abs_err_by_step": step_err[1:].tolist(),
               "rms_err": float(diff[:, 1:].square().mean().sqrt()),
@@ -2952,9 +2984,11 @@ def hold_serve(cfg, want, got, one_rec: dict, ranks: list) -> dict:
               "argmax_agree": float((got[:, 1:].argmax(-1)
                                      == want[:, 1:].argmax(-1))
                                     .float().mean()),
-              "tol": CONSIST_TOL_BF16}
-    assert logits["max_abs_err"] <= CONSIST_TOL_BF16, logits
-    assert decode["max_abs_err"] <= CONSIST_TOL_BF16, decode
+              "tol": bars[0], "rms_share_tol": bars[1]}
+    for held in (logits, decode):
+        held["rms_err_share"] = held["rms_err"] / held["logit_rms"]
+        assert held["max_abs_err"] <= bars[0], held
+        assert bars[1] is None or held["rms_err_share"] <= bars[1], held
     toks = torch.tensor(one_rec["tokens"])
     for r in ranks:
         assert r["tokens"] == ranks[0]["tokens"], "ranks disagree"
@@ -3186,7 +3220,7 @@ def tp_serve_rank(rank: int, world: int, tmp: str, tag: str, archs: tuple,
         cfg, prof = tp_serve_config(arch)
         _, b, text, n_dec, seed = TP_SERVES[arch]
         gen = torch.Generator(device=DEV).manual_seed(seed)
-        tp = None if mesh is None else steps.mesh_program(mesh, cfg, prof)
+        tp = None if mesh is None else steps.mesh_program(mesh, prof)
         if mesh is None:
             params = init_params(cfg, gen)
         else:
@@ -3383,6 +3417,90 @@ def tp_families_phase(smi: str, tmp: Path, gen) -> tuple:
             "archs": archs, "ranks_wall_s": mesh_wall,
             "flash_tp": flash, "phase_s": time.perf_counter() - t_phase}
     return line, flash, launches
+
+
+def check_flash_tp_recurrent(gen) -> dict:
+    """Row 4l: the bf16 flash kernel at one recurrentgemma-2b rank's local
+    layer on the (1, 2) mesh (FLASH_TPR: B = 2, Hq = 5 over Hkv = 1, S =
+    4096, D = 256, window 2048, causal), held against the plain version
+    at gemma2's layer bars and timed beside ``flex_attention`` with the
+    band mask, as row 4b is."""
+    import torch
+    b, hq, hkv, s, d, window = FLASH_TPR
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device=DEV)
+               .bfloat16().transpose(1, 2) for h in (hq, hkv, hkv))
+    row = bf16_flash_layer(q, k, v, window, 0.0,
+                           flex_attention_call(s, window, 0.0))
+    row.update(tol={"rtol": FLASH_LAYER_RTOL_BF16,
+                    "atol": FLASH_LAYER_ATOL_BF16},
+               library="flex_attention (band block mask, enable_gqa; "
+                       "torch.compile)",
+               shape=f"one recurrentgemma-2b local layer on one rank of a "
+                     f"(1, 2) mesh: B={b}, Hq={hq}, Hkv={hkv}, S={s}, "
+                     f"D={d}, window {window}, bf16, no soft-cap")
+    del q, k, v
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def tp_recurrent_phase(smi: str, tmp: Path, gen) -> tuple:
+    """Tensor parallelism for the recurrent pair on the card: mamba2-1.3b
+    (the SSD by heads, its projection and conv cut part by part) and
+    recurrentgemma-2b (the RG-LRU by channels, its local attention on a
+    rank's heads) at full width, served on a (1, 2) mesh of two spawned
+    ranks sharing the card over gloo, each held against the same weights
+    on one rank without a mesh (:func:`hold_serve`: the prefill's and
+    every decode step's logits, fed one rank's tokens, and the greedy
+    tokens); the flash launches of a rank's prefill at recurrentgemma's
+    rank shape, one a local layer; then that kernel at that shape (row
+    4l).  Returns the phase line, row 4l and the flash launches a rank
+    made at its shape on the serve path."""
+    import torch
+    tmp = tmp.resolve()
+    t_phase = time.perf_counter()
+    one = tp_spawn(tp_serve_rank, 1, tmp, "tpr_one", TPR_ARCHS)[0]
+    world = TP_MESH[0] * TP_MESH[1]
+    t0 = time.perf_counter()
+    ranks = tp_spawn(tp_serve_rank, world, tmp, "tpr_mesh", TPR_ARCHS,
+                     "tpr_one")
+    mesh_wall = time.perf_counter() - t0
+    archs = {}
+    for arch in TPR_ARCHS:
+        cfg, prof = tp_serve_config(arch)
+        _, b, text, n_dec, _ = TP_SERVES[arch]
+        want = torch.load(f"{tp_out(tmp, f'tpr_one_{arch}', 0)}.pt")
+        got = torch.cat([torch.load(
+            f"{tp_out(tmp, f'tpr_mesh_{arch}', r)}.pt")["logits"]
+            for r in range(world)], -1)
+        recs = [r[arch] for r in ranks]
+        local = cfg.layer_kinds().count("local")
+        flash = {f"{text}x{text}, causal": local} if local else {}
+        for r in recs + [one[arch]]:
+            assert r["flash_by_shape"] == flash, (arch, r["flash_by_shape"])
+        held = hold_serve(cfg, want["logits"], got, one[arch], recs,
+                          TPR_BARS[arch])
+        prefill = [r["timed_steps"]["prefill"] for r in recs]
+        archs[arch] = {
+            "layers": cfg.num_layers, "reduced": tp_serve_reduced(arch),
+            "batch": b, "prompt": text, "decode_steps": n_dec,
+            **held,
+            "prefill_bytes_by_axis": prefill[0]["bytes_by_axis"],
+            "prefill_gloo_share": [p["gloo_share"] for p in prefill],
+            "prefill_s": [p["s"] for p in prefill],
+            "decode_s_per_step": [r["decode_s_per_step"] for r in recs],
+            "peak_device_mem_mb": [r["peak_device_mem_mb"] for r in recs],
+            "one_rank": one[arch], "ranks": recs}
+    flash_row = check_flash_tp_recurrent(gen)
+    launches = ranks[0]["recurrentgemma-2b"]["flash_by_shape"][
+        f"{FLASH_TPR[3]}x{FLASH_TPR[3]}, causal"]
+    line = {"phase": "tp_recurrent", "nvidia_smi": smi,
+            "backend": "gloo over CUDA tensors (ranks share the card)",
+            "mesh": {"data": TP_MESH[0], "model": TP_MESH[1]},
+            "archs": archs, "ranks_wall_s": mesh_wall,
+            "flash_tp": flash_row,
+            "phase_s": time.perf_counter() - t_phase}
+    return line, flash_row, launches
 
 
 def events_ms(fn, reps: int = 5, warmup: int = 1) -> float:
@@ -3835,7 +3953,8 @@ def start_dryrun():
             seq_len=text if arch == "whisper-large-v3" else SERVE_PROMPT)))
     # the tp runs, each as rank 0 of its mesh
     for arch, (layers, batch, _, _, _) in TP_SERVES.items():
-        key = "tp serve" if arch == TP_ARCH else "tpf serve"
+        key = ("tp serve" if arch == TP_ARCH else
+               "tpr serve" if arch in TPR_ARCHS else "tpf serve")
         tasks.append((f"{key} {arch}", arch, "prefill_32k", dict(
             device="cuda", mesh="x".join(map(str, TP_MESH)), batch=batch,
             seq_len=tp_serve_cache(arch), num_layers=layers)))
@@ -3855,7 +3974,8 @@ def start_dryrun():
 
 
 def dryrun_phase(smi: str, serve_lines: dict, train_lines: list,
-                 started, tp_line: dict, tpf_line: dict) -> dict:
+                 started, tp_line: dict, tpf_line: dict,
+                 tpr_line: dict) -> dict:
     """The dry run of every serve and training run above
     (``repro_torch.launch.dryrun.run_one`` on the host, fake tensors on
     the card's device, counted by :func:`start_dryrun`'s workers): the
@@ -3885,9 +4005,11 @@ def dryrun_phase(smi: str, serve_lines: dict, train_lines: list,
     ranks = tp_line["train"]["ranks"]
     measured[f"tp train {TP_TRAIN_ARCH}"] = (ranks, statistics.median(
         r["s"] for r in ranks))
-    for arch, line in tpf_line["archs"].items():
-        measured[f"tpf serve {arch}"] = (line["ranks"], statistics.median(
-            r["prefill_s"] + r["encode_s"] for r in line["ranks"]))
+    for key, phase in (("tpf", tpf_line), ("tpr", tpr_line)):
+        for arch, line in phase["archs"].items():
+            measured[f"{key} serve {arch}"] = (
+                line["ranks"], statistics.median(
+                    r["prefill_s"] + r["encode_s"] for r in line["ranks"]))
     recs = {key: rec for key, rec, _ in done}
     launched = [(key, n) for key, _, n in done if set(n.values()) != {0}]
     assert not launched, launched
@@ -4232,7 +4354,7 @@ def main() -> int:
                            "pixtral": 40}, front_flash
 
     # ---- 8b''. tensor parallelism over "model": qwen2-72b served at full
-    # width (16 layers) on a (1, 2) mesh, gemma2-2b trained one round on a
+    # width (8 layers) on a (1, 2) mesh, gemma2-2b trained one round on a
     # (2, 2) mesh, spawned ranks sharing the card over gloo, each against
     # one rank without a mesh; every rank's prefill through the bf16 flash
     # kernel on its heads (row 4h); the counts are set to 0 in each rank
@@ -4248,6 +4370,15 @@ def main() -> int:
     # each process just before each serve and read after it
     tpf_line, flash_tpf, tpf_flash = tp_families_phase(smi, tmp, gen)
     emit(tpf_line)
+
+    # ---- 8b4. tensor parallelism for the recurrent pair: mamba2-1.3b (the
+    # SSD by heads) and recurrentgemma-2b (the RG-LRU by channels, its
+    # local layers through the bf16 flash kernel on a rank's heads) at full
+    # width on a (1, 2) mesh, each against one rank; flash at that rank
+    # shape (row 4l); the counts are set to 0 in each process just before
+    # each serve and read after it
+    tpr_line, flash_tpr, tpr_flash = tp_recurrent_phase(smi, tmp, gen)
+    emit(tpr_line)
 
     # ---- 8c. transformer FL training: gemma2-2b, then the recurrent
     # families and whisper-large-v3, 4 clients on the card, stage-1 through
@@ -4270,7 +4401,7 @@ def main() -> int:
         # ---- 8d. the dry run of every run above: its predicted peak
         # against the card's, its flops over the card's seconds
         emit(dryrun_phase(smi, serve_lines, train_lines, started, tp_line,
-                          tpf_line))
+                          tpf_line, tpr_line))
     finally:
         started[0].shutdown(cancel_futures=True)
 
@@ -4368,6 +4499,15 @@ def main() -> int:
                      **{k: flash_tpf[key][k] for k in (
                          "max_abs_err", "ms", "plain_ms", "bound_ms",
                          "bound_by", "library_ms", "shape")}})
+    # the same kernel at one recurrentgemma-2b rank's local layer of the
+    # tp_recurrent serve: one launch a local layer of each rank's prefill
+    rows.append({"name": "flash_attention_rg_local_tp", "route": "cuda",
+                 "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
+                 "replaces": "src/repro/kernels/flash_attention.py:88",
+                 "launches": tpr_flash,
+                 **{k: flash_tpr[k] for k in (
+                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                     "library_ms", "shape")}})
     rows.extend(train_rows)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

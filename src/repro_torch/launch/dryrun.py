@@ -28,21 +28,16 @@ both count the card's route.
   clients the reference's single-pod mesh gives the arch (16 for a
   data-client profile, 1 for a pod-client one), the shape's global batch;
   counted as rank 0 of a ``fake`` process group.  Serving pairs are
-  skipped: the port's serving steps have no mesh program.
+  skipped: the layout is one of clients, and it has no serving step.
 * ``single``, ``multi``, ``both``: the reference's 16x16 and 2x16x16
-  meshes, the pairs of the dense, MoE, encoder-decoder and vision
-  families counted as rank 0 of a ``fake`` process group of 256 or 512
-  ranks with the mesh's subgroups
+  meshes, every pair counted as rank 0 of a ``fake`` process group of
+  256 or 512 ranks with the mesh's subgroups
   (`launch/mesh.py`): tensor parallelism over "model", FSDP over "data"
   for a pod-client arch (`sharding/parallel.py`), the rank's blocks of
   the arguments under `sharding/rules.py`'s placements, the collectives
   by kind and by axis (``collectives_by_axis``).  A train step runs at
   the shape's global batch, K = 4, a stage-2 round of the reference
-  launcher's cadence, its microbatches scaled by their trips.  The
-  recurrent families (SSD, RG-LRU) have no tensor-parallel design yet:
-  their pairs are skipped with that reason (``NO_TP``),
-  ``memory.argument_size_in_bytes`` the bytes a device would hold under
-  the placements.
+  launcher's cadence, its microbatches scaled by their trips.
 
 A record keeps the reference's keys and statuses (``ok``, ``skipped``,
 ``error``), ``count_s`` in place of ``lower_s``/``compile_s``.  The exit
@@ -66,15 +61,12 @@ from repro_torch.configs.shapes import SHAPES, InputShape, shape_applicable
 from repro_torch.launch import hlo_analysis as H
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps
-from repro_torch.sharding import parallel as P
 from repro_torch.tree import tree_leaves, tree_map
 
 LAYOUTS = {"one": ["one"], "clients": ["clients"], "single": ["16x16"],
            "multi": ["2x16x16"], "both": ["16x16", "2x16x16"]}
-NO_TP = ("no tensor-parallel design for this family yet (the port's mesh "
-         "program covers the dense, MoE, encoder-decoder and vision "
-         "families; ROADMAP queue 1, slice 16b item 1c)")
-NO_SERVE_MESH = "the port's serving steps have no mesh program"
+NO_SERVE_MESH = ("the clients layout holds one client a rank: it has no "
+                 "serving step")
 # launch/train.py's defaults: the one-card run
 TRAIN_CLIENTS, TRAIN_CLUSTERS, TRAIN_BATCH, TRAIN_RPG = 4, 2, 16, 2
 MESH_RPG = 5                 # the reference's launcher's stage-2 cadence
@@ -114,33 +106,21 @@ def _config(arch: str, overrides: Dict[str, Any]):
     return cfg, overrides.pop("profile", None) or configs.get_profile(arch)
 
 
-def _per_device_bytes(specs, placements, sizes) -> int:
-    """The bytes a device holds of ``specs`` under ``placements`` (a
-    tuple of per-axis placements a leaf): each leaf's bytes over the
-    sizes of the mesh axes it is sharded on."""
-    if isinstance(specs, torch.Tensor):
-        split = math.prod(n for n, p in zip(sizes, placements)
-                          if p.is_shard())
-        return specs.numel() * specs.element_size() // split
-    if isinstance(specs, dict):
-        return sum(_per_device_bytes(specs[k], placements[k], sizes)
-                   for k in specs)
-    if isinstance(specs, (tuple, list)):
-        return sum(_per_device_bytes(a, b, sizes)
-                   for a, b in zip(specs, placements))
-    return 0
-
-
 def _local_specs(specs, placements, sizes):
     """One rank's blocks of ``specs`` (meta tensors) under ``placements``
     (a tuple of per-axis placements a leaf): each sharded dim divided by
-    the sizes of the mesh axes it is sharded on; other values as they
-    are."""
+    the sizes of the mesh axes it is sharded on, a dim with a cut
+    (`sharding/rules.Placements`) cut by it; other values as they are."""
     if isinstance(specs, torch.Tensor):
         shape = list(specs.shape)
+        cuts = {c.dim % len(shape): c
+                for c in getattr(placements, "cuts", ())}
+        parts = [1] * len(shape)
         for n, p in zip(sizes, placements):
             if p.is_shard():
-                shape[p.dim] //= n
+                parts[p.dim] *= n
+        shape = [cuts[d].size(n) if d in cuts else s // n
+                 for d, (s, n) in enumerate(zip(shape, parts))]
         return torch.empty(shape, dtype=specs.dtype, device="meta")
     if isinstance(specs, dict):
         return {k: _local_specs(specs[k], placements[k], sizes)
@@ -215,9 +195,8 @@ def _clients(arch, shape: InputShape, cfg, prof, overrides, device):
 
 
 def _on_mesh(arch, shape: InputShape, layout, cfg, prof, overrides, device):
-    """A step on the reference's mesh ``layout`` (a family with a
-    tensor-parallel design), as rank 0 of a fake process group with the
-    mesh's subgroups."""
+    """A step on the reference's mesh ``layout``, as rank 0 of a fake
+    process group with the mesh's subgroups."""
     from torch.distributed.device_mesh import init_device_mesh
     sizes = _production(layout).shape
     world = math.prod(sizes.values())
@@ -259,20 +238,6 @@ def _on_mesh(arch, shape: InputShape, layout, cfg, prof, overrides, device):
     return c, world, meta, trips
 
 
-def _skipped_on_mesh(arch, shape: InputShape, layout, cfg, prof):
-    mesh = _production(layout)
-    if shape.mode == "train":
-        specs, sh = steps.train_placements(arch, shape, mesh, cfg=cfg,
-                                           profile=prof)
-    else:
-        b = steps.build_step(arch, shape, mesh, cfg=cfg, profile=prof)
-        specs, sh = b.in_specs, b.in_shardings
-    return dict(status="skipped", reason=NO_TP, mode=shape.mode,
-                devices=math.prod(mesh.shape.values()),
-                memory={"argument_size_in_bytes": float(_per_device_bytes(
-                    specs, sh, list(mesh.shape.values())))})
-
-
 def run_one(arch: str, shape_name: str, mesh: str = "one",
             **overrides) -> Dict[str, Any]:
     """One (arch, shape) pair on one layout (``one``, ``clients``,
@@ -288,12 +253,6 @@ def run_one(arch: str, shape_name: str, mesh: str = "one",
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh}
     ok, reason = shape_applicable(cfg, shape)
     production = mesh not in ("one", "clients")
-    if production and cfg.family not in P.MESH_FAMILIES:
-        if ok:
-            rec.update(_skipped_on_mesh(arch, shape, mesh, cfg, prof))
-        else:               # no step to place either
-            rec.update(status="skipped", reason=f"{NO_TP}; {reason}")
-        return rec
     if not ok:
         rec.update(status="skipped", reason=reason)
         return rec

@@ -26,16 +26,17 @@ positions.  Prints one JSON line with the timings (whisper's encode
 apart), the cache's bytes, frontend_len and the first generated tokens.
 
 ``--mesh DxM`` serves on a ("data", "model") mesh of D x M spawned ranks
-a dense transformer (gemma2-2b, h2o-danube-1.8b, granite-3-8b,
-qwen2-72b), a mixture of experts (grok-1-314b, mixtral-8x22b: per-expert
-tensor parallelism), whisper-large-v3 (its encoder and cross-attention)
-or pixtral-12b (its patch projection): tensor parallelism over "model",
+any of the ten archs: a dense transformer (gemma2-2b, h2o-danube-1.8b,
+granite-3-8b, qwen2-72b), a mixture of experts (grok-1-314b,
+mixtral-8x22b: per-expert tensor parallelism), whisper-large-v3 (its
+encoder and cross-attention), pixtral-12b (its patch projection) or a
+recurrent arch (mamba2-1.3b: the SSD by heads; recurrentgemma-2b: the
+RG-LRU by channels): tensor parallelism over "model",
 the batch over "data" (and FSDP over "data" for a pod-client arch), the
 same model, prompts and front-end inputs as one device draws; ``nccl``
 where every rank has a card of its own, else ``gloo`` (ranks sharing one
 card, or ``--device cpu``).  Rank 0 prints the JSON line of its rows
-with the bytes its collectives moved.  The recurrent families
-(mamba2-1.3b, recurrentgemma-2b) have no mesh program yet.
+with the bytes its collectives moved.
 
 ``--dry-run --shape prefill_32k`` (or another prefill or decode shape)
 counts that step at the shape's batch and length on fake tensors
@@ -195,8 +196,8 @@ def main(argv=None) -> None:
                     help="the dry run's prefill or decode shape")
     ap.add_argument("--mesh", default=None,
                     help="DxM: serve on a (data, model) mesh of D x M "
-                         "spawned ranks (the dense, MoE, encoder-decoder "
-                         "and vision archs)")
+                         "spawned ranks (every arch: the dense, MoE, "
+                         "encoder-decoder, vision and recurrent ones)")
     args = ap.parse_args(argv)
     if args.dry_run:
         from repro_torch.configs.shapes import SHAPES
@@ -285,7 +286,7 @@ def _serve_rank(rank: int, world: int, opts: dict) -> None:
     d, m = mesh_lib.parse_mesh(args.mesh)
     mesh = mesh_lib.make_mesh((d, m), device_type=dev.type)
     cfg, prof, kv_int8 = _config(args)
-    tp = steps.mesh_program(mesh, cfg, prof)
+    tp = steps.mesh_program(mesh, prof)
     specs = steps.param_specs(cfg, prof, mesh)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params, n_params = mesh_lib.local_blocks(

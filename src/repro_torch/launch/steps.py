@@ -27,10 +27,9 @@ one of two forms that compute the same function:
   ...) of the stack and of the batch, holding its blocks of its client:
   the whole client where the client is one rank, else tensor parallelism
   over "model" and, for a pod-client arch, FSDP and the batch over "data"
-  (:func:`mesh_program`, `sharding/parallel.py`; the dense, MoE,
-  encoder-decoder and vision families).  The aggregation is
-  ``core/aggregation_spmd.hierarchical_agg_shard`` over one process group
-  a cluster and block
+  (:func:`mesh_program`, `sharding/parallel.py`; every family).  The
+  aggregation is ``core/aggregation_spmd.hierarchical_agg_shard`` over
+  one process group a cluster and block
   (:func:`~repro_torch.core.aggregation_spmd.make_cluster_groups`, made
   when the step is built, by every rank); with one client (a pod-client
   arch on one pod) there is nothing to aggregate, as in the reference.
@@ -273,9 +272,9 @@ def build_train_step(arch: str, shape: InputShape, mesh=None, *,
                 use_kernels=use_kernels)
             return stack, losses.mean()
     else:
-        tp = mesh_program(mesh, cfg, prof)
+        tp = mesh_program(mesh, prof)
         table = mesh_lib.client_rank_table(mesh, c_axes)
-        _check_layout(mesh, cfg, table, tp)
+        _check_layout(mesh, table, tp)
         groups = (spmd.make_cluster_groups(clusters, table)
                   if n_clients > 1 else None)
         # the rows of a rank: its client's, or its block of them where
@@ -285,8 +284,8 @@ def build_train_step(arch: str, shape: InputShape, mesh=None, *,
         rows = pcb // dp
         rank_accum, shares = _rank_microbatches(arch, cfg, dp, pcb, accum,
                                                 micro)
-        if shares:
-            tp = dataclasses.replace(tp, microbatch_over_data=True)
+        if tp is not None:      # whole microbatches: a rank's own counts
+            tp = dataclasses.replace(tp, rows_over_data=shares)
         specs = param_specs(cfg, prof, mesh)
 
         def train_step(stack, batch, round_idx, *, trips=None):
@@ -403,9 +402,8 @@ def train_placements(arch: str, shape: InputShape, mesh, *,
                      cfg: Optional[ModelConfig] = None,
                      profile: Optional[RunProfile] = None):
     """``(in_specs, in_shardings)`` of the train step on ``mesh`` without
-    building the step: the shapes and placements of a layout the step
-    itself refuses (a family without a tensor-parallel design on a
-    "model" axis above 1: ROADMAP queue 1, slice 16b item 1c)."""
+    building the step (a mesh known by its shape alone: no process group,
+    no cluster groups)."""
     cfg, prof = _resolve(arch, cfg, profile)
     n_clients = num_clients_for(mesh, prof.client_axis)
     c_axes = client_axes_for(mesh, prof.client_axis)
@@ -418,7 +416,7 @@ def train_placements(arch: str, shape: InputShape, mesh, *,
 def _stacked_specs(pspec, c_axes):
     """Each leaf's spec with the clients dim in front."""
     if isinstance(pspec, rules.PartitionSpec):
-        return rules.P(c_axes, *pspec)
+        return pspec.lead(c_axes)
     if isinstance(pspec, dict):
         return {k: _stacked_specs(v, c_axes) for k, v in pspec.items()}
     return tuple(_stacked_specs(v, c_axes) for v in pspec)
@@ -443,29 +441,28 @@ def _on_axis(spec, axis: str) -> bool:
                for e in spec)
 
 
-def mesh_program(mesh, cfg, prof):
+def mesh_program(mesh, prof):
     """This rank's `sharding/parallel.TP` on a ``DeviceMesh`` whose
     "model" axis is above 1 or whose "data" axis shards a pod-client
     arch's parameters (FSDP); None where no collective runs inside a
     client or replica (no mesh, a "model" size of 1 without FSDP) or the
     mesh is known by its shape alone (its bundle carries placements; its
-    ``fn`` is the one-device step).  A family without a tensor-parallel
-    design (the recurrent ones) is refused by name."""
+    ``fn`` is the one-device step).  With FSDP a served batch is split
+    over "data" (``rows_over_data``); the train step and a decode step
+    whose batch does not split say otherwise."""
     if mesh is None or not hasattr(mesh, "get_group"):
         return None
     sizes = rules.mesh_shape(mesh)
     fsdp = prof.client_axis == "pod" and sizes.get("data", 1) > 1
     if sizes.get("model", 1) == 1 and not fsdp:
         return None
-    P.check_mesh_family(cfg, True)
     return P.TP.from_mesh(mesh, fsdp=fsdp)
 
 
-def _check_layout(mesh, cfg, table, tp) -> None:
+def _check_layout(mesh, table, tp) -> None:
     """One client per client-axis index, its blocks on the other axes:
     the world is the mesh, and a client spread over several ranks runs the
-    mesh program on a ``DeviceMesh``; the recurrent families are refused
-    by name (ROADMAP queue 1, slice 16b item 1c)."""
+    mesh program on a ``DeviceMesh``."""
     shape = rules.mesh_shape(mesh)
     world = dist.get_world_size()
     if world != sum(len(row) for row in table):
@@ -474,7 +471,6 @@ def _check_layout(mesh, cfg, table, tp) -> None:
                          f"the train step takes one client per client-axis "
                          f"index")
     if len(table[0]) > 1:
-        P.check_mesh_family(cfg, True)
         if tp is None:
             raise ValueError(f"mesh {shape}: a client on {len(table[0])} "
                              f"ranks needs a DeviceMesh (launch/mesh.py)")
@@ -500,12 +496,29 @@ def _batch_axes(mesh, batch: int, fallback):
 
 def cache_spec_tree(cache_structs, batch_axes, mesh):
     """Cache placement specs: the batch dim over ``batch_axes``; the
-    attention cache's sequence dim over "model" where it divides.  Caches
-    under "layers" are stacked with a leading cycles dim (those under
+    attention cache's sequence dim over "model" where it divides; a
+    recurrent layer's state over "model" as its parameters are
+    (`sharding/rules.py`): the SSD's (B, H, P, N) ``h`` by heads and its
+    (B, K-1, d_inner + 2N) ``conv`` part by part (the rank's x channels,
+    all of B and C), the RG-LRU's (B, W) ``h`` and (B, K-1, W) ``conv``
+    by channels, each where its heads or width divide.  Caches under
+    "layers" are stacked with a leading cycles dim (those under
     "rem_layers" are not), told from the path, never from ndim."""
     msize = rules.mesh_shape(mesh)["model"]
 
     def walk(tree, keys):
+        if isinstance(tree, dict) and set(tree) == {"h", "conv"}:
+            lead = (None,) * (1 if keys and keys[0] == "layers" else 0)
+            h, conv = tree["h"].shape[len(lead):], tree["conv"].shape[-1]
+            ssd = len(h) == 4                   # (B, H, P, N), not (B, W)
+            if msize == 1 or (h[1] if ssd else conv) % msize:
+                return {"h": rules.P(*lead, batch_axes),
+                        "conv": rules.P(*lead, batch_axes)}
+            cuts = (rules.ssd_channel_cuts(h[1] * h[2], conv - h[1] * h[2])
+                    if ssd else ())
+            return {"h": rules.P(*lead, batch_axes, "model"),
+                    "conv": rules.P(*lead, batch_axes, None, "model",
+                                    cuts=cuts)}
         if isinstance(tree, dict):
             return {k: walk(v, keys + (str(k),)) for k, v in tree.items()}
         if isinstance(tree, (tuple, list)):
@@ -518,9 +531,7 @@ def cache_spec_tree(cache_structs, batch_axes, mesh):
             # (B, L, H, D) / (B, L, H)
             seq_ax = "model" if tree.shape[lead + 1] % msize == 0 else None
             return rules.P(*((None,) * lead), batch_axes, seq_ax)
-        # ssd "h" (B,H,P,N) / rglru "h" (B,W) / "conv" (B,K-1,C): the
-        # batch dim only
-        return rules.P(*((None,) * lead), batch_axes)
+        raise ValueError(f"cache leaf {'/'.join(keys)}")
 
     return walk(cache_structs, ())
 
@@ -552,7 +563,7 @@ def build_prefill_step(arch: str, shape: InputShape, mesh=None, *,
     batch_structs.update(_frontend_specs(cfg, (B,),
                                          getattr(torch, cfg.dtype)))
 
-    tp = mesh_program(mesh, cfg, prof)
+    tp = mesh_program(mesh, prof)
 
     def prefill_step(params, batch):
         return M.prefill_last(cfg, params, batch, S,
@@ -590,7 +601,9 @@ def build_decode_step(arch: str, shape: InputShape, mesh=None, *,
     base_params = _param_structs(cfg)
     cache_structs = _cache_structs(cfg, prof, B, S)
 
-    tp = mesh_program(mesh, cfg, prof)
+    tp = mesh_program(mesh, prof)
+    if tp is not None and batch_axes is None:    # every rank all the rows
+        tp = dataclasses.replace(tp, rows_over_data=False)
 
     def decode_step(params, caches, token, pos, enc_out=None):
         logits, caches = M.decode_step(cfg, params, caches, token, pos,

@@ -25,9 +25,7 @@ front ends train on 0.1 * normal frames (whisper-large-v3) or patch
 embeddings (pixtral-12b, whose text then takes the sequence less its
 patches), drawn each round.
 ``--mesh DxM`` trains on a ("data", "model") mesh of D x M spawned ranks,
-the clients the mesh lays out (`train_rank`), a dense transformer, a
-mixture of experts, whisper-large-v3 or pixtral-12b (not yet the
-recurrent families).
+the clients the mesh lays out (`train_rank`), any of the ten archs.
 ``--smoke`` takes the config's ``smoke_variant`` and a 64-token sequence,
 as ``launch/serve.py`` does.  ``--dry-run`` counts the round step at the
 arguments given on fake tensors (`launch/dryrun.py`: nothing is run or
@@ -304,8 +302,7 @@ def main(argv=None) -> None:
                          "analyses, exit")
     ap.add_argument("--mesh", default=None,
                     help="DxM: train on a (data, model) mesh of D x M "
-                         "spawned ranks (not the recurrent archs; the "
-                         "mesh sets the clients)")
+                         "spawned ranks (the mesh sets the clients)")
     args = ap.parse_args(argv)
     if args.dry_run:
         from repro_torch.launch import dryrun

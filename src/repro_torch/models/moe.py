@@ -102,20 +102,27 @@ def router_probs(cfg, p, x, tp=None) -> Tuple[torch.Tensor, torch.Tensor,
 
 def load_balance_loss(cfg, probs, top_idx, tp=None) -> torch.Tensor:
     """Switch-style auxiliary load-balance loss (mean probability x mean
-    dispatch).  Where a train step splits each microbatch's rows over
-    "data" (``tp.microbatch_over_data``) the two means are the
-    microbatch's, each rank's summed over "data"
+    dispatch).  Where the rows are split over "data"
+    (``tp.rows_over_data``: a served batch, or each microbatch of a train
+    step) the two means are the whole batch's, each rank's summed over
+    "data"
     (`parallel.sum_over_data_both`: the gradient of the probabilities'
     mean reaches every rank's rows from every rank's loss)."""
     e = cfg.num_experts
     dispatch = F.one_hot(top_idx.long(), e).float().sum(-2)
     frac_tokens = dispatch.reshape(-1, e).mean(0)
     frac_probs = probs.reshape(-1, e).mean(0)
-    if tp is not None and tp.microbatch_over_data and tp.data_size > 1:
+    if _rows_over_data(tp):
         both = P.sum_over_data_both(
             tp, torch.cat([frac_tokens, frac_probs])) / tp.data_size
         frac_tokens, frac_probs = both[:e], both[e:]
     return e * (frac_tokens * frac_probs).sum()
+
+
+def _rows_over_data(tp) -> bool:
+    """Whether this rank's rows are its block of a batch split over
+    "data" (`parallel.TP.rows_over_data`)."""
+    return tp is not None and tp.rows_over_data and tp.data_size > 1
 
 
 def _expert_mlp(cfg, p, x):
@@ -204,13 +211,20 @@ def apply_moe_capacity(cfg, p, x, capacity_factor: float = 1.25, tp=None
     MLPs, then a scatter-add back with the router's weights.  A slot past
     its expert's capacity goes to an overflow row and contributes 0.  On a
     mesh every rank routes alike (the agreed indices), runs the experts
-    on its f columns and all-reduces the scattered partial sums once;
-    where the batch is split over "data" a rank's capacity counts its own
-    rows (the reference's counts the whole batch's)."""
+    on its f columns and all-reduces the scattered partial sums once.
+    Where the rows are split over "data" (``tp.rows_over_data``; data
+    rank r holds rows ``[r B, (r + 1) B)`` of the whole batch) the
+    capacity and each slot's place in its expert are the whole batch's,
+    as the reference's: the ranks' per-expert slot counts (E ints, no
+    gradient) are all-gathered over "data", a slot's place is offset by
+    the counts of the "data" ranks before it (the slots are in row-major
+    order over the whole batch), and ``cap = capacity(T · data size)``."""
     B, S, d = x.shape
     T = B * S
     E, K = cfg.num_experts, cfg.experts_per_token
-    cap = capacity(T, cfg, capacity_factor)
+    over_data = _rows_over_data(tp)
+    cap = capacity(T * (tp.data_size if over_data else 1), cfg,
+                   capacity_factor)
 
     top_w, top_idx, probs = router_probs(cfg, p, x, tp)
     aux = load_balance_loss(cfg, probs, top_idx, tp)
@@ -227,6 +241,12 @@ def apply_moe_capacity(cfg, p, x, capacity_factor: float = 1.25, tp=None
     # rank of each slot within its expert's group
     rank = (torch.arange(T * K, device=x.device)
             - torch.searchsorted(e_sorted, e_sorted, side="left"))
+    if over_data:        # after the earlier "data" ranks' slots
+        counts = torch.zeros(E, dtype=torch.int64, device=x.device)
+        counts.index_add_(0, flat_e, torch.ones_like(flat_e))
+        every = P.all_gather(counts, 0, tp.data_group, tp.data_size,
+                             tp.data_rank, "data").view(tp.data_size, E)
+        rank = rank + every[:tp.data_rank].sum(0)[e_sorted]
     keep = rank < cap
     slot = torch.where(keep, e_sorted * cap + rank, E * cap)   # overflow row
 

@@ -16,6 +16,15 @@ Train and prefill scan the sequence in log depth (:func:`linear_scan`,
 where the reference calls ``jax.lax.associative_scan``); decode is the
 one-step recurrence.  Cache: {"h": (B, W) f32, "conv": (B, K-1, W)},
 written in place by prefill and decode (see ``models/ssm.py``).
+
+On a mesh (``tp``, `sharding/parallel.TP`) a rank holds its block of the
+W channels (the reference's placement): ``w_x`` and ``w_gate`` are
+column-parallel, the conv, the gates' biases, Lambda, the scan and the
+caches run on the rank's channels, and ``w_out`` is row-parallel.  The
+gates multiply the whole conv output by ``lru_wa``/``lru_wx``, whose
+columns are the rank's: the conv output is gathered over "model" once a
+layer (`parallel.gather_model`, in its own dtype; its backward a
+reduce-scatter).
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import _init
 from repro_torch.models.ssm import _filled, softplus
+from repro_torch.sharding import parallel as P
 
 _C = 8.0  # Griffin's fixed temperature
 
@@ -65,12 +75,15 @@ def _conv(p, y, conv_state=None):
     return out + p["conv_b"], yp[:, -(K - 1):]
 
 
-def _lru_coeffs(p, y):
+def _lru_coeffs(p, y, tp=None):
     """Per-step (a_t, b_t) with h_t = a_t h_{t-1} + b_t, in float32 (the
-    products with ``lru_wa``/``lru_wx`` too; TF32 is off, ``device.py``)."""
+    products with ``lru_wa``/``lru_wx`` too; TF32 is off, ``device.py``).
+    With ``tp`` ``y`` is the rank's channels, gathered whole for the
+    gates' products."""
     yf = y.float()
-    r = torch.sigmoid(yf @ p["lru_wa"].float() + p["lru_ba"])
-    i = torch.sigmoid(yf @ p["lru_wx"].float() + p["lru_bx"])
+    yw = P.gather_model(tp, y, -1).float() if tp is not None else yf
+    r = torch.sigmoid(yw @ p["lru_wa"].float() + p["lru_ba"])
+    i = torch.sigmoid(yw @ p["lru_wx"].float() + p["lru_bx"])
     log_a = -_C * softplus(p["lru_lambda"]) * r
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)
@@ -97,17 +110,23 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
-def apply_rglru(cfg, p, x, *, mode: str, cache: Optional[dict] = None
-                ) -> Tuple[torch.Tensor, Optional[dict]]:
+def apply_rglru(cfg, p, x, *, mode: str, cache: Optional[dict] = None,
+                tp=None) -> Tuple[torch.Tensor, Optional[dict]]:
     """x: (B,S,d) -> (B,S,d).  Returns (y, cache): in decode, and in
-    prefill with a cache, the cache's tensors hold the new state."""
+    prefill with a cache, the cache's tensors hold the new state.
+    ``tp`` runs the block on this rank's channels (module docstring)
+    where they are split over "model"."""
+    if tp is None or not P.is_split(p["w_x"].shape[-1],
+                                    cfg.lru_width or cfg.d_model):
+        tp = None
+    x = P.copy_to_model(tp, x)
     y = x @ p["w_x"]
     gate = F.gelu(x @ p["w_gate"], approximate="tanh")
 
     new_cache = None
     if mode == "decode":
         y, new_conv = _conv(p, y, cache["conv"])
-        a, b = _lru_coeffs(p, y)                        # (B,1,W)
+        a, b = _lru_coeffs(p, y, tp)                    # (B,1,W)
         h = cache["h"][:, None] * a + b
         out = h
         cache["h"].copy_(h[:, 0])
@@ -115,7 +134,7 @@ def apply_rglru(cfg, p, x, *, mode: str, cache: Optional[dict] = None
         new_cache = cache
     else:
         y, conv_tail = _conv(p, y, None)
-        a, b = _lru_coeffs(p, y)                        # (B,S,W)
+        a, b = _lru_coeffs(p, y, tp)                    # (B,S,W)
         out = linear_scan(a, b)
         if mode == "prefill" and cache is not None:
             cache["h"].copy_(out[:, -1])
@@ -123,11 +142,16 @@ def apply_rglru(cfg, p, x, *, mode: str, cache: Optional[dict] = None
             new_cache = cache
 
     out = out.to(x.dtype) * gate
-    return out @ p["w_out"], new_cache
+    return P.reduce_from_model(tp, out @ p["w_out"]), new_cache
 
 
-def init_rglru_cache(cfg, batch: int, dtype, device, lead=()) -> dict:
+def init_rglru_cache(cfg, batch: int, dtype, device, lead=(),
+                     shards: int = 1) -> dict:
+    """A layer's state, of a rank's channels where ``shards`` (the
+    "model" size) divides the width (the reference's placement)."""
     w = cfg.lru_width or cfg.d_model
+    if w % shards == 0:
+        w //= shards
     lead = tuple(lead)
     return {"h": torch.zeros(lead + (batch, w), dtype=torch.float32,
                              device=device),

@@ -15,6 +15,18 @@ Cache layout per SSD layer::
 Unlike the reference, which returns new cache arrays, prefill and decode
 write the new state into the cache tensors they are handed (``copy_``):
 the transformer stack hands each layer views of its stacked caches.
+
+On a mesh (``tp``, `sharding/parallel.TP`) a rank holds its heads of the
+layer, cut part by part (`sharding/rules.py`): its heads' z, x and dt
+columns of ``in_proj`` and all of B and C, its x channels of the conv
+and all of B and C, its heads of ``A_log``, ``D``, ``dt_bias``, its
+channels of ``norm_scale`` and its rows of ``out_proj``; every width is
+read from the rank's tensors.  The input enters through
+`parallel.copy_to_model`; B and C feed every rank's heads, so their
+weights (``in_proj``'s B and C columns, the conv's B and C channels) pass
+through it too, their gradients summed over "model"; the gated norm's
+sum of squares is summed over "model" both ways; ``out_proj`` is
+row-parallel.  The caches hold the rank's heads and conv channels.
 """
 from __future__ import annotations
 
@@ -25,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import _init
+from repro_torch.sharding import parallel as P
 
 NEG_INF = -1e30
 
@@ -63,18 +76,35 @@ def init_ssd(cfg, gen, dtype, device, lead=()) -> dict:
     }
 
 
-def _gated_rmsnorm(y, z, scale):
+def _gated_rmsnorm(y, z, scale, tp=None, d_inner: int = 0):
+    """The gated RMS norm over d_inner channels; with ``tp`` the rank's
+    channels, their f32 sum of squares summed over "model" (both ways)
+    and divided by the whole ``d_inner``."""
     y = y * F.silu(z)
-    var = y.float().square().mean(-1, keepdim=True)
+    if tp is None:
+        var = y.float().square().mean(-1, keepdim=True)
+    else:
+        var = P.sum_over_model_both(
+            tp, y.float().square().sum(-1, keepdim=True)) / d_inner
     return (y * torch.rsqrt(var + 1e-6).to(y.dtype)) * (1.0 + scale.to(y.dtype))
 
 
-def _split_proj(cfg, zxbcdt):
-    di, ns = cfg.d_inner, cfg.ssm_state
+def _split_proj(di: int, ns: int, zxbcdt):
+    """(z, xBC, dt) of the projection, ``di`` channels of z and x."""
     z = zxbcdt[..., :di]
     xBC = zxbcdt[..., di:2 * di + 2 * ns]
     dt = zxbcdt[..., 2 * di + 2 * ns:]
     return z, xBC, dt
+
+
+def _bc_summed(tp, w, lo: int, hi: int):
+    """``w`` with its B and C columns ``[lo, hi)`` (last dim) through
+    `parallel.copy_to_model`: every rank's heads read them, so their
+    gradient is the sum over "model".  Without autograd, ``w``."""
+    if not (torch.is_grad_enabled() and w.requires_grad):
+        return w
+    return torch.cat([w[..., :lo], P.copy_to_model(tp, w[..., lo:hi]),
+                      w[..., hi:]], -1)
 
 
 def _causal_conv(cfg, p, xBC, conv_state=None):
@@ -158,21 +188,33 @@ def _ssd_chunked(cfg, x, dt, B_mat, C_mat, A, h0=None):
     return y, h.permute(0, 2, 3, 1)                     # (B,H,P,N)
 
 
-def apply_ssd(cfg, p, x, *, mode: str, cache: Optional[dict] = None
-              ) -> Tuple[torch.Tensor, Optional[dict]]:
+def apply_ssd(cfg, p, x, *, mode: str, cache: Optional[dict] = None,
+              tp=None) -> Tuple[torch.Tensor, Optional[dict]]:
     """One Mamba-2 block.  x: (B,S,d).  Returns (y, cache): in decode, and
-    in prefill with a cache, the cache's tensors hold the new state."""
+    in prefill with a cache, the cache's tensors hold the new state.
+    ``tp`` runs the block on this rank's heads (module docstring) where
+    its heads are split over "model"."""
     Bb, S, d = x.shape
-    di, ns, nh, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    zxbcdt = x @ p["in_proj"]
-    z, xBC, dt = _split_proj(cfg, zxbcdt)
+    ns, hd = cfg.ssm_state, cfg.ssm_head_dim
+    nh = p["A_log"].shape[-1]                           # the rank's heads
+    di = nh * hd
+    if tp is None or not P.is_split(nh, cfg.ssm_heads):
+        tp = None
+    w_in, conv = p["in_proj"], p
+    if tp is not None:
+        x = P.copy_to_model(tp, x)
+        w_in = _bc_summed(tp, w_in, 2 * di, 2 * di + 2 * ns)
+        conv = {k: _bc_summed(tp, p[k], di, di + 2 * ns)
+                for k in ("conv_w", "conv_b")}
+    zxbcdt = x @ w_in
+    z, xBC, dt = _split_proj(di, ns, zxbcdt)
     A = -torch.exp(p["A_log"])                          # (H,) negative
     dt = softplus(dt.float() + p["dt_bias"])
 
     new_cache = None
     if mode == "decode":
-        xBC, new_conv = _causal_conv(cfg, p, xBC, cache["conv"])
-        xs = xBC[..., :di].reshape(Bb, S, nh, P)
+        xBC, new_conv = _causal_conv(cfg, conv, xBC, cache["conv"])
+        xs = xBC[..., :di].reshape(Bb, S, nh, hd)
         B_mat = xBC[..., di:di + ns]
         C_mat = xBC[..., di + ns:]
         # exact recurrence, S == 1
@@ -188,8 +230,8 @@ def apply_ssd(cfg, p, x, *, mode: str, cache: Optional[dict] = None
         cache["conv"].copy_(new_conv)
         new_cache = cache
     else:
-        xBC, conv_tail = _causal_conv(cfg, p, xBC, None)
-        xs = xBC[..., :di].reshape(Bb, S, nh, P)
+        xBC, conv_tail = _causal_conv(cfg, conv, xBC, None)
+        xs = xBC[..., :di].reshape(Bb, S, nh, hd)
         B_mat = xBC[..., di:di + ns]
         C_mat = xBC[..., di + ns:]
         y, h_last = _ssd_chunked(cfg, xs, dt, B_mat, C_mat, A)
@@ -200,15 +242,21 @@ def apply_ssd(cfg, p, x, *, mode: str, cache: Optional[dict] = None
             cache["conv"].copy_(conv_tail)
             new_cache = cache
 
-    y = _gated_rmsnorm(y, z, p["norm_scale"])
-    return y @ p["out_proj"], new_cache
+    y = _gated_rmsnorm(y, z, p["norm_scale"], tp, cfg.d_inner)
+    return P.reduce_from_model(tp, y @ p["out_proj"]), new_cache
 
 
-def init_ssd_cache(cfg, batch: int, dtype, device, lead=()) -> dict:
-    di, ns, nh, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+def init_ssd_cache(cfg, batch: int, dtype, device, lead=(),
+                   shards: int = 1) -> dict:
+    """A layer's state, of a rank's heads where ``shards`` (the "model"
+    size) divides them (`sharding/rules.py`'s cut)."""
+    ns, hd, nh = cfg.ssm_state, cfg.ssm_head_dim, cfg.ssm_heads
+    if nh % shards == 0:
+        nh //= shards
+    di = nh * hd
     lead = tuple(lead)
     return {
-        "h": torch.zeros(lead + (batch, nh, P, ns), dtype=torch.float32,
+        "h": torch.zeros(lead + (batch, nh, hd, ns), dtype=torch.float32,
                          device=device),
         "conv": torch.zeros(lead + (batch, cfg.ssm_conv - 1, di + 2 * ns),
                             dtype=dtype, device=device),

@@ -99,8 +99,8 @@ def apply_block(cfg, kind: str, p: dict, x, *, mode: str, positions,
     which ``forward`` does not add).  A block with a cross-attention layer
     attends over ``enc_out`` after its self-attention; ``causal=False`` is
     the encoder's self-attention.  ``tp`` (`sharding/parallel.TP`) runs
-    the block's mesh program: its attention, cross-attention, MLP or MoE
-    layer on this rank's blocks."""
+    the block's mesh program: its attention, cross-attention, recurrent,
+    MLP or MoE layer on this rank's blocks."""
     aux = None
     h = L.apply_norm(cfg, p["norm1"], x)
     if kind in ATTN_KINDS:
@@ -110,10 +110,10 @@ def apply_block(cfg, kind: str, p: dict, x, *, mode: str, positions,
                                             tp=tp)
     elif kind == "rglru":
         h, new_cache = rglru_lib.apply_rglru(cfg, p["rglru"], h, mode=mode,
-                                             cache=cache)
+                                             cache=cache, tp=tp)
     elif kind == "ssd":
         h, new_cache = ssm_lib.apply_ssd(cfg, p["ssd"], h, mode=mode,
-                                         cache=cache)
+                                         cache=cache, tp=tp)
     else:
         raise ValueError(kind)
     if cfg.post_norm:
@@ -183,7 +183,9 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
     ``quantized``), the recurrent state for an SSD or RG-LRU layer.  On a
     mesh (``tp``) an attention cache holds this rank's block of slots
     where the "model" size divides them (``slot_pos`` stays whole), the
-    reference's placement; ``batch`` is the rank's own rows."""
+    reference's placement, and a recurrent layer's state its heads or
+    channels where they divide (`launch/steps.cache_spec_tree`);
+    ``batch`` is the rank's own rows."""
     pat = cfg.layer_pattern
     n_cycles = cfg.num_layers // len(pat)
     rem = cfg.num_layers % len(pat)
@@ -194,8 +196,10 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
                                    quantized=quantized, lead=lead,
                                    shards=P.model_size(tp))
         if kind == "ssd":
-            return ssm_lib.init_ssd_cache(cfg, batch, dtype, device, lead)
-        return rglru_lib.init_rglru_cache(cfg, batch, dtype, device, lead)
+            return ssm_lib.init_ssd_cache(cfg, batch, dtype, device, lead,
+                                          shards=P.model_size(tp))
+        return rglru_lib.init_rglru_cache(cfg, batch, dtype, device, lead,
+                                          shards=P.model_size(tp))
 
     return {"layers": tuple(one(kind, (n_cycles,)) for kind in pat),
             "rem_layers": tuple(one(pat[j]) for j in range(rem))}
@@ -320,12 +324,10 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *, mode: str,
     model reads "enc_out" (B, frontend_len, d_model) or "frames" from
     ``batch``, a vision model "patch_embeds" (B, frontend_len, d_model):
     its logits then cover frontend_len + S positions (:func:`_embed_inputs`).
-    ``tp`` (`sharding/parallel.TP`) runs the mesh program (the dense,
-    MoE, encoder-decoder and vision families) on this rank's blocks of
-    ``params`` and ``caches``: the logits are then its slice of the
-    vocab.
+    ``tp`` (`sharding/parallel.TP`) runs the mesh program on this rank's
+    blocks of ``params`` and ``caches``: the logits are then its slice of
+    the vocab.
     """
-    P.check_mesh_family(cfg, tp is not None and tp.active)
     x, positions, enc_out = _embed_inputs(cfg, params, batch, mode, remat,
                                           tp)
     dev = x.device

@@ -1,6 +1,7 @@
 """Tensor parallelism over "model" and FSDP over "data": the explicit
 collectives the mesh program is made of (the dense transformers, the
-mixtures of experts, the encoder-decoder and the vision front end).
+mixtures of experts, the encoder-decoder, the vision front end and the
+recurrent blocks, SSD and RG-LRU).
 
 The reference places its arrays (`sharding/rules.py`) and lets GSPMD
 insert the collectives.  The port has no such compiler: each rank holds
@@ -22,8 +23,10 @@ with its adjoint:
 * :func:`gather_whole`: all-gather forward, the rank's block of the
   gradient backward: a sharded value every rank then uses whole (the
   vision front end's projected patches, into the residual stream);
-* :func:`sum_over_data_both`: all-reduce over "data" both ways: a
-  client-level mean of rows split over "data" (the MoE load balance).
+* :func:`sum_over_data_both`, :func:`sum_over_model_both`: all-reduce
+  both ways: a statistic of rows split over "data" (the MoE load
+  balance), or of channels split over "model" (the SSD's gated norm),
+  that every rank's loss reads.
 
 A :class:`TP` of ``None`` is one device: every helper is then the
 identity and the layers run their one-device code, unchanged.  The layers
@@ -93,17 +96,20 @@ def traffic() -> Dict[str, Dict[str, int]]:
 class TP:
     """This rank's place on the mesh: the "model" group, its size and this
     rank's coordinate on it, and, for FSDP, the "data" group (``None``
-    without FSDP).  ``microbatch_over_data``: a train step's microbatch
-    is split over "data", each rank holding a share of its rows (the MoE
-    load-balance means are then summed over "data";
-    `launch/steps.py::build_train_step` sets it)."""
+    without FSDP).  ``rows_over_data``: the rows a step computes on (a
+    served batch, or each microbatch of a train step) are split over
+    "data", each rank holding its block of them, so that a MoE layer's
+    batch-level counts (the load-balance means, the capacity dispatch's
+    slots) are taken over "data".  :meth:`from_mesh` sets it with FSDP
+    (a served batch goes over "data"); `launch/steps.py` clears it where
+    a rank holds whole microbatches or the whole batch."""
     group: Any
     size: int
     rank: int
     data_group: Any = None
     data_size: int = 1
     data_rank: int = 0
-    microbatch_over_data: bool = False
+    rows_over_data: bool = False
 
     @property
     def active(self) -> bool:
@@ -119,7 +125,7 @@ class TP:
         if fsdp:
             dg, dr = mesh_lib.data_group(mesh)
             kw = dict(data_group=dg, data_size=dist.get_world_size(dg),
-                      data_rank=dr)
+                      data_rank=dr, rows_over_data=True)
         return cls(group=g, size=dist.get_world_size(g), rank=r, **kw)
 
 
@@ -315,6 +321,16 @@ def sum_over_data_both(tp: Optional[TP], x: torch.Tensor) -> torch.Tensor:
     return _SumBoth.apply(x, tp.data_group, "data")
 
 
+def sum_over_model_both(tp: Optional[TP], x: torch.Tensor) -> torch.Tensor:
+    """The sum over "model" of ``x``, forward and backward (an all-reduce
+    both ways): a statistic of channels split over "model" that every
+    rank's channels then read (the SSD's gated-norm sum of squares), so
+    that its gradient reaches each rank's channels from every rank's."""
+    if tp is None or tp.size == 1:
+        return x
+    return _SumBoth.apply(x, tp.group, "model")
+
+
 def fsdp_gather(tp: Optional[TP], w: torch.Tensor, dim: int,
                 full: int) -> torch.Tensor:
     """``w`` whole along ``dim`` (``full`` long): all-gathered over "data"
@@ -364,25 +380,6 @@ def vocab_range(tp: Optional[TP], v_local: int,
                 v_padded: int) -> Tuple[int, int]:
     """The padded-vocab rows (and logit columns) this rank holds."""
     return block(tp, v_local, v_padded)
-
-
-# the families whose layers have a tensor-parallel design: the dense
-# transformers, the mixtures of experts (per-expert TP), the
-# encoder-decoder (its encoder and cross-attention) and the vision front
-# end (its patch projection)
-MESH_FAMILIES = ("dense", "moe", "audio", "vlm")
-
-
-def check_mesh_family(cfg, active: bool) -> None:
-    """Refuse an active mesh program for a family whose layers have no
-    tensor-parallel design yet (the recurrent ones: SSD, RG-LRU)."""
-    if active and cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism over 'model' and FSDP over "
-            f"'data' cover the dense transformers, the mixtures of experts, "
-            f"the encoder-decoder and the vision front end; the "
-            f"{cfg.family} family needs its own design (ROADMAP queue 1, "
-            f"slice 16b item 1c)")
 
 
 def agree_over_model(tp: Optional[TP], x: torch.Tensor) -> torch.Tensor:

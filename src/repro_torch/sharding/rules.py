@@ -28,11 +28,27 @@ Any dim whose size does not divide the product of its mesh-axis sizes
 falls back to replicated.  The rules read only a mesh's axis names and
 sizes (:func:`mesh_shape`): a ``DeviceMesh``, or any object with a
 ``shape`` dict and ``axis_names``, as the tests' ``FakeMesh``.
+
+One block is cut part by part (:class:`Cut`), where the reference cuts
+contiguous blocks of columns: a Mamba-2 SSD layer (the leaves under an
+``"ssd"`` key, told by the path, never by a leaf's name: RG-LRU's
+``conv_w``/``conv_b`` keep the table's layout).  Its ``in_proj`` columns
+are z | x | B C | dt, so a rank holds its heads' z, x and dt columns and
+all of B and C; ``conv_w``/``conv_b`` its x channels and all of B and C;
+``A_log``, ``D``, ``dt_bias`` its heads and ``norm_scale`` its d_inner
+channels; ``out_proj`` its heads' rows, the table's own cut.  Where the
+heads do not divide over "model" the whole layer stays whole.
+:func:`local_shard` and :func:`gather_full` cut and join by the cuts,
+and the DTensor placements, which cannot state such a cut, carry them
+beside (:class:`Placements`).
 """
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
+
+import torch
 
 # param leaf name -> per-dim roles (for the base, unstacked shape)
 _BASE_RULES = {
@@ -79,18 +95,97 @@ _BASE_RULES = {
 # experts dim; handled by the ndim mismatch logic below.
 
 
+@dataclass(frozen=True)
+class Cut:
+    """A dim split over its spec's mesh axes part by part: ``parts`` are
+    the dim's (length, split) runs in order; a rank holds its block of
+    each split run and the whole of each other run, in that order.
+    ``dim`` counts from the end, so that stacking dims in front (the
+    cycles, the clients) leave it as it is."""
+    dim: int
+    parts: Tuple[Tuple[int, bool], ...]
+
+    def size(self, n: int) -> int:
+        """A rank's length of the dim over ``n`` blocks."""
+        return sum(length // n if split else length
+                   for length, split in self.parts)
+
+    def runs(self, n: int, index: int):
+        """The ``(start, length)`` runs block ``index`` of ``n`` holds."""
+        out, at = [], 0
+        for length, split in self.parts:
+            out.append((at + index * (length // n), length // n) if split
+                       else (at, length))
+            at += length
+        return out
+
+
 class PartitionSpec(tuple):
     """One entry per tensor dim: None (replicated), a mesh axis name, or a
-    tuple of names (the dim split over their product)."""
+    tuple of names (the dim split over their product).  ``cuts`` say how
+    a dim is split where it is not one contiguous block a rank
+    (:class:`Cut`); equality is the tuple's, cuts aside."""
 
-    def __new__(cls, *entries):
-        return super().__new__(cls, entries)
+    def __new__(cls, *entries, cuts=()):
+        spec = super().__new__(cls, entries)
+        spec.cuts = tuple(cuts)
+        return spec
+
+    def lead(self, *entries) -> "PartitionSpec":
+        """This spec with ``entries`` for new leading dims (its cuts count
+        from the end: they stay)."""
+        return PartitionSpec(*entries, *self, cuts=self.cuts)
 
     def __repr__(self) -> str:
-        return f"P{tuple.__repr__(self)}"
+        cuts = f", cuts={self.cuts}" if self.cuts else ""
+        return f"P{tuple.__repr__(self)[:-1]}{cuts})"
 
 
 P = PartitionSpec
+
+
+class Placements(tuple):
+    """A leaf's DTensor placements, one per mesh dim, and its spec's
+    cuts (a ``Shard`` says which dim an axis splits, not how)."""
+    cuts: Tuple[Cut, ...] = ()
+
+
+def ssd_channel_cuts(d_inner: int, bc: int) -> Tuple[Cut, ...]:
+    """The cut of an SSD's conv channels (x | B C, the last dim of
+    ``conv_w``, ``conv_b`` and the conv cache): the rank's x channels,
+    all ``bc`` of B and C."""
+    return (Cut(-1, ((d_inner, True), (bc, False))),)
+
+
+def _ssd_specs(tree, specs: dict, mesh, tp_axes) -> dict:
+    """An SSD layer's specs (``specs``: the table's, leaf by leaf), cut
+    part by part over ``tp_axes`` where its heads divide, every
+    ``tp_axes`` entry dropped where they do not (the layer then whole)."""
+    nh, di = tree["A_log"].shape[-1], tree["norm_scale"].shape[-1]
+    bc = tree["conv_w"].shape[-1] - di
+    m = axis_size(mesh, tp_axes)
+    split = m > 1 and nh % m == 0
+    heads, chans = ((nh, True),), ((di, True),)
+    conv = ssd_channel_cuts(di, bc)[0].parts
+    parts = {"in_proj": chans * 2 + ((bc, False),) + heads,
+             "conv_w": conv, "conv_b": conv,
+             "A_log": heads, "D": heads, "dt_bias": heads,
+             "norm_scale": chans}
+    out = {}
+    for k, spec in specs.items():
+        entries = [None if e == tp_axes else e for e in spec]
+        if not split:
+            while entries and entries[-1] is None:
+                entries.pop()
+            out[k] = P(*entries)
+        elif k in parts:            # one run is a plain block: no cut
+            entries += [None] * (len(tree[k].shape) - len(entries))
+            entries[-1] = tp_axes
+            out[k] = P(*entries, cuts=(Cut(-1, parts[k]),)
+                       if len(parts[k]) > 1 else ())
+        else:                               # out_proj: its heads' rows
+            out[k] = spec
+    return out
 
 
 def mesh_shape(mesh) -> Dict[str, int]:
@@ -164,7 +259,10 @@ def tree_param_specs(params, mesh, *, tp_axes="model", fsdp_axes=None,
 
     def walk(tree, keys):
         if isinstance(tree, dict):
-            return {k: walk(v, keys + (str(k),)) for k, v in tree.items()}
+            out = {k: walk(v, keys + (str(k),)) for k, v in tree.items()}
+            if keys and keys[-1] == "ssd":
+                out = _ssd_specs(tree, out, mesh, tp_axes)
+            return out
         if isinstance(tree, (tuple, list)):
             out = [walk(v, keys + (str(i),)) for i, v in enumerate(tree)]
             return tuple(out) if isinstance(tree, tuple) else out
@@ -180,14 +278,19 @@ def tree_param_specs(params, mesh, *, tp_axes="model", fsdp_axes=None,
 
 def placements(spec: PartitionSpec, mesh) -> tuple:
     """DTensor placements of one spec on ``mesh``: for each mesh dim,
-    ``Shard(d)`` where tensor dim ``d`` names it, else ``Replicate()``."""
+    ``Shard(d)`` where tensor dim ``d`` names it, else ``Replicate()``;
+    a spec with cuts gives :class:`Placements` that carry them."""
     from torch.distributed.tensor import Replicate, Shard
     out = []
     for axis in mesh_shape(mesh):
         dims = [d for d, e in enumerate(spec)
                 if e == axis or (isinstance(e, tuple) and axis in e)]
         out.append(Shard(dims[0]) if dims else Replicate())
-    return tuple(out)
+    if not getattr(spec, "cuts", ()):
+        return tuple(out)
+    out = Placements(out)
+    out.cuts = spec.cuts
+    return out
 
 
 def tree_shardings(specs, mesh):
@@ -293,12 +396,19 @@ def local_shard(tree, specs, mesh, coords: Optional[Dict[str, int]] = None):
     coords = coordinates(mesh) if coords is None else coords
 
     def one(x, spec):
+        cuts = _cuts_by_dim(spec, x.dim())
         for d, parts, index in _splits(spec, mesh, coords):
-            if x.shape[d] % parts:
+            lengths = ([n for n, split in cuts[d].parts if split]
+                       if d in cuts else [x.shape[d]])
+            if any(n % parts for n in lengths):
                 raise ValueError(f"dim {d} of a {tuple(x.shape)} leaf does "
                                  f"not split into {parts} blocks ({spec})")
-            n = x.shape[d] // parts
-            x = x.narrow(d, index * n, n)
+            if d in cuts:
+                x = torch.cat([x.narrow(d, a, n) for a, n in
+                               cuts[d].runs(parts, index)], d)
+            else:
+                n = x.shape[d] // parts
+                x = x.narrow(d, index * n, n)
         return x.clone()
 
     return _walk2(one, tree, specs)
@@ -313,6 +423,7 @@ def gather_full(tree, specs, mesh):
     coords = coordinates(mesh)
 
     def one(x, spec):
+        cuts = _cuts_by_dim(spec, x.dim())
         for d, entry in enumerate(spec):
             if entry is None:
                 continue
@@ -320,6 +431,19 @@ def gather_full(tree, specs, mesh):
             for a in reversed(axes):
                 x = parallel.all_gather(x, d, mesh.get_group(a), shape[a],
                                         coords[a], a)
+            if d in cuts:       # the blocks, rank after rank: part by part
+                n = math.prod(shape[a] for a in axes)
+                blocks, pieces, at = x.chunk(n, d), [], 0
+                for length, split in cuts[d].parts:
+                    k = length // n if split else length
+                    pieces += [b.narrow(d, at, k)
+                               for b in (blocks if split else blocks[:1])]
+                    at += k
+                x = torch.cat(pieces, d)
         return x
 
     return _walk2(one, tree, specs)
+
+
+def _cuts_by_dim(spec, ndim: int) -> Dict[int, Cut]:
+    return {c.dim % ndim: c for c in getattr(spec, "cuts", ())}

@@ -736,7 +736,7 @@ def _tp_prefill_rank(rank: int, world: int, out: str,
     toks = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen,
                          device="cuda")
     local = rules.local_shard(full, steps.param_specs(cfg, prof, mesh), mesh)
-    tp = steps.mesh_program(mesh, cfg, prof)
+    tp = steps.mesh_program(mesh, prof)
     with torch.inference_mode():
         want, _ = prefill_last(cfg, full, {"tokens": toks}, 256, **serve)
         ops.reset_launches()
@@ -787,3 +787,21 @@ def test_tensor_parallel_moe_prefill_on_the_card(cuda_device, tmp_path):
         assert torch.isfinite(res["got"]).all()
         assert (res["got"] - res["want"]).abs().max() <= 0.1
         assert res["launches"]["flash_attention"] == res["layers"]
+
+
+@pytest.mark.cuda
+def test_tensor_parallel_ssd_prefill_on_the_card(cuda_device, tmp_path):
+    """The same for mamba2-1.3b's smoke variant (the SSD by heads, its
+    projection and conv cut part by part, the gated norm's sum of
+    squares summed over "model"): each rank's vocab slice within 0.1 of
+    one device's, and no flash launch (the model has no attention)."""
+    from repro_torch.launch import mesh as mesh_lib
+    out = str(tmp_path / "tp_ssd")
+    mesh_lib.spawn_ranks(_tp_prefill_rank, 2, (out, "mamba2-1.3b"),
+                         device_type="cuda", timeout_s=600)
+    for r in range(2):
+        res = torch.load(f"{out}.{r}.pt")
+        assert res["got"].shape == res["want"].shape
+        assert torch.isfinite(res["got"]).all()
+        assert (res["got"] - res["want"]).abs().max() <= 0.1
+        assert res["launches"]["flash_attention"] == 0

@@ -390,61 +390,44 @@ RECURRENT = [a for a in tconfigs.ARCH_NAMES
 @pytest.mark.parametrize("family", ["dense", "designed", "recurrent"])
 def test_every_production_mesh_pair_names_tensor_parallelism(family,
                                                              capsys):
-    """``--mesh both``.  The recurrent families, without a tensor-parallel
-    design (full size): every pair skipped, each reason naming item 1c.
-    The dense transformers and the MoE, encoder-decoder and vision archs
-    (their smoke variants at ``decode_32k``: a full-size count takes
-    minutes): every pair counted, ``ok`` (a full-size long_500k pair that
-    ``shape_applicable`` rejects is skipped with its reason).  Exit code
-    0."""
+    """``--mesh both``.  Every family has a tensor-parallel design: the
+    dense transformers, the MoE, encoder-decoder and vision archs and the
+    recurrent pair (SSD, RG-LRU), their smoke variants at ``decode_32k``
+    (a full-size count takes minutes): every pair counted, ``ok`` (a
+    full-size long_500k pair that ``shape_applicable`` rejects is skipped
+    with its reason).  Exit code 0."""
     archs = {"dense": DENSE, "designed": DESIGNED,
              "recurrent": RECURRENT}[family]
     assert len(archs) == {"dense": 4, "designed": 4, "recurrent": 2}[family]
-    smoke = family != "recurrent"
-    extra = ["--smoke", "--shape", "decode_32k"] if smoke else []
     for arch in archs:
-        assert dryrun.main(["--arch", arch, "--mesh", "both"] + extra) == 0
+        assert dryrun.main(["--arch", arch, "--mesh", "both", "--smoke",
+                            "--shape", "decode_32k"]) == 0
     lines = [x for x in capsys.readouterr().out.splitlines()
              if " x " in x]
-    shapes = 1 if smoke else len(tshapes.SHAPES)
-    assert len(lines) == 2 * len(archs) * shapes
-    if smoke:
-        assert all(": ok hbm/dev=" in x for x in lines), lines
-        if family == "designed":
-            rec = dryrun.run_one("grok-1-314b", "long_500k", "16x16")
-            assert rec["status"] == "skipped"
-            assert rec["reason"].endswith("no windowed variant implemented")
-        return
-    assert all(": skipped (" + dryrun.NO_TP in x for x in lines)
-    assert "slice 16b item 1c" in dryrun.NO_TP
+    assert len(lines) == 2 * len(archs)
+    assert all(": ok hbm/dev=" in x for x in lines), lines
+    if family == "designed":
+        rec = dryrun.run_one("grok-1-314b", "long_500k", "16x16")
+        assert rec["status"] == "skipped"
+        assert rec["reason"].endswith("no windowed variant implemented")
 
 
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])
 @pytest.mark.parametrize("arch", ["gemma2-2b", "mixtral-8x22b",
                                   "mamba2-1.3b"])
 def test_production_meshes_skip_naming_tensor_parallelism(arch, shape):
-    """16x16, 256 devices.  gemma2-2b (dense) and mixtral-8x22b (MoE),
-    their smoke variants, count as rank 0 of a fake group, and the
-    arguments each holds are its blocks under the placements (gemma2's
-    client stack's rows over "data"; mixtral's one client's leaves over
-    "data" by FSDP; the vocab, projections and experts' f over "model");
-    their collectives run over "model" (and, training, over the clients
-    or, under FSDP, over "data").  mamba2-1.3b (SSD, full size) is skipped
-    naming item 1c, with the bytes a device would hold under the
-    placements: its arguments split where they divide."""
-    smoke = arch != "mamba2-1.3b"
-    rec = dryrun.run_one(arch, shape, "16x16", smoke=smoke)
+    """16x16, 256 devices.  gemma2-2b (dense), mixtral-8x22b (MoE) and
+    mamba2-1.3b (SSD), their smoke variants, count as rank 0 of a fake
+    group, and the arguments each holds are its blocks under the
+    placements (gemma2's and mamba2's client stack's rows over "data";
+    mixtral's one client's leaves over "data" by FSDP; the vocab,
+    projections and experts' f over "model"; mamba2's SSD cut part by
+    part, its 16 heads one a rank); their collectives run over "model"
+    (and, training, over the clients or, under FSDP, over "data")."""
+    rec = dryrun.run_one(arch, shape, "16x16", smoke=True)
     assert rec["devices"] == 256
-    cfg = tconfigs.get_config(arch)
-    if smoke:
-        cfg = tconfigs.smoke_variant(cfg)
+    cfg = tconfigs.smoke_variant(tconfigs.get_config(arch))
     per_device = rec["memory"]["argument_size_in_bytes"]
-    if not smoke:
-        assert rec["status"] == "skipped" and rec["reason"] == dryrun.NO_TP
-        params = tsteps._param_structs(cfg)
-        full = sum(s.numel() * 2 for s in tree_leaves(params))    # bf16
-        assert 0 < per_device < full
-        return
     assert rec["status"] == "ok", rec
     mesh = dryrun.ShapeMesh({"data": 16, "model": 16})
     if shape == "train_4k":
@@ -453,7 +436,8 @@ def test_production_meshes_skip_naming_tensor_parallelism(arch, shape):
     else:
         b = tsteps.build_step(arch, tshapes.SHAPES[shape], mesh, cfg=cfg)
         specs, sh = b.in_specs, b.in_shardings
-    want = dryrun._per_device_bytes(specs, sh, [16, 16])
+    want = sum(x.numel() * x.element_size() for x in tree_leaves(
+        dryrun._local_specs(specs, sh, [16, 16])))
     # the round index: a 0-d int32 among the placements, a Python int in
     # the step
     assert per_device == want - (4 if shape == "train_4k" else 0)

@@ -250,7 +250,12 @@ def test_recurrent_serving_bundles_match_reference(arch, shape):
     allocated: meta tensors against ``jax.eval_shape``): in_specs, the
     recurrent and ring caches' structs (recurrentgemma's local caches hold
     2048 slots at any length; mamba2's state does not depend on it), and
-    every placement, on a ("data", "model") mesh."""
+    every placement, on a ("data", "model") mesh: the reference's, but
+    where the port's mesh program holds a rank's heads or channels of a
+    recurrent layer (the reference lets GSPMD place the rest): the SSD's
+    ``A_log``, ``D``, ``dt_bias`` and ``norm_scale`` and every recurrent
+    cache over "model" too, the SSD's ``in_proj`` and conv cut part by
+    part (the cuts beside the placements)."""
     mesh = {"data": 2, "model": 4}
     jmesh = AbstractMesh(tuple(mesh.values()), tuple(mesh))
     tmesh = FakeMesh(mesh)
@@ -265,9 +270,25 @@ def test_recurrent_serving_bundles_match_reference(arch, shape):
     assert got.meta["batch_axes"] == want.meta["batch_axes"]
     for g, w in zip(got.in_specs, want.in_specs):
         _same_specs(g, w)
+    own = {"/A_log": ("model",), "/D": ("model",), "/dt_bias": ("model",),
+           "/norm_scale": ("model",), "/h": ("model",),
+           "/conv": (None, "model")}
+    cut = ("/in_proj", "/conv_w", "/conv_b", "/conv")
     for g, w in zip(got.in_shardings + (got.out_shardings,),
                     want.in_shardings + (want.out_shardings,)):
-        _same_placements(g, w, tmesh)
+        g, w = _flat(g), _flat(w)
+        assert set(g) == set(w)
+        for k, pl in g.items():
+            spec = tuple(w[k].spec)
+            tail = [t for s, t in own.items() if k.endswith(s)]
+            if k.endswith(("/h", "/conv")):      # a cache: after the batch
+                spec += tail[0]
+            elif tail:                           # a stacked SSD leaf
+                spec = (None,) + tail[0]
+            assert pl == trules.placements(trules.P(*spec), tmesh), \
+                (k, spec, pl)
+            ssd_cut = arch == "mamba2-1.3b" and k.endswith(cut)
+            assert bool(getattr(pl, "cuts", ())) == ssd_cut, k
     cfg = tconfigs.get_config(arch)
     caches = tsteps._cache_structs(cfg, tconfigs.get_profile(arch),
                                    tshape.global_batch, tshape.seq_len)

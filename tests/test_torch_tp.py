@@ -192,7 +192,7 @@ for case in inp["serve"]:
     back = rules.gather_full(local, specs, mesh2)
     assert all(torch.equal(a, b) for a, b in
                zip(tree_leaves(back), tree_leaves(case["params"])))
-    tp = steps.mesh_program(mesh2, cfg, prof)
+    tp = steps.mesh_program(mesh2, prof)
     toks = case["tokens"]
     rows = toks.shape[0] // layout[0]
     toks = toks[coords["data"] * rows:(coords["data"] + 1) * rows]
@@ -577,24 +577,3 @@ def test_train_collective_bytes_equal_a_hand_count():
     got = rec["collectives_by_axis"]["model"]
     assert {k: v for k, v in got.items() if k != "total"} == want
     assert "clients" not in rec["collectives_by_axis"]
-
-
-@pytest.mark.parametrize("builder", ["train", "prefill"])
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b"])
-def test_other_families_are_refused_by_name(arch, builder):
-    """A "model" axis above 1 for a family without a tensor-parallel
-    design (the recurrent ones: SSD, RG-LRU): the train and serving
-    builders refuse it naming ROADMAP item 1c (on a fake (1, 2) group:
-    nothing runs)."""
-    from torch.distributed.device_mesh import init_device_mesh
-    with H.fake_process_group(2):
-        mesh = init_device_mesh("cpu", (1, 2), mesh_dim_names=("data",
-                                                               "model"))
-        with pytest.raises(NotImplementedError, match="slice 16b item 1c"):
-            if builder == "train":
-                tsteps.build_train_step(arch, InputShape("t", 32, 4, "train"),
-                                        mesh, num_clusters=1)
-            else:
-                tsteps.build_prefill_step(
-                    arch, InputShape("p", 32, 2, "prefill"), mesh)
-    assert not dist.is_initialized()

@@ -17,19 +17,27 @@ and the reference, from the same numpy inputs.
   1e-3, the bar of ``test_torch_tp.py``); whisper's frames are encoded on
   the mesh and every decode step's cross-attention runs on the rank's
   heads; pixtral's patches lead the prompt.  Each MoE case runs the
-  profiles' ``scan`` dispatch and ``dense``; one runs ``capacity`` (on
-  (1, 2): with the batch split over "data" a rank's capacity counts its
-  own rows).  Each rank's caches are its blocks of the one-device ones.
+  profiles' ``scan`` dispatch and ``dense``; one runs ``capacity`` on (1,
+  2), and mixtral's ``capacity`` serve on (2, 2), its batch split over
+  "data", is held against the reference's on the same mesh too: a
+  rank's capacity and its slots' places count the whole batch, as the
+  reference's do (the case's prompts draw from 3 token ids, so that some
+  expert overflows a rank's own capacity: counted from one rank's rows,
+  the run would drop other slots).  Each rank's caches are its blocks of
+  the one-device ones.
 * Training: one round (K = 1) of the mesh ``build_train_step`` meets the
   one-device step and the reference's own step (a subprocess over 4 XLA
   host devices, on the same layout): mixtral on (2, 2) (FSDP over "data"
   and TP) with its profile's grad_accum (each "data" rank runs whole
   microbatches) in the scan, dense and capacity dispatches, and with
   grad_accum 1 (each rank a share of the microbatch, the load-balance
-  means summed over "data"); whisper on (2, 2) (2 clients of TP 2),
-  grok-1 and pixtral on (1, 2); new parameters at atol 1e-5, the mean
-  loss at rtol 1e-5.  The router's new weights are held on every rank
-  apart.
+  means summed over "data"; with the capacity dispatch too, a rank's
+  capacity then the whole microbatch's); whisper on (2, 2) (2 clients of
+  TP 2), grok-1 and pixtral on (1, 2); new parameters at atol 1e-5, the
+  mean loss at rtol 1e-5.  Mixtral's round at its profile's own bf16
+  accumulator meets one device and the reference at the bf16 bars of
+  ``test_torch_train.py`` (2^-7 relative, 2^-5 of the leaf's largest
+  magnitude).  The router's new weights are held on every rank apart.
 * FSDP: every dispatch gathers one expert's blocks at a time, never the
   whole stack.
 * Collective bytes: a MoE prefill's count equals a hand count from the
@@ -68,12 +76,14 @@ S, STEPS, LR = 80, 4, 0.05
 INT8_DECODE_TOL = 1e-3
 MOE_DISPATCHES = ("scan", "dense")
 # layout -> serving cases (arch, config overrides, batch, cache length,
-# dispatches)
+# dispatches[, the prompts' distinct token ids: a case held against the
+# reference's serve on the same mesh])
 SERVE = {
     (1, 2): [("grok-1-314b", {}, 2, S + STEPS, MOE_DISPATCHES + ("capacity",)),
              ("whisper-large-v3", {}, 2, S + STEPS, None),
              ("pixtral-12b", {}, 2, 32 + S + STEPS, None)],
     (2, 2): [("mixtral-8x22b", {}, 4, S + STEPS, MOE_DISPATCHES),
+             ("mixtral-8x22b", {}, 4, S + STEPS, ("capacity",), 3),
              ("whisper-large-v3", {"num_kv_heads": 2}, 4, S + STEPS, None),
              ("pixtral-12b", {}, 4, 32 + S + STEPS, None)],
     # 2 heads of 32 over 4 ranks: a rank holds half a head (its q, K and
@@ -93,8 +103,8 @@ SERVE = {
 # microbatch of 8 rows split over the 2 "data" ranks: the load-balance
 # means summed over "data"); the MoE profiles' bfloat16 accumulators in
 # float32 for the f32 bars (XLA on the CPU keeps a bf16 subtraction's
-# excess precision, the port rounds it); pixtral's 48 positions hold 32
-# patches and 16 tokens
+# excess precision, the port rounds it), and once as it is, at the bf16
+# bars; pixtral's 48 positions hold 32 patches and 16 tokens
 F32_ACC = {"accum_dtype": "float32"}
 TRAIN = {
     (2, 2): [("mixtral-8x22b", {}, F32_ACC, 8, 32, ""),
@@ -104,6 +114,10 @@ TRAIN = {
               8, 32, "-capacity"),
              ("mixtral-8x22b", {}, {**F32_ACC, "grad_accum": 1}, 8, 32,
               "-shares"),
+             ("mixtral-8x22b", {}, {**F32_ACC, "grad_accum": 1,
+                                    "moe_dispatch": "capacity"}, 8, 32,
+              "-shares-capacity"),
+             ("mixtral-8x22b", {}, {}, 8, 32, "-bf16acc"),
              ("whisper-large-v3", {}, {}, 8, 32, "")],
     (1, 2): [("grok-1-314b", {}, {"grad_accum": 2,
                                   "accum_dtype": "float32"}, 4, 32, ""),
@@ -152,8 +166,8 @@ from repro.launch import steps
 from repro.launch.mesh import make_test_mesh
 with open(sys.argv[1], "rb") as f:
     cases = pickle.load(f)
-out = []
-for case in cases:
+out = {"train": [], "serve": []}
+for case in cases["train"]:
     cfg = dataclasses.replace(smoke_variant(get_config(case["arch"])),
                               **case["over"])
     prof = dataclasses.replace(get_profile(case["arch"]),
@@ -168,8 +182,41 @@ for case in cases:
         stack = jax.tree_util.tree_map(jnp.asarray, case["stack"])
         batch = {k: jnp.asarray(v) for k, v in case["batch"].items()}
         new, loss = jax.jit(b.fn)(stack, batch, jnp.int32(0))
-    out.append({"stack": jax.tree_util.tree_map(np.asarray, new),
-                "loss": float(loss)})
+    out["train"].append({"stack": jax.tree_util.tree_map(np.asarray, new),
+                         "loss": float(loss)})
+for case in cases["serve"]:
+    # the serving bundles on the mesh: the prefill's last logits, then
+    # each decode step's (B, V)
+    cfg = dataclasses.replace(smoke_variant(get_config(case["arch"])),
+                              **case["over"])
+    prof = dataclasses.replace(get_profile(case["arch"]),
+                               param_dtype="float32",
+                               moe_dispatch=case["dispatch"])
+    steps.get_config = lambda arch: cfg
+    steps.get_profile = lambda arch: prof
+    toks, S = case["tokens"], case["S"]
+    B = toks.shape[0]
+    mesh = make_test_mesh(tuple(case["layout"]))
+    with mesh:
+        pre = steps.build_prefill_step(case["arch"],
+                                       InputShape("p", S, B, "prefill"), mesh)
+        dec = steps.build_decode_step(case["arch"],
+                                      InputShape("d", S, B, "decode"), mesh)
+        params = jax.device_put(
+            jax.tree_util.tree_map(jnp.asarray, case["params"]),
+            pre.in_shardings[0])
+        logits, caches = jax.jit(pre.fn, in_shardings=pre.in_shardings,
+                                 out_shardings=pre.out_shardings)(
+            params, {"tokens": jnp.asarray(toks[:, :S])})
+        step = jax.jit(dec.fn, in_shardings=dec.in_shardings,
+                       out_shardings=dec.out_shardings)
+        rows = [np.asarray(logits)]
+        for i in range(case["steps"]):
+            logits, caches = step(params, caches,
+                                  jnp.asarray(toks[:, S + i:S + i + 1]),
+                                  jnp.int32(S + i))
+            rows.append(np.asarray(logits))
+    out["serve"].append(np.stack(rows, 1))
 with open(sys.argv[2], "wb") as f:
     pickle.dump(out, f)
 """
@@ -207,7 +254,7 @@ for case in inp["serve"]:
     back = rules.gather_full(local, specs, mesh2)
     assert all(torch.equal(a, b) for a, b in
                zip(tree_leaves(back), tree_leaves(case["params"])))
-    tp = steps.mesh_program(mesh2, cfg, prof)
+    tp = steps.mesh_program(mesh2, prof)
     rows = case["tokens"].shape[0] // layout[0]
     lo = coords["data"] * rows
     toks = case["tokens"][lo:lo + rows]
@@ -262,13 +309,15 @@ torch.save(out, sys.argv[4] + ".pt")
 """
 
 
-def _serve_case(arch, over, batch, max_len, dispatches, seed):
+def _serve_case(arch, over, batch, max_len, dispatches, distinct=None, *,
+                seed):
     jcfg, _ = _cfgs(arch, over)
     params = _np(jmodel.init_params(jcfg, jax.random.PRNGKey(seed),
                                     jnp.float32))
-    toks = _rng(seed + 1).integers(0, jcfg.vocab_size, (batch, S + STEPS),
-                                   dtype=np.int32)
+    toks = _rng(seed + 1).integers(0, distinct or jcfg.vocab_size,
+                                   (batch, S + STEPS), dtype=np.int32)
     return dict(arch=arch, over=over, prof_over={}, max_len=max_len,
+                on_mesh=distinct is not None,
                 params=params, tokens=toks,
                 dispatches=list(dispatches or ("dense",)),
                 front=_front(jcfg, seed + 2, (batch,)))
@@ -317,8 +366,12 @@ def runs(tmp_path_factory):
     train = {lay: [_train_case(*c, layout=lay, seed=20 * i + 200 * j)
                    for i, c in enumerate(cs)]
              for j, (lay, cs) in enumerate(TRAIN.items())}
+    on_mesh = [dict(c, layout=list(lay), dispatch=c["dispatches"][0], S=S,
+                    steps=STEPS)
+               for lay, cs in serve.items() for c in cs if c["on_mesh"]]
     with open(d / "cases.pkl", "wb") as f:
-        pickle.dump([c for cs in train.values() for c in cs], f)
+        pickle.dump({"train": [c for cs in train.values() for c in cs],
+                     "serve": on_mesh}, f)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
@@ -394,12 +447,49 @@ def _one_device(case, dispatch):
     return (tl, torch.stack(tdec), kept), (np.asarray(jl), np.stack(jdec))
 
 
+def _rank_overflow(case, data: int) -> int:
+    """The slots of the one-device prefill's routing past their expert's
+    capacity counted on one "data" rank's rows alone (``data`` ranks of
+    the batch's rows), summed over the layers and ranks: 0 where counting
+    a rank's own rows would drop nothing the whole batch keeps."""
+    from repro_torch.models import moe
+    _, tcfg = _cfgs(case["arch"], case["over"])
+    routes, real = [], moe.router_probs
+
+    def recording(*args, **kw):
+        got = real(*args, **kw)
+        routes.append(got[1])
+        return got
+    moe.router_probs = recording
+    try:
+        with torch.inference_mode():
+            tmodel.prefill_last(
+                tcfg, params_from_numpy(case["params"], CPU),
+                {"tokens": torch.from_numpy(case["tokens"][:, :S]).long()},
+                case["max_len"], dispatch="capacity")
+    finally:
+        moe.router_probs = real
+    e = tcfg.num_experts
+    over = 0
+    for idx in routes:                              # (B, S, k) a layer
+        for part in idx.chunk(data, 0):
+            counts = torch.bincount(part.reshape(-1), minlength=e)
+            cap = moe.capacity(part.shape[0] * part.shape[1], tcfg)
+            over += int((counts - cap).clamp_min(0).sum())
+    return over
+
+
 @pytest.mark.parametrize("layout", list(SERVE), ids=lambda x: f"{x[0]}x{x[1]}")
 def test_serving_on_mesh_matches_one_device_and_reference(runs, layout):
     """Prefill logits, 4 decode steps' logits and each rank's caches on a
     gloo mesh against one device (the port's) and the reference, for each
-    case's dispatches."""
+    case's dispatches; a case marked so against the reference's serving
+    bundles on the same mesh too (mixtral's capacity dispatch, its batch
+    split over "data": some expert overflows a rank's own capacity)."""
     outs = runs["outs"][layout]
+    on_mesh = iter(runs["reference"]["serve"][sum(
+        c["on_mesh"] for lay in SERVE if lay < layout
+        for c in runs["serve"][lay]):])
     for i, case in enumerate(runs["serve"][layout]):
         _, tcfg = _cfgs(case["arch"], case["over"])
         quant = tconfigs.get_profile(case["arch"]).kv_int8
@@ -416,6 +506,11 @@ def test_serving_on_mesh_matches_one_device_and_reference(runs, layout):
             _close(dec, jdec, INT8_DECODE_TOL if quant else 1e-4)
             for rank, o in enumerate(outs):
                 _check_caches(layout, rank, o["serve"][i][j]["caches"], kept)
+            if case["on_mesh"]:
+                assert _rank_overflow(case, layout[0]) > 0
+                ref = next(on_mesh)
+                _close(got, ref[:, 0], 1e-4)
+                _close(dec, ref[:, 1:].transpose(1, 0, 2), 1e-4)
 
 
 # ------------------------------------------------------------ training
@@ -434,6 +529,9 @@ def _one_device_round(case):
 
 def _train_cases():
     return [(lay, i) for lay in TRAIN for i in range(len(TRAIN[lay]))]
+
+
+BF16_ACC = ((2, 2), [c[-1] for c in TRAIN[(2, 2)]].index("-bf16acc"))
 
 
 def _train_id(key):
@@ -455,8 +553,11 @@ def test_train_round_on_mesh_matches_one_device_and_reference(
     layout; the mean loss on every rank."""
     layout, i = key
     case = runs["train"][layout][i]
-    ref = runs["reference"][_train_cases().index(key)]
+    ref = runs["reference"]["train"][_train_cases().index(key)]
     one, one_loss = one_rounds[key]
+    # f32 bars; at the profile's bf16 accumulator, test_torch_train.py's
+    # bf16 bars (2^-7 relative, 2^-5 of the leaf's largest magnitude)
+    rtol, atol_frac = (2 ** -7, 2 ** -5) if key == BF16_ACC else (0, 0)
     outs = runs["outs"][layout]
     if case["arch"] == "mixtral-8x22b":
         # grad_accum 1: each rank took its share of the microbatch; else
@@ -471,10 +572,11 @@ def test_train_round_on_mesh_matches_one_device_and_reference(
         np.testing.assert_allclose(got["loss"], ref["loss"], rtol=1e-5)
         c = got["client"]
         for g, w1, w2 in _by_key(got["stack"], one, ref["stack"]):
-            np.testing.assert_allclose(g.numpy(), w1[c].numpy(), rtol=0,
-                                       atol=1e-5)
-            np.testing.assert_allclose(g.numpy(), np.asarray(w2)[c],
-                                       rtol=0, atol=1e-5)
+            for w in (w1[c].numpy(), np.asarray(w2)[c]):
+                atol = (atol_frac * max(float(np.abs(w).max()), 1e-30)
+                        if atol_frac else 1e-5)
+                np.testing.assert_allclose(g.numpy(), w, rtol=rtol,
+                                           atol=atol)
 
 
 @pytest.mark.parametrize("key", [k for k in _train_cases()
@@ -503,8 +605,13 @@ def test_router_update_on_every_rank_matches_one_device(runs, one_rounds,
         c = o["train"][i]["client"]
         assert len(got) == len(want)
         for g, w, w0 in zip(got, want, was):
-            np.testing.assert_allclose(g.numpy(), w[c].numpy(), rtol=0,
-                                       atol=1e-6)
+            if key == BF16_ACC:    # the bf16 bars (see the round's test)
+                np.testing.assert_allclose(
+                    g.numpy(), w[c].numpy(), rtol=2 ** -7,
+                    atol=2 ** -5 * float(w[c].abs().max()))
+            else:
+                np.testing.assert_allclose(g.numpy(), w[c].numpy(), rtol=0,
+                                           atol=1e-6)
             assert float((w[c] - w0[c]).abs().max()) > 1e-4
 
 

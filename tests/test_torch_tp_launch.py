@@ -4,13 +4,14 @@
 keeping its blocks through ``launch/mesh.local_blocks``), and rank 0's
 JSON line meets the one-device run of the same command line.
 
-* Serving (gemma2-2b, grok-1-314b and whisper-large-v3 smoke, float32,
-  (1, 2)): rank 0 serves every row, and its greedy tokens equal the
-  one-device run's.
-* Training (gemma2-2b smoke, bfloat16 as its profile, (2, 2): two
-  clients of two model ranks, the clients set by the mesh): round 0's
-  mean client CE meets the one-device run's with two clients at 1e-2
-  relative, the bar of ``tests/test_torch_train.py``'s bf16 round.
+* Serving (gemma2-2b, grok-1-314b, whisper-large-v3, mamba2-1.3b and
+  recurrentgemma-2b smoke, float32, (1, 2)): rank 0 serves every row,
+  and its greedy tokens equal the one-device run's.
+* Training (gemma2-2b, mamba2-1.3b and recurrentgemma-2b smoke, bfloat16
+  as their profiles, (2, 2): two clients of two model ranks, the clients
+  set by the mesh): round 0's mean client CE meets the one-device run's
+  with two clients at 1e-2 relative, the bar of
+  ``tests/test_torch_train.py``'s bf16 round.
 """
 import json
 
@@ -69,8 +70,35 @@ def test_serve_mesh_1x2_new_families_match_one_device(capfd, arch):
         assert got["encode_s"] > 0
 
 
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b"])
+def test_serve_mesh_1x2_recurrent_pair_matches_one_device(capfd, arch):
+    """mamba2-1.3b (the SSD by heads: its all-reduces alone) and
+    recurrentgemma-2b (the RG-LRU by channels, its conv output gathered
+    over "model"; the local layers' K/V gathered): rank 0's greedy
+    tokens equal the one-device run's."""
+    argv = ["--arch", arch, "--smoke", "--device", "cpu",
+            "--batch", "2", "--prompt-len", "24", "--tokens", "5"]
+    one = _line(capfd, serve.main, argv)
+    got = _line(capfd, serve.main, argv + ["--mesh", "1x2"])
+    assert got["mesh"] == {"data": 1, "model": 2}
+    assert got["params"] == one["params"]
+    assert got["first_tokens"] == one["first_tokens"]
+    kinds = got["collective_bytes"]["model"]
+    assert kinds["all-reduce"] > 0
+    assert ("all-gather" in kinds) == (arch == "recurrentgemma-2b")
+
+
 def test_train_mesh_2x2_matches_one_device(capfd):
-    argv = ["--arch", "gemma2-2b", "--smoke", "--device", "cpu",
+    _train_2x2(capfd, "gemma2-2b")
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b"])
+def test_train_mesh_2x2_recurrent_pair_matches_one_device(capfd, arch):
+    _train_2x2(capfd, arch)
+
+
+def _train_2x2(capfd, arch):
+    argv = ["--arch", arch, "--smoke", "--device", "cpu",
             "--rounds", "1", "--global-batch", "4", "--clusters", "2"]
     one = _line(capfd, train.main, argv + ["--clients", "2"])
     got = _line(capfd, train.main, argv + ["--mesh", "2x2"])
