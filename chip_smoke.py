@@ -51,17 +51,18 @@ counted by shape and stage, prefill + decode against a longer prefill in
 bf16 and on an f32 depth cut, and profiles of the encode, a prefill and
 decode steps (flash at their shapes: rows 4e-4g of ``kernels_vs_plain``,
 against SDPA), runs tensor parallelism over "model" (phase ``tp``):
-qwen2-72b at full width with its depth cut to 8 layers served on a (1,
+qwen2-72b at full width with its depth cut to 4 layers served on a (1,
 2) mesh (a prefill of B = 2 x 4096 tokens, 16 greedy decode steps) and
-gemma2-2b at full width, 12 layers, trained one round on a (2, 2) mesh
+gemma2-2b at full width, 6 layers, trained one round on a (2, 2) mesh
 (2 clients of TP 2), the ranks spawned processes sharing the card over
 gloo, each against the same weights on one rank without a mesh, with
 flash at one rank's heads (row 4h), runs the mesh program of the other
 families the same way on a (1, 2) mesh (phase ``tp_families``):
-grok-1-314b at full width and 4 layers (per-expert TP, B = 2 x 4096, the
+grok-1-314b at full width and 2 layers (per-expert TP, B = 2 x 4096, the
 held run fed one rank's routing; every token the mesh would have routed
-apart must be a router near-tie), whisper-large-v3 at 8 + 8 layers (4 clips encoded on
-the mesh, cross-attention on a rank's heads) and pixtral-12b at 8 layers
+apart must be a router near-tie), whisper-large-v3 at 4 + 4 layers (4
+clips encoded on the mesh, cross-attention on a rank's heads) and
+pixtral-12b at 4 layers
 (1024 patches projected column-parallel), each a prefill and 8 decode
 steps held against one rank, with flash at a rank's heads (grok-1's
 layer, whisper's encoder and its cross-attention in decode), runs the
@@ -69,15 +70,20 @@ mesh program of the recurrent pair the same way on (1, 2) (phase
 ``tp_recurrent``): mamba2-1.3b at full width and 16 layers (the SSD by
 heads) and recurrentgemma-2b at 8 (the RG-LRU by channels, its local
 attention on a rank's heads), B = 2 x 4096, 8 decode steps each, with
-flash at one rank's local layer (row 4l), trains the
-full gemma2-2b through
+flash at one rank's local layer (row 4l), and mamba2-1.3b in float32 (4
+layers, held at 1e-3 of the logits: a mesh fault, not bf16 rounding),
+trains
+gemma2-2b at full width, 13 layers, through
 ``repro_torch.launch.train.train`` (4 clients stacked on the card, K = 2,
 4096-token sequences, 3 rounds with stage-2 in round 2; round 1's stage-1
 held against the plain version on its own stack and timed; one stage-1
 launch a round; rounds 1-2 again with the kernels off), then mamba2-1.3b
-and recurrentgemma-2b at full depth and whisper-large-v3 (its depth cut
-to 16 + 16 layers) the same way for 2 rounds (round 1 again with the
+(24 layers), recurrentgemma-2b (14) and whisper-large-v3 (8 + 8) at full
+width the same way for 2 rounds (round 1 again with the
 kernels off; one stage-1 launch a round for each dtype of their leaves),
+then mixtral-8x22b at full width with its depth cut to 1 layer (phase
+``train_moe``: 2 clients in 1 cluster, a global batch of 16, its
+profile's bf16 accumulator and scan dispatch, 3 rounds as gemma2-2b),
 dry-runs each of those serves and trainings and the tp, tp_families
 and tp_recurrent runs on the host
 (``repro_torch.launch.dryrun``, fake tensors, in worker processes that
@@ -166,13 +172,35 @@ REC_TRAIN_ROUNDS, REC_TRAIN_RERUN = 2, 1
 # row of 4096 tokens and 1500 frames a client; the frames 0.1 * normal,
 # drawn each round by launch/train.py)
 FRONTEND_TRAIN_ARCHS = ("whisper-large-v3",)
-# the one training run cut in depth, to keep the script under 1,080 s
-# (nine tenths of the 1,200 s limit) with the tp phase: at full depth the
-# script took 908-1,011 s without it, and the phase takes 105-141 s, so up
-# to 1,152 s; whisper-large-v3's phase, the longest (177 s at 32 + 32
-# layers), takes 83 s at 16 + 16, which leaves up to 1,058 s.  The other
-# training runs keep their full depth
-TRAIN_LAYERS = {"whisper-large-v3": 16}
+# every training run's depth is cut to about half, each pattern kept
+# (gemma2-2b 26 -> 13: its leftover local layer; recurrentgemma-2b 26 ->
+# 14: 4 cycles and its 2 leftover rglru layers; whisper-large-v3 32 + 32
+# -> 8 + 8), to keep the script under the 1,200 s limit: on the hosts of
+# two runs where nvcc took 2.2x as long as before and every host-bound
+# phase 1.3-2x, the script took 1,264-1,285 s with these runs at full
+# depth (whisper at 16 + 16), of which they took 444 s; each round is
+# device time that falls with depth (gemma2-2b 17.3 s at 26 layers)
+TRAIN_LAYERS = {"gemma2-2b": 13, "mamba2-1.3b": 24, "recurrentgemma-2b": 14,
+                "whisper-large-v3": 8}
+# mixture-of-experts FL training (phase train_moe): mixtral-8x22b at full
+# width (d_model 6144, 48 heads of 128 over 8 kv heads, d_ff 16384, 8
+# experts top-2, vocab 32768) in its own profile (bf16 parameters and
+# gradient accumulator, scan dispatch, remat), C = 2 clients in K = 1
+# cluster (stage-1 averages the two), train_4k's 4096 tokens, 3 rounds
+# with stage-2 in round 2 and rounds 1-2 again with the kernels off, as
+# gemma2-2b.  Memory allows 2 layers: the dry run (`launch.train
+# --dry-run --clients 2 --clusters 1 --layers N`) counts 37.29 GB at 1
+# layer, 64.93 at 2 and 94.98 at 3, and 2 layers at a global batch of 16
+# (8 microbatches of 1 row a client) peaked at 66.3 GB on the card.  Time
+# does not: that phase took 80 s, 50 more than at 1 layer, and the script
+# would pass the 1,080 s it aims at on the slower hosts seen (1,264-1,285
+# s before the other trainings' depths were cut; ~1,025 s estimated
+# after), so the depth is cut 56 -> 1.  The global batch stays 16: 8
+# rows a client, which the profile's grad_accum of 32 takes as 8
+# microbatches of 1 row (at a global batch of 8 the phase took 28.6-30.2
+# s)
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "mixtral-8x22b", 1
+MOE_TRAIN_CLIENTS, MOE_TRAIN_CLUSTERS, MOE_TRAIN_BATCH = 2, 1, 16
 # kernels on vs off, round 2's mean client CE: the two runs' round-1
 # stage-1 outputs may differ by one bf16 ulp (2^-8 relative) in some
 # elements, and round 2's forward rounds every activation to bf16 (8 bits)
@@ -2429,25 +2457,27 @@ MESH_RANKS = 2                # ranks sharing the one card (over gloo)
 MESH_TIMEOUT_S = 600
 # tensor parallelism over "model" (phase tp): qwen2-72b at full width
 # (d_model 8192, 64 q / 8 kv heads of 128, d_ff 29,568, vocab 152,064,
-# bf16, int8 KV cache as its profile) with its depth cut 80 -> 8 (about
-# 19 GB whole, 9.5 GB a rank; 16 layers until the recurrent pair's phase
-# took the script's last seconds), served on a (1, 2) mesh of two spawned
+# bf16, int8 KV cache as its profile) with its depth cut 80 -> 4 (about
+# 11 GB whole; 16 layers until the recurrent pair's phase took the
+# script's last seconds, 8 until the MoE training's and slower hosts
+# did), served on a (1, 2) mesh of two spawned
 # ranks that share the card over gloo: a prefill of B = 2 x 4096 tokens,
 # then 16 greedy decode steps, held against the same weights on one rank
 # without a mesh: the prefill's last-position logits and, fed the one-rank
 # run's tokens, the 16 decode steps' logits at CONSIST_TOL_BF16, the first
 # greedy token equal, the decoded tokens that agree counted (each that
 # differs printed with the one-rank run's top-2 gap there)
-TP_ARCH, TP_LAYERS, TP_MESH = "qwen2-72b", 8, (1, 2)
+TP_ARCH, TP_LAYERS, TP_MESH = "qwen2-72b", 4, (1, 2)
 TP_BATCH, TP_PROMPT, TP_DECODE, TP_SEED = 2, 4096, 16, 7
 # gemma2-2b trains one round on a (2, 2) mesh: 2 clients of TP 2, K = 1,
 # 2 rows of 4096 tokens a client (2 microbatches), at full width with its
-# depth cut 26 -> 12: four ranks share the card's 80 GB (the dry run
-# predicts 26.1 GB a rank at 26 layers, 15.2 GB at 12); held against the
+# depth cut 26 -> 6 (four ranks share the card's 80 GB: the dry run
+# predicts 26.1 GB a rank at 26 layers, 15.2 GB at 12; 12 until the
+# script's time ran short); held against the
 # one-device step on the same two-client stack, each leaf within one bf16
 # ulp of the leaf's largest magnitude (the one-device update printed in
 # the same ulps beside it), the mean client CE at TP_CE_RTOL
-TP_TRAIN_ARCH, TP_TRAIN_LAYERS, TP_TRAIN_MESH = "gemma2-2b", 12, (2, 2)
+TP_TRAIN_ARCH, TP_TRAIN_LAYERS, TP_TRAIN_MESH = "gemma2-2b", 6, (2, 2)
 TP_TRAIN_BATCH, TP_TRAIN_SEQ = 4, 4096
 # the zero-initialized norm scales are, after one round, lr times a bf16
 # gradient: a sum over the 8192 tokens of products that largely cancel,
@@ -2482,20 +2512,21 @@ FLASH_TP = (TP_BATCH, 32, 4, TP_PROMPT, 128)
 # spawned ranks sharing the card over gloo and held, as the tp phase
 # holds qwen2-72b, against the same weights on one rank without a mesh
 # (one process for the three archs one after another, the two ranks
-# spawned once for all three): grok-1-314b 64 -> 4 layers (4 x 9.66 GB
-# of experts + 1.6 GB of embedding: ~41 GB whole, ~21 GB a rank; int8
+# spawned once for all three): grok-1-314b 64 -> 2 layers (2 x 9.66 GB
+# of experts + 1.6 GB of embedding: ~21 GB whole, ~11 GB a rank; int8
 # cache, scan dispatch), B = 2 x 4096 tokens; whisper-large-v3 32 + 32
-# -> 8 + 8 layers, B = 4 clips of 1500 frames and 128 tokens;
-# pixtral-12b 40 -> 8 layers, B = 1 x (1024 patches + 1024 tokens); a
+# -> 4 + 4 layers, B = 4 clips of 1500 frames and 128 tokens;
+# pixtral-12b 40 -> 4 layers, B = 1 x (1024 patches + 1024 tokens) (4,
+# 8 + 8 and 8 layers until the script's time ran short); a
 # prefill, then 8 greedy decode steps; grok-1's routing (each layer's
 # top-2 experts of every token) compared too
 TPF_ARCHS = ("grok-1-314b", "whisper-large-v3", "pixtral-12b")
 # every served mesh run (phases tp and tp_families) on TP_MESH: arch ->
 # (layers, B, text tokens, decode steps, seed)
 TP_SERVES = {TP_ARCH: (TP_LAYERS, TP_BATCH, TP_PROMPT, TP_DECODE, TP_SEED),
-             "grok-1-314b": (4, 2, 4096, 8, 11),
-             "whisper-large-v3": (8, 4, 128, 8, 11),
-             "pixtral-12b": (8, 1, 1024, 8, 11),
+             "grok-1-314b": (2, 2, 4096, 8, 11),
+             "whisper-large-v3": (4, 4, 128, 8, 11),
+             "pixtral-12b": (4, 1, 1024, 8, 11),
              "mamba2-1.3b": (16, 2, 4096, 8, 11),
              "recurrentgemma-2b": (8, 2, 4096, 8, 11)}
 # the recurrent pair on the (1, 2) mesh (phase tp_recurrent), at full
@@ -2515,6 +2546,17 @@ TPR_ARCHS = ("mamba2-1.3b", "recurrentgemma-2b")
 # 0.123; one device 0.650 from the same weights in float32, rms 0.144)
 TPR_BARS = {"mamba2-1.3b": (CONSIST_REC_MAX_BF16, CONSIST_REC_RMS_BF16),
             "recurrentgemma-2b": (CONSIST_TOL_BF16, None)}
+# and mamba2-1.3b in float32 (TF32 off, as the port sets it), which tells
+# a fault of the mesh program from bf16 rounding: full width, 4 layers, B
+# = 1 x 1024 tokens, 4 decode steps fed one rank's tokens, held against
+# one rank at TPR_F32_TOL of the logits (the CPU meets 1e-4; a wrong
+# block or a missing sum moves the logits by O(1), as the bf16 distances
+# 0.4-0.7 show a rounding of that size does)
+TPR_F32 = "mamba2-1.3b:float32"
+TP_SERVES[TPR_F32] = (4, 1, 1024, 4, 13)
+TPR_RUNS = TPR_ARCHS + (TPR_F32,)
+TPR_F32_TOL = 1e-3
+TPR_BARS[TPR_F32] = (TPR_F32_TOL, None)
 # row 4l: the bf16 flash kernel at one recurrentgemma-2b rank's local
 # layer on the (1, 2) mesh: B, Hq, Hkv (the kv head gathered whole), S, D,
 # window (causal, no soft-cap)
@@ -3160,20 +3202,23 @@ def tp_phase(smi: str, tmp: Path, gen) -> tuple:
     return line, flash, ranks[0]["launches"]["flash_attention"]
 
 
-def tp_serve_config(arch: str):
+def tp_serve_config(key: str):
     """The config (depth cut, an encoder-decoder's encoder too; the
-    profile's dtype) and profile of a served mesh run (TP_SERVES)."""
+    profile's dtype, or the dtype after the key's ":") and profile of a
+    served mesh run (TP_SERVES)."""
     from repro_torch.configs import (depth_cut, get_config, get_profile,
                                      replace)
+    arch, _, dtype = key.partition(":")
     prof = get_profile(arch)
-    return replace(depth_cut(get_config(arch), TP_SERVES[arch][0]),
-                   dtype=prof.param_dtype), prof
+    return replace(depth_cut(get_config(arch), TP_SERVES[key][0]),
+                   dtype=dtype or prof.param_dtype), prof
 
 
 def tp_serve_reduced(arch: str) -> str:
     """The depth cut of a served mesh run, as PERF.md's ``reduced``."""
     from repro_torch.configs import get_config
-    full, cut = get_config(arch), tp_serve_config(arch)[0]
+    full = get_config(arch.partition(":")[0])
+    cut = tp_serve_config(arch)[0]
     if full.encoder_layers:
         return (f"depth {full.encoder_layers} + {full.num_layers} -> "
                 f"{cut.encoder_layers} + {cut.num_layers}")
@@ -3185,7 +3230,7 @@ def tp_serve_cache(arch: str) -> int:
     prompt's patches, the text and the new tokens, rounded up to whole
     blocks of slots a rank."""
     from repro_torch.configs import get_config
-    cfg = get_config(arch)
+    cfg = get_config(arch.partition(":")[0])
     _, _, text, n_dec, _ = TP_SERVES[arch]
     patches = cfg.frontend_len if cfg.frontend == "vision" else 0
     n = patches + text + n_dec + 1
@@ -3219,6 +3264,9 @@ def tp_serve_rank(rank: int, world: int, tmp: str, tag: str, archs: tuple,
         t0 = time.perf_counter()
         cfg, prof = tp_serve_config(arch)
         _, b, text, n_dec, seed = TP_SERVES[arch]
+        assert cfg.dtype != "float32" or not (
+            torch.backends.cuda.matmul.allow_tf32
+            or torch.backends.cudnn.allow_tf32), "TF32 is on"
         gen = torch.Generator(device=DEV).manual_seed(seed)
         tp = None if mesh is None else steps.mesh_program(mesh, prof)
         if mesh is None:
@@ -3452,21 +3500,22 @@ def tp_recurrent_phase(smi: str, tmp: Path, gen) -> tuple:
     ranks sharing the card over gloo, each held against the same weights
     on one rank without a mesh (:func:`hold_serve`: the prefill's and
     every decode step's logits, fed one rank's tokens, and the greedy
-    tokens); the flash launches of a rank's prefill at recurrentgemma's
+    tokens), and mamba2-1.3b in float32 (TPR_F32) the same way at
+    TPR_F32_TOL; the flash launches of a rank's prefill at recurrentgemma's
     rank shape, one a local layer; then that kernel at that shape (row
     4l).  Returns the phase line, row 4l and the flash launches a rank
     made at its shape on the serve path."""
     import torch
     tmp = tmp.resolve()
     t_phase = time.perf_counter()
-    one = tp_spawn(tp_serve_rank, 1, tmp, "tpr_one", TPR_ARCHS)[0]
+    one = tp_spawn(tp_serve_rank, 1, tmp, "tpr_one", TPR_RUNS)[0]
     world = TP_MESH[0] * TP_MESH[1]
     t0 = time.perf_counter()
-    ranks = tp_spawn(tp_serve_rank, world, tmp, "tpr_mesh", TPR_ARCHS,
+    ranks = tp_spawn(tp_serve_rank, world, tmp, "tpr_mesh", TPR_RUNS,
                      "tpr_one")
     mesh_wall = time.perf_counter() - t0
     archs = {}
-    for arch in TPR_ARCHS:
+    for arch in TPR_RUNS:
         cfg, prof = tp_serve_config(arch)
         _, b, text, n_dec, _ = TP_SERVES[arch]
         want = torch.load(f"{tp_out(tmp, f'tpr_one_{arch}', 0)}.pt")
@@ -3631,23 +3680,30 @@ def stage1_on_stack(stack, losses, data_sizes, assignment, k) -> dict:
     return row
 
 
-def profile_training(cfg, round_s: float, microbatches: int) -> dict:
+def profile_training(cfg, round_s: float, microbatches: int,
+                     dispatch: str = "dense") -> dict:
     """Where a training round's time goes: one client's microbatch of the
     train step (``loss_fn`` with remat, gradients of every leaf; 4096
     tokens) under torch.profiler beside its unprofiled time, and the layer
     cores timed alone as a microbatch runs them (the checkpoint's forward
     without autograd, then the recompute and its backward): the train
     attention of a global and a local layer (gemma2-2b; recurrentgemma-2b's
-    local layers; whisper-large-v3's causal decoder layers), the SSD's chunked core with its (B, nc, H, Q, Q) f32
-    decay matrices (mamba2-1.3b) and the RG-LRU's log-depth scan
-    (recurrentgemma-2b); ``round_s`` and ``microbatches`` (a round's) give
-    their shares of a round."""
+    local layers; whisper-large-v3's causal decoder layers; mixtral-8x22b's
+    sliding-window layers), the SSD's chunked core with its (B, nc, H, Q,
+    Q) f32 decay matrices (mamba2-1.3b), the RG-LRU's log-depth scan
+    (recurrentgemma-2b) and a mixture of experts' layer in ``dispatch``
+    (the scan: every expert's three GEMMs on every token, each expert
+    under its own checkpoint inside the layer's, so its forward runs three
+    times and its backward once: 5 forwards' worth of GEMM flop);
+    ``round_s`` and ``microbatches`` (a round's) give their shares of a
+    round.  The GEMM kernels' share of the microbatch's device time is
+    read from the profile."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import train as train_lib
     from repro_torch.models import attention as attn
     from repro_torch.models import loss_fn
-    from repro_torch.models import rglru, ssm
+    from repro_torch.models import moe, rglru, ssm
     from repro_torch.tree import tree_leaves, tree_unflatten
     seq = 4096
     model = train_lib.init_model(cfg, 0, DEV)
@@ -3661,7 +3717,8 @@ def profile_training(cfg, round_s: float, microbatches: int) -> dict:
 
     def micro():
         ps = [x.detach().requires_grad_(True) for x in tree_leaves(model)]
-        loss, _ = loss_fn(cfg, tree_unflatten(model, ps), batch, remat=True)
+        loss, _ = loss_fn(cfg, tree_unflatten(model, ps), batch,
+                          dispatch=dispatch, remat=True)
         torch.autograd.grad(loss, ps)
     micro_ms = events_ms(micro, reps=3)
     with profile(activities=[ProfilerActivity.CPU,
@@ -3672,7 +3729,13 @@ def profile_training(cfg, round_s: float, microbatches: int) -> dict:
     busy = sum(k[0] for k in kernels)
     f32_gemm = sum(k[0] for k in kernels
                    if "f32f32_f32f32" in k[1] or "sgemm" in k[1])
-    del model
+    gemm = kernel_summary(kernels, micro_ms)["gemm_ms"]
+    # a MoE layer's weights: the first cycle's of the first pattern
+    # position (the leading dim of model["layers"][0] is the cycle)
+    moe_p = ({key: w[0] for key, w in model["layers"][0]["moe"].items()}
+             if cfg.num_experts else None)
+    if moe_p is None:
+        del model
 
     def remat_ms(fn, *inputs):
         """``fn`` as a remat'd microbatch runs it: forward without
@@ -3696,11 +3759,11 @@ def profile_training(cfg, round_s: float, microbatches: int) -> dict:
         q = torch.randn((1, seq, hq, d), generator=gen, device=DEV).bfloat16()
         k, v = (torch.randn((1, seq, hkv, d), generator=gen, device=DEV)
                 .bfloat16() for _ in range(2))
-        for kind in ("global", "local", "attn"):
+        for kind in ("global", "local", "swa", "attn"):
             if kind not in kinds:
                 continue
-            if kind == "local":
-                cores["attention_local"] = (kinds.count(kind), remat_ms(
+            if kind in ("local", "swa"):
+                cores[f"attention_{kind}"] = (kinds.count(kind), remat_ms(
                     lambda q, k, v: attn.windowed_full_attention(
                         cfg, q, k, v, pos, pos, cfg.window_size), q, k, v))
             else:           # a global layer, or whisper's decoder layer
@@ -3723,10 +3786,26 @@ def profile_training(cfg, round_s: float, microbatches: int) -> dict:
         b = torch.randn((1, seq, w), generator=gen, device=DEV)
         cores["rglru_scan"] = (kinds.count("rglru"),
                                remat_ms(rglru.linear_scan, a, b))
+    expert_tflop_per_s = None
+    if moe_p is not None:
+        x = torch.randn((1, seq, cfg.d_model), generator=gen,
+                        device=DEV).to(moe_p["w_gate"].dtype)
+        keys = ("router", "w_gate", "w_up", "w_down")
+        cores[f"moe_{dispatch}"] = (cfg.num_layers, remat_ms(
+            lambda x, *w: moe.apply_moe(cfg, dict(zip(keys, w)), x,
+                                        dispatch)[0],
+            x, *(moe_p[key] for key in keys)))
+        if dispatch == "scan":      # every expert on every token, 5 passes
+            flop = (5 * cfg.num_experts * 3 * 2 * seq * cfg.d_model
+                    * cfg.d_ff)
+            expert_tflop_per_s = flop / (cores["moe_scan"][1] * 1e-3) / 1e12
+        del model, moe_p, x
     per_micro = {name: n * ms for name, (n, ms) in cores.items()}
     out = {"microbatch_ms": micro_ms, "device_busy_ms": busy,
            "device_idle_share": 1.0 - busy / micro_ms,
-           "f32_gemm_ms": f32_gemm,
+           "f32_gemm_ms": f32_gemm, "gemm_ms": gemm,
+           "gemm_share_of_busy": gemm / busy,
+           "moe_layer_tflop_per_s": expert_tflop_per_s,
            "kernel_launches": sum(k[2] for k in kernels),
            "layer_core_ms": {name: ms for name, (_, ms) in cores.items()},
            "layer_core_ms_per_microbatch": per_micro,
@@ -3748,16 +3827,28 @@ def profile_training(cfg, round_s: float, microbatches: int) -> dict:
     return out
 
 
+def train_layout(arch: str) -> tuple:
+    """(clients, clusters, global batch) of this script's training run of
+    ``arch``."""
+    if arch == MOE_TRAIN_ARCH:
+        return MOE_TRAIN_CLIENTS, MOE_TRAIN_CLUSTERS, MOE_TRAIN_BATCH
+    return TRAIN_CLIENTS, TRAIN_CLUSTERS, TRAIN_BATCH
+
+
 def train_phase(smi: str, arch: str = TRAIN_ARCH, rounds: int = TRAIN_ROUNDS,
-                rerun: int = TRAIN_RERUN,
-                layers: int | None = None) -> tuple:
-    """FL training of ``arch`` at full width and depth through
-    ``repro_torch.launch.train.train``: ``rounds`` rounds with the kernels
-    on (round 1's stage-1 held against the plain version and timed on its
-    own stack), one stage-1 launch a round for each dtype of the model's
-    leaves, then the first ``rerun`` rounds again with the kernels off from
-    the same start and batches, each round's aggregated clients held
-    against the first run's (``held``).  Returns the phase line and the
+                rerun: int = TRAIN_RERUN, layers: int | None = None, *,
+                clients: int = TRAIN_CLIENTS,
+                clusters: int = TRAIN_CLUSTERS,
+                global_batch: int = TRAIN_BATCH) -> tuple:
+    """FL training of ``arch`` at full width (and depth, but ``layers``)
+    through ``repro_torch.launch.train.train``, ``clients`` clients in
+    ``clusters`` clusters at ``global_batch`` rows: ``rounds`` rounds with
+    the kernels on (round 1's stage-1 held against the plain version and
+    timed on its own stack), one stage-1 launch a round for each dtype of
+    the model's leaves, then the first ``rerun`` rounds again with the
+    kernels off from the same start and batches, each round's aggregated
+    clients held against the first run's (``held``).  A mixture of
+    experts' line is phase ``train_moe``.  Returns the phase line and the
     kernels row."""
     import torch
     from repro_torch.configs import (depth_cut, get_config, get_profile,
@@ -3769,7 +3860,8 @@ def train_phase(smi: str, arch: str = TRAIN_ARCH, rounds: int = TRAIN_ROUNDS,
     cfg = get_config(arch)
     if layers:
         cfg = depth_cut(cfg, layers)
-    cfg = replace(cfg, dtype=get_profile(arch).param_dtype)
+    prof = get_profile(arch)
+    cfg = replace(cfg, dtype=prof.param_dtype)
     model = train_lib.init_model(cfg, 0, DEV)
     start = model["embed"]["embedding"].clone()
     groups = len(ops.dtype_groups(tree_leaves(model)))
@@ -3827,9 +3919,9 @@ def train_phase(smi: str, arch: str = TRAIN_ARCH, rounds: int = TRAIN_ROUNDS,
         torch.cuda.empty_cache()
         ops.reset_launches()
         return train_lib.train(
-            arch, rounds=n_rounds, clusters=TRAIN_CLUSTERS,
-            rounds_per_global=TRAIN_RPG, clients=TRAIN_CLIENTS,
-            global_batch=TRAIN_BATCH, seed=0, device=DEV,
+            arch, rounds=n_rounds, clusters=clusters,
+            rounds_per_global=TRAIN_RPG, clients=clients,
+            global_batch=global_batch, seed=0, device=DEV,
             use_kernels=use_kernels, layers=layers)
 
     aggregation.hierarchical_round = held
@@ -3858,8 +3950,7 @@ def train_phase(smi: str, arch: str = TRAIN_ARCH, rounds: int = TRAIN_ROUNDS,
         (r + 1) % TRAIN_RPG == 0 for r in range(rounds)]
     ces = [r.ce for r in on.rounds]
     assert all(math.isfinite(x) for x in ces), ces
-    assert all(n > 0 for n in changed) and len(changed) == TRAIN_CLIENTS, \
-        changed
+    assert all(n > 0 for n in changed) and len(changed) == clients, changed
     off_ces = [r.ce for r in off.rounds]
     assert off_ces[0] == ces[0], (off_ces, ces)
     assert all(abs(a - b) <= TRAIN_CE_RTOL * abs(b)
@@ -3869,19 +3960,23 @@ def train_phase(smi: str, arch: str = TRAIN_ARCH, rounds: int = TRAIN_ROUNDS,
     emb_cols = cfg.vocab_padded * cfg.d_model
     own_s = [r.s - c for r, c in zip(on.rounds, check_s[True])]
     steady_s = statistics.median(own_s[1:])
-    where = profile_training(cfg, steady_s,
-                             TRAIN_CLIENTS * on.meta["accum"])
+    where = profile_training(cfg, steady_s, clients * on.meta["accum"],
+                             prof.moe_dispatch)
     gc.collect()
     torch.cuda.empty_cache()
     line = {
-        "phase": "train", "arch": cfg.name, "layers": cfg.num_layers,
+        "phase": "train_moe" if cfg.num_experts else "train",
+        "arch": cfg.name, "layers": cfg.num_layers,
         "encoder_layers": cfg.encoder_layers,
-        "reduced": f"depth cut to {layers} layers" if layers else None,
+        "reduced": (f"depth cut to {layers} layer{'s' * (layers > 1)}"
+                    if layers else None),
         "d_model": cfg.d_model, "vocab": cfg.vocab_size,
         "params": on.meta["params"], "dtype": on.meta["dtype"],
-        "clients": TRAIN_CLIENTS, "clusters": on.clusters,
+        "clients": clients, "clusters": on.clusters,
         "seq": on.meta["seq"], "global_batch": on.meta["global_batch"],
         "accum": on.meta["accum"], "micro": on.meta["micro"],
+        "accum_dtype": prof.accum_dtype, "remat": prof.remat,
+        "moe_dispatch": prof.moe_dispatch if cfg.num_experts else None,
         "rounds_per_global": TRAIN_RPG, "lr": on.meta["lr"],
         "nvidia_smi": smi, "ln_vocab": math.log(cfg.vocab_size),
         "rounds": [r._asdict() for r in on.rounds],
@@ -3941,11 +4036,15 @@ def start_dryrun():
     pool down.  Returns (pool, futures, start time)."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
-    tasks = [(f"train {arch}", arch, "train_4k", dict(
-        device="cuda", clients=TRAIN_CLIENTS, clusters=TRAIN_CLUSTERS,
-        global_batch=TRAIN_BATCH, rounds_per_global=TRAIN_RPG,
-        num_layers=TRAIN_LAYERS.get(arch)))
-        for arch in (TRAIN_ARCH,) + RECURRENT_ARCHS + FRONTEND_TRAIN_ARCHS]
+    tasks = []
+    for arch in ((MOE_TRAIN_ARCH, TRAIN_ARCH) + RECURRENT_ARCHS
+                 + FRONTEND_TRAIN_ARCHS):
+        clients, clusters, batch = train_layout(arch)
+        tasks.append((f"train {arch}", arch, "train_4k", dict(
+            device="cuda", clients=clients, clusters=clusters,
+            global_batch=batch, rounds_per_global=TRAIN_RPG,
+            num_layers=(MOE_TRAIN_LAYERS if arch == MOE_TRAIN_ARCH
+                        else TRAIN_LAYERS.get(arch)))))
     for arch in ("gemma2-2b",) + RECURRENT_ARCHS + MOE_ARCHS + FRONTEND_ARCHS:
         batch, text, _ = FRONTEND_SERVE.get(arch, (SERVE_BATCH, None, None))
         tasks.append((f"serve {arch}", arch, "prefill_32k", dict(
@@ -3953,6 +4052,8 @@ def start_dryrun():
             seq_len=text if arch == "whisper-large-v3" else SERVE_PROMPT)))
     # the tp runs, each as rank 0 of its mesh
     for arch, (layers, batch, _, _, _) in TP_SERVES.items():
+        if arch == TPR_F32:             # the dry run counts the profile's
+            continue                    # dtype only
         key = ("tp serve" if arch == TP_ARCH else
                "tpr serve" if arch in TPR_ARCHS else "tpf serve")
         tasks.append((f"{key} {arch}", arch, "prefill_32k", dict(
@@ -3992,8 +4093,8 @@ def dryrun_phase(smi: str, serve_lines: dict, train_lines: list,
     measured = {}
     for line in train_lines:
         assert (line["clients"], len(line["clusters"]), line["global_batch"],
-                line["rounds_per_global"]) == (TRAIN_CLIENTS, TRAIN_CLUSTERS,
-                                               TRAIN_BATCH, TRAIN_RPG), line
+                line["rounds_per_global"]) == (*train_layout(line["arch"]),
+                                               TRAIN_RPG), line
         measured[f"train {line['arch']}"] = ([line], line["steady_round_s"])
     for arch, line in serve_lines.items():
         measured[f"serve {arch}"] = (line["runs"], statistics.median(
@@ -4007,6 +4108,8 @@ def dryrun_phase(smi: str, serve_lines: dict, train_lines: list,
         r["s"] for r in ranks))
     for key, phase in (("tpf", tpf_line), ("tpr", tpr_line)):
         for arch, line in phase["archs"].items():
+            if arch == TPR_F32:
+                continue
             measured[f"{key} serve {arch}"] = (
                 line["ranks"], statistics.median(
                     r["prefill_s"] + r["encode_s"] for r in line["ranks"]))
@@ -4354,7 +4457,7 @@ def main() -> int:
                            "pixtral": 40}, front_flash
 
     # ---- 8b''. tensor parallelism over "model": qwen2-72b served at full
-    # width (8 layers) on a (1, 2) mesh, gemma2-2b trained one round on a
+    # width (4 layers) on a (1, 2) mesh, gemma2-2b trained one round on a
     # (2, 2) mesh, spawned ranks sharing the card over gloo, each against
     # one rank without a mesh; every rank's prefill through the bf16 flash
     # kernel on its heads (row 4h); the counts are set to 0 in each rank
@@ -4387,7 +4490,8 @@ def main() -> int:
     # host's spare cores meanwhile (8d).
     started = start_dryrun()
     try:
-        train_line, train_row = train_phase(smi)
+        train_line, train_row = train_phase(
+            smi, layers=TRAIN_LAYERS.get(TRAIN_ARCH))
         emit(train_line)
         train_rows = [train_row]
         train_lines = [train_line]
@@ -4397,6 +4501,18 @@ def main() -> int:
             emit(line)
             train_lines.append(line)
             train_rows.append(row)
+
+        # ---- 8c'. mixture-of-experts FL training: mixtral-8x22b at full
+        # width, 1 layer, C = 2 clients in K = 1 cluster, scan dispatch,
+        # bf16 accumulator, stage-1 through the kernel (phase train_moe)
+        clients, clusters, batch = train_layout(MOE_TRAIN_ARCH)
+        line, row = train_phase(smi, MOE_TRAIN_ARCH, TRAIN_ROUNDS,
+                                TRAIN_RERUN, MOE_TRAIN_LAYERS,
+                                clients=clients, clusters=clusters,
+                                global_batch=batch)
+        emit(line)
+        train_lines.append(line)
+        train_rows.append(row)
 
         # ---- 8d. the dry run of every run above: its predicted peak
         # against the card's, its flops over the card's seconds

@@ -9,7 +9,8 @@ ones (fedbuff, fedhc-async, fedspace-async) to `core/async_engine.py`.
 
 ``CLUSTER_INITS`` maps an init name to ``fn(gen, positions, label_hists,
 k) -> (assignment, centroids)``, drawing from the ``torch.Generator``
-``gen``.
+``gen``; :func:`cluster_init` registers one, as the reference's decorator
+does.
 """
 from __future__ import annotations
 
@@ -23,6 +24,16 @@ from repro_torch.core import clustering as cl
 ClusterInitFn = Callable[[torch.Generator, torch.Tensor, torch.Tensor, int],
                          Tuple[torch.Tensor, torch.Tensor]]
 
+CLUSTER_INITS: Dict[str, ClusterInitFn] = {}
+
+
+def cluster_init(name: str) -> Callable[[ClusterInitFn], ClusterInitFn]:
+    """Decorator: register a clustering initializer under ``name``."""
+    def deco(fn: ClusterInitFn) -> ClusterInitFn:
+        CLUSTER_INITS[name] = fn
+        return fn
+    return deco
+
 
 def _kmeans_init_idx(gen: torch.Generator, n: int, k: int) -> torch.Tensor:
     """k distinct random indices (the paper: 'K centroids are randomly
@@ -30,12 +41,14 @@ def _kmeans_init_idx(gen: torch.Generator, n: int, k: int) -> torch.Tensor:
     return torch.randperm(n, generator=gen, device=gen.device)[:k]
 
 
+@cluster_init("position")
 def _init_position(gen, positions, label_hists, k):
     """Paper §III-B: k-means over satellite position vectors."""
     res = cl.kmeans(positions, k, _kmeans_init_idx(gen, positions.shape[0], k))
     return res.assignment, res.centroids
 
 
+@cluster_init("label_hist")
 def _init_label_hist(gen, positions, label_hists, k):
     """FedCE-style: cluster in label-distribution space, then place the
     position-space centroids at the mean member position (seeded from the
@@ -47,6 +60,7 @@ def _init_label_hist(gen, positions, label_hists, k):
     return res.assignment, centroids
 
 
+@cluster_init("random")
 def _init_random(gen, positions, label_hists, k):
     """H-BASE: random static clusters."""
     n = positions.shape[0]
@@ -56,20 +70,13 @@ def _init_random(gen, positions, label_hists, k):
                                            positions[:k])
 
 
+@cluster_init("single")
 def _init_single(gen, positions, label_hists, k):
     """Centralized baseline: everyone in one cluster (K must be 1)."""
     n = positions.shape[0]
     assignment = torch.zeros((n,), dtype=torch.int32,
                              device=positions.device)
     return assignment, positions.mean(0, keepdim=True)
-
-
-CLUSTER_INITS: Dict[str, ClusterInitFn] = {
-    "position": _init_position,
-    "label_hist": _init_label_hist,
-    "random": _init_random,
-    "single": _init_single,
-}
 
 
 @dataclass(frozen=True)

@@ -4,6 +4,7 @@ card, FedHC rounds of local SGD and two-stage aggregation.
     python -m repro_torch.launch.train --arch gemma2-2b [--shape train_4k] \
         [--rounds 3] [--clusters 2] [--rounds-per-global 2] [--lr 0.01] \
         [--clients 4] [--global-batch 16] [--seed 0] [--device cpu] [--smoke]
+        [--layers N]
 
 The port's counterpart of ``repro/launch/train.py``.  The reference builds
 the production mesh and, on the CPU, stops after a dry run ("requires the
@@ -27,9 +28,12 @@ patches), drawn each round.
 ``--mesh DxM`` trains on a ("data", "model") mesh of D x M spawned ranks,
 the clients the mesh lays out (`train_rank`), any of the ten archs.
 ``--smoke`` takes the config's ``smoke_variant`` and a 64-token sequence,
-as ``launch/serve.py`` does.  ``--dry-run`` counts the round step at the
-arguments given on fake tensors (`launch/dryrun.py`: nothing is run or
-allocated on a device), prints the per-device peak, the memory analysis
+as ``launch/serve.py`` does; ``--layers`` cuts the depth
+(``configs.depth_cut``), as a MoE client stack needs on one card
+(mixtral-8x22b fits at ``--clients 2 --clusters 1 --layers 2``).
+``--dry-run`` counts the round step at the arguments given on fake
+tensors (`launch/dryrun.py`: nothing is run or allocated on a device),
+prints the per-device peak, the memory analysis
 and the flops and bytes accessed, as the reference's ``--dry-run``
 prints its compiled step's, and exits.
 """
@@ -223,6 +227,8 @@ def train_rank(rank: int, world: int, opts: dict) -> None:
     cfg = get_config(opts["arch"])
     if opts["smoke"]:
         cfg = smoke_variant(cfg)
+    if opts.get("layers"):
+        cfg = depth_cut(cfg, opts["layers"])
     prof = get_profile(opts["arch"])
     shp = dataclasses.replace(
         SHAPES[opts["shape"]],
@@ -297,6 +303,8 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--smoke", action="store_true",
                     help="the config's reduced smoke_variant, 64 tokens")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers")
     ap.add_argument("--dry-run", action="store_true",
                     help="count the round step on fake tensors, print the "
                          "analyses, exit")
@@ -310,7 +318,7 @@ def main(argv=None) -> None:
             args.arch, args.shape, "one", smoke=args.smoke,
             clients=args.clients, clusters=args.clusters,
             global_batch=args.global_batch,
-            rounds_per_global=args.rounds_per_global,
+            rounds_per_global=args.rounds_per_global, num_layers=args.layers,
             seq_len=SMOKE_SEQ if args.smoke else SHAPES[args.shape].seq_len)
         dryrun.print_analyses(rec)
         return
@@ -323,7 +331,8 @@ def main(argv=None) -> None:
                 clusters=args.clusters,
                 rounds_per_global=args.rounds_per_global, lr=args.lr,
                 clients=args.clients, global_batch=args.global_batch,
-                seed=args.seed, device=args.device, smoke=args.smoke)
+                seed=args.seed, device=args.device, smoke=args.smoke,
+                layers=args.layers)
     dev = torch.device(res.meta["device"])
     ms = stage1_ms(res.stack, res.clusters, use_kernels=True)
     print(json.dumps({

@@ -253,7 +253,8 @@ import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 sys.path.insert(0, "examples")
-for name in names + ["chip_smoke", "quickstart_torch", "fl_transformer_torch"]:
+for name in names + ["chip_smoke", "quickstart_torch", "fl_transformer_torch",
+                     "constellation_demo_torch"]:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))

@@ -527,6 +527,24 @@ def test_train_cli_runs_recurrent_archs_on_cpu(arch, capsys):
     assert out["stage1_ms"] > 0
 
 
+@pytest.mark.parametrize("layers", [1, 2])
+def test_train_cli_dry_run_cuts_a_moe_stack_to_fit(layers, capsys):
+    """``--layers`` reaches the launcher's dry run: mixtral-8x22b at full
+    width, 2 clients in 1 cluster, counted on fake tensors at the depth
+    given (chip_smoke's ``train_moe`` runs 1 layer; 2 fit the card): the
+    argument bytes are the two clients' bf16 weights at that depth, and
+    the depth is what sets the peak (about 27.6 GB a layer)."""
+    import ast
+    from repro_torch.launch import train as train_lib
+    cfg = tconfigs.depth_cut(tconfigs.get_config("mixtral-8x22b"), layers)
+    train_lib.main(["--arch", "mixtral-8x22b", "--dry-run", "--clients",
+                    "2", "--clusters", "1", "--layers", str(layers)])
+    mem = ast.literal_eval(capsys.readouterr().out.splitlines()[1])
+    assert mem["argument_size_in_bytes"] == pytest.approx(
+        2 * 2 * cfg.param_count(), rel=1e-3)
+    assert 30e9 * layers < mem["total_hbm_bytes"] < 10e9 + 30e9 * layers
+
+
 def test_stage1_plan_at_gemma2_2b_size():
     """The grouped stage-1 launch at the slice's size, planned on the CPU:
     gemma2-2b's 24 leaves over C = 4 clients, K = 2, bf16.  The embedding
