@@ -1785,7 +1785,7 @@ def contact_phase(scenario) -> dict:
         assert launches["kmeans_assign"] == want, launches
         assert launches["weighted_agg_multi"] == want, launches
         assert reads == {"window": due_rounds(outs.did_global, 10, 5),
-                         "recluster": 0, "stage2": 0}, reads
+                         "recluster": 0, "stage2": 0, "fetch": 1}, reads
         runs[key] = (res, outs.did_global.tolist(), state.pending_global)
         line = {"method": method, "kernels": use, **comms,
                 "plan": type(data.plan).__name__,
@@ -2348,8 +2348,10 @@ def obs_phase(scenario) -> dict:
             "range_ms": (e.self_device_time_total if side == "device"
                          else e.cpu_time_total) / 1e3,
             "launched_kernels_ms": e.device_time_total / 1e3}
-    assert set(scopes) == {"fed_step/local_train", "fed_step/aggregate",
-                           "fed_step/telemetry"}, scopes
+    assert {"fed_step/local_train", "fed_step/aggregate", "fed_step/eval",
+            "fed_step/telemetry"} <= set(scopes) <= {
+        "fed_step/local_train", "fed_step/aggregate", "fed_step/recluster",
+        "fed_step/eval", "fed_step/telemetry"}, scopes
     out["profile_scopes"] = scopes
     out["profile_device_busy_ms"] = busy_us / 1e3
 

@@ -43,17 +43,18 @@ engine's trajectory bit for bit (pinned in ``tests/test_torch_async.py``).
 Host synchronisation.  Flush masks, versions, staleness and buffer
 weights stay on the device (``torch.where``); the eval cadence is
 static.  The one host read an event, counted in
-``engine.HOST_READS["stage2"]``, is whether stage-2 is due and its window
-open (one value encoding both), and it is made only on an event where
-stage-2 could be due: a cluster commits at most one flush an event, so
-none is due before ``rounds_per_global`` events have passed since the
-last global, unless one is pending.  Flat fedbuff makes no read.  The
-history is fetched once after the last event.
+``engine.HOST_READS["stage2"]`` and spanned by `engine.host_read`, is
+whether stage-2 is due and its window open (one value encoding both),
+and it is made only on an event where stage-2 could be due: a cluster
+commits at most one flush an event, so none is due before
+``rounds_per_global`` events have passed since the last global, unless
+one is pending.  Flat fedbuff makes no read.  The history is fetched
+once after the last event (``"fetch"``).
 
 Telemetry (``cfg.telemetry``): each event also builds one
-``obs.telemetry.Telemetry`` under the ``async_event/telemetry`` profiler
-scope (the reference's step 9): outputs only, riding the history's one
-fetch, so :func:`simulate` returns the ``(AsyncOutput, Telemetry)`` pair.
+``obs.telemetry.Telemetry`` (the reference's step 9): outputs only,
+riding the history's one fetch, so :func:`simulate` returns the
+``(AsyncOutput, Telemetry)`` pair.
 
 Client mesh (``mesh=``, the sync engine's layout): both client stacks and
 the per-client vectors (clocks, durations, pending energies, losses,
@@ -89,7 +90,6 @@ from repro_torch.core.fedhc import FLRunConfig, _local_train
 from repro_torch.data.synthetic import client_batches
 from repro_torch.models.lenet import lenet_accuracy
 from repro_torch.obs import telemetry as telem_lib
-from repro_torch.obs.trace import phase_scope
 from repro_torch.orbits import contact as contact_lib
 from repro_torch.orbits import cost as cost_lib
 from repro_torch.orbits.constellation import (Constellation,
@@ -451,8 +451,9 @@ def _event(ctx: _Ctx, state: AsyncState, step: int):
         due = (torch.where(active, commits >= cfg.rounds_per_global,
                            True).all() | pending)
         window, t_g, e_g = _window(ctx, state)
-        engine.HOST_READS["stage2"] += 1              # the event's read
-        code = int(agg_spmd.agreed(shard, due.int() * 2 + window.int()))
+        with engine.host_read("stage2"):              # the event's read
+            code = int(agg_spmd.agreed(shard,
+                                       due.int() * 2 + window.int()))
         due_b, window_b = code >= 2, bool(code & 1)
         do_global, pending = due_b and window_b, due_b and not window_b
     if do_global:
@@ -508,33 +509,32 @@ def _event(ctx: _Ctx, state: AsyncState, step: int):
         return new_state, row
 
     # ---- 9. telemetry (outputs only, nothing re-enters the state) -------
-    with phase_scope("async_event/telemetry"):
-        any_ok = n_ok > 0
-        stale_min = torch.where(
-            any_ok, torch.where(ok_all, tau_all, torch.inf).amin(), 0.0)
-        stale_max = torch.where(
-            any_ok, torch.where(ok_all, tau_all, -torch.inf).amax(), 0.0)
-        # compute energy of the cohort's finished rounds is
-        # time-independent, so subtracting it from the event's energy
-        # splits compute from comm exactly
-        e_cmp = torch.where(in_cohort_all, e_cmp_all, 0.0).sum()
-        if strategy.visibility_gated:
-            # hop counts at the event time (uploads are gated at each
-            # client's own clock; this is the event-anchored view)
-            hops_mean, hops_max = engine._hop_stats(
-                cfg, ctx.constellation.positions(state.t_sim),
-                state.ps_index, state.assignment, ok_all)
-        else:
-            hops_mean = hops_max = 0.0
-        telem = telem_lib.Telemetry(
-            cohort_size=ctx.cohort, accepted=n_ok, cluster_fill=buf_count,
-            stale_min=stale_min, stale_mean=mean_tau, stale_max=stale_max,
-            flushes=flush_i.sum(), did_global=int(do_global),
-            reclustered=0, bits_stage1=ctx.model_bits * (n_ok + ctx.cohort),
-            bits_stage2=2.0 * ctx.model_bits * k if do_global else 0.0,
-            t_round_s=t_restart - state.t_sim, e_compute_j=e_cmp,
-            e_comm_j=(e_new - state.e_sim) - e_cmp,
-            hops_mean=hops_mean, hops_max=hops_max)
+    any_ok = n_ok > 0
+    stale_min = torch.where(
+        any_ok, torch.where(ok_all, tau_all, torch.inf).amin(), 0.0)
+    stale_max = torch.where(
+        any_ok, torch.where(ok_all, tau_all, -torch.inf).amax(), 0.0)
+    # compute energy of the cohort's finished rounds is
+    # time-independent, so subtracting it from the event's energy
+    # splits compute from comm exactly
+    e_cmp = torch.where(in_cohort_all, e_cmp_all, 0.0).sum()
+    if strategy.visibility_gated:
+        # hop counts at the event time (uploads are gated at each
+        # client's own clock; this is the event-anchored view)
+        hops_mean, hops_max = engine._hop_stats(
+            cfg, ctx.constellation.positions(state.t_sim),
+            state.ps_index, state.assignment, ok_all)
+    else:
+        hops_mean = hops_max = 0.0
+    telem = telem_lib.Telemetry(
+        cohort_size=ctx.cohort, accepted=n_ok, cluster_fill=buf_count,
+        stale_min=stale_min, stale_mean=mean_tau, stale_max=stale_max,
+        flushes=flush_i.sum(), did_global=int(do_global),
+        reclustered=0, bits_stage1=ctx.model_bits * (n_ok + ctx.cohort),
+        bits_stage2=2.0 * ctx.model_bits * k if do_global else 0.0,
+        t_round_s=t_restart - state.t_sim, e_compute_j=e_cmp,
+        e_comm_j=(e_new - state.e_sim) - e_cmp,
+        hops_mean=hops_mean, hops_max=hops_max)
     return new_state, row + (telem,)
 
 
@@ -580,10 +580,11 @@ def simulate(cfg: FLRunConfig, seed: Optional[int] = None, *, device=None,
         rows.append(row)
     series = torch.stack([torch.stack([r[i].float() for r in rows])
                           for i in range(6)])
-    if cfg.telemetry:
-        series, telem = telem_lib.fetch(series, [r[8] for r in rows])
-    else:
-        series = series.cpu().numpy()                        # one fetch
+    with engine.host_read("fetch"):                          # one fetch
+        if cfg.telemetry:
+            series, telem = telem_lib.fetch(series, [r[8] for r in rows])
+        else:
+            series = series.cpu().numpy()
     outs = AsyncOutput(
         acc=series[0], loss=series[1], time_s=series[2], energy_j=series[3],
         evaluated=np.asarray([r[6] for r in rows], bool),

@@ -15,7 +15,8 @@ or for isl-onboard a PS pair with no route) sets ``pending_global`` and
 is retried every round until one opens.
 
 Host synchronisation.  Everything a round computes stays on the device,
-except these reads (each counted in :data:`HOST_READS`):
+except these reads (each counted in :data:`HOST_READS` and spanned
+``host_read/<reason>`` by :func:`host_read`):
 
 * ``"window"``: on a round where a visibility-gated method's stage-2 is
   due (on cadence, or while ``pending_global`` is set), whether the
@@ -27,10 +28,11 @@ except these reads (each counted in :data:`HOST_READS`):
 
 Otherwise ``do_global`` and ``evaluated`` depend only on the round
 index, so they are Python values, and the history is fetched once after
-the last round.  So a run makes one read per due round of a gated
-method, ``rounds // rounds_per_global`` for fedhc/fedhc-nomaml and none
-for h-base, fedce and c-fedavg, plus the final fetch.  (CUDA graphs,
-which would also remove the per-kernel launch cost, come later.)
+the last round (``"fetch"``).  So a run makes one read per due round of
+a gated method, ``rounds // rounds_per_global`` for fedhc/fedhc-nomaml
+and none for h-base, fedce and c-fedavg, plus the final fetch.  (CUDA
+graphs, which would also remove the per-kernel launch cost, come
+later.)
 
 Randomness goes through a *draws* object with three methods:
 ``batch_picks(rnd) -> (C, B)``, ``kmeans_init(rnd) -> (K,)`` and
@@ -51,11 +53,18 @@ work, ROADMAP queue 2).  Contact-plan builds and reuses are counted in
 
 Telemetry (``cfg.telemetry``, `obs/telemetry.py`): each round also builds
 one :class:`~repro_torch.obs.telemetry.Telemetry` from the round's
-intermediates, under the ``fed_step/*`` profiler scopes; nothing of it
+intermediates, under the ``fed_step/telemetry`` span; nothing of it
 re-enters the round state, it draws nothing, reads nothing on the host,
 and it rides the history's one fetch: :func:`simulate` then returns the
 reference's ``(RoundOutput, Telemetry)`` pair, which :func:`split_outputs`
 separates.  Telemetry off runs the rounds without it.
+
+Spans (`obs/trace.phase_scope`, open only while a ``torch.profiler``
+capture runs, telemetry on or off): a round's ``fed_step/local_train``,
+``fed_step/aggregate`` (stages 1 and 2), ``fed_step/recluster``
+(k-means, the cluster aggregation, the MAML hand-off and the
+inheritance), ``fed_step/eval`` and ``fed_step/telemetry``, side by
+side, and ``host_read/<reason>`` around each host read.
 
 Client mesh (``mesh=``/``client_axes=`` on :func:`setup`,
 :func:`simulate`, :func:`run`; `launch/mesh.py`): one process a rank,
@@ -148,13 +157,23 @@ class SimData(NamedTuple):
 
 
 # host reads the round loop makes, by reason (see the module docstring;
-# "stage2" is the async engine's, `core/async_engine.py`)
-HOST_READS: Dict[str, int] = {"window": 0, "recluster": 0, "stage2": 0}
+# "stage2" is the async engine's, `core/async_engine.py`; "fetch" the
+# history's one fetch after a run, both engines')
+HOST_READS: Dict[str, int] = {"window": 0, "recluster": 0, "stage2": 0,
+                              "fetch": 0}
 
 
 def reset_host_reads() -> None:
     for key in HOST_READS:
         HOST_READS[key] = 0
+
+
+def host_read(reason: str):
+    """Count one read of the device by the host under ``reason`` and
+    return the ``host_read/<reason>`` span to hold around it: the counter
+    and the span stand at the same boundary."""
+    HOST_READS[reason] += 1
+    return phase_scope(f"host_read/{reason}")
 
 
 # ---------------------------------------------------------------------------
@@ -470,8 +489,9 @@ def _finish(ctx: _Ctx, state: RoundState, rnd: int, params, assignment,
     e_new = state.e_sim + e_r
     evaluated = (rnd + 1) % cfg.eval_every == 0 or rnd == cfg.rounds - 1
     if evaluated:
-        acc = lenet_accuracy(global_model(), ctx.data.test_x,
-                             ctx.data.test_y)
+        with phase_scope("fed_step/eval"):
+            acc = lenet_accuracy(global_model(), ctx.data.test_x,
+                                 ctx.data.test_y)
     else:
         acc = torch.full((), math.nan, device=t_new.device)
     new_state = RoundState(params, assignment, centroids, ps_index, t_new,
@@ -568,7 +588,7 @@ def fed_step(ctx: _Ctx, state: RoundState, rnd: int):
         participating = torch.ones_like(
             in_region if shard is None else shard.local(in_region))
 
-    with phase_scope("fed_step/local_train", ctx.telemetry):
+    with phase_scope("fed_step/local_train"):
         params, losses = _local_train(
             state.params, imgs, labs, lr=cfg.lr, steps=cfg.local_steps,
             microbatch=cfg.client_microbatch,
@@ -581,8 +601,8 @@ def fed_step(ctx: _Ctx, state: RoundState, rnd: int):
     else:
         # the round's one host read, after training was queued so the
         # device has work while the host waits
-        HOST_READS["window"] += 1
-        do_global = bool(agg_spmd.agreed(ctx.shard, links.stage2[0]))
+        with host_read("window"):
+            do_global = bool(agg_spmd.agreed(ctx.shard, links.stage2[0]))
         pending_global = not do_global
     e_cmp = None
     if shard is not None:
@@ -590,7 +610,7 @@ def fed_step(ctx: _Ctx, state: RoundState, rnd: int):
         # reduces the member costs in the one-device order
         losses, participating, t_r, e_r, e_cmp = _gather_round(
             ctx, positions, state, links, participating, losses)
-    with phase_scope("fed_step/aggregate", ctx.telemetry):
+    with phase_scope("fed_step/aggregate"):
         if shard is None:
             params = agg.hierarchical_round(
                 params, losses, data.data_sizes, state.assignment, k,
@@ -633,11 +653,14 @@ def fed_step(ctx: _Ctx, state: RoundState, rnd: int):
     if strategy.reclusters and do_global:
         # re-cluster check (Alg. 1 lines 14-18): a host read
         d_r = cl.dropout_rate(in_region, state.assignment, k)
-        HOST_READS["recluster"] += 1
-        if bool(agg_spmd.agreed(ctx.shard,
-                                d_r.max() > cfg.dropout_threshold)):
-            params, assignment, centroids, ps_index = _recluster(
-                ctx, rnd, positions, params, losses, imgs, labs, assignment)
+        with host_read("recluster"):
+            due = bool(agg_spmd.agreed(ctx.shard,
+                                       d_r.max() > cfg.dropout_threshold))
+        if due:
+            with phase_scope("fed_step/recluster"):
+                params, assignment, centroids, ps_index = _recluster(
+                    ctx, rnd, positions, params, losses, imgs, labs,
+                    assignment)
             reclustered = 1
 
     telem = None
@@ -806,19 +829,18 @@ def central_step(ctx: _Ctx, state: RoundState, rnd: int):
     if ctx.telemetry:
         # raw-data uplink + central training: stage-1 traffic is the
         # sample upload, compute energy is the server's
-        with phase_scope("fed_step/telemetry"):
-            n_samples = data.data_sizes.sum()
-            e_train = (cp.eps0 * cp.max_freq_hz
-                       * (n_samples * cp.cycles_per_sample / cp.max_freq_hz))
-            telem = telem_lib.Telemetry(
-                cohort_size=cfg.num_clients, accepted=cfg.num_clients,
-                cluster_fill=[float(cfg.num_clients)] * ctx.k,
-                stale_min=0.0, stale_mean=0.0, stale_max=0.0, flushes=0,
-                did_global=0, reclustered=0,
-                bits_stage1=n_samples * sample_bits, bits_stage2=0.0,
-                t_round_s=t_r + cfg.round_minutes * 60.0,
-                e_compute_j=e_train, e_comm_j=e_r - e_train,
-                hops_mean=0.0, hops_max=0.0)
+        n_samples = data.data_sizes.sum()
+        e_train = (cp.eps0 * cp.max_freq_hz
+                   * (n_samples * cp.cycles_per_sample / cp.max_freq_hz))
+        telem = telem_lib.Telemetry(
+            cohort_size=cfg.num_clients, accepted=cfg.num_clients,
+            cluster_fill=[float(cfg.num_clients)] * ctx.k,
+            stale_min=0.0, stale_mean=0.0, stale_max=0.0, flushes=0,
+            did_global=0, reclustered=0,
+            bits_stage1=n_samples * sample_bits, bits_stage2=0.0,
+            t_round_s=t_r + cfg.round_minutes * 60.0,
+            e_compute_j=e_train, e_comm_j=e_r - e_train,
+            hops_mean=0.0, hops_max=0.0)
     return _finish(ctx, state, rnd, model, state.assignment,
                    state.centroids, state.ps_index, 0, loss_val, t_r, e_r,
                    0, lambda: model, telem=telem)
@@ -892,10 +914,11 @@ def simulate(cfg: FLRunConfig, seed: Optional[int] = None, *, device=None,
         rows.append(row)
     series = torch.stack([torch.stack([r[i].float() for r in rows])
                           for i in range(4)])
-    if cfg.telemetry:
-        series, telem = telem_lib.fetch(series, [r[7] for r in rows])
-    else:
-        series = series.cpu().numpy()                        # one fetch
+    with host_read("fetch"):                                 # one fetch
+        if cfg.telemetry:
+            series, telem = telem_lib.fetch(series, [r[7] for r in rows])
+        else:
+            series = series.cpu().numpy()
     outs = RoundOutput(
         acc=series[0], loss=series[1], time_s=series[2], energy_j=series[3],
         reclustered=np.asarray([r[4] for r in rows], np.int32),

@@ -62,6 +62,7 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.mesh import client_axes_for, num_clients_for
 from repro_torch.models import model as M
 from repro_torch.models import transformer as T
+from repro_torch.obs.trace import phase_scope
 from repro_torch.sharding import parallel as P
 from repro_torch.sharding import rules
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -166,7 +167,8 @@ def _local_update(cfg, p, b, *, accum: int, micro: int, lr: float,
     rank differentiates its loss over the data size: an FSDP leaf's
     gradient comes back reduce-scattered (summed), and the leaves FSDP
     leaves whole (``data_summed``, one bool a leaf) are all-reduced over
-    "data"; the loss is the mean over "data"."""
+    "data"; the loss is the mean over "data".  The accumulator's adds and
+    the SGD step are the ``lm_train/update`` span (`obs/trace.py`)."""
     dp = P.data_size(tp)
     leaves = tree_leaves(p)
     g_acc = [torch.zeros(x.shape, dtype=acc_dt, device=x.device)
@@ -180,16 +182,18 @@ def _local_update(cfg, p, b, *, accum: int, micro: int, lr: float,
                          {k: x[i] for k, x in mbs.items()},
                          dispatch=dispatch, remat=remat, tp=tp)[0]
         grads = torch.autograd.grad(loss / dp if dp > 1 else loss, ps)
-        for j, (a, g) in enumerate(zip(g_acc, grads)):
-            a.add_(P.sum_over_data(tp, g.contiguous())
-                   if dp > 1 and data_summed[j] else g)
+        with phase_scope("lm_train/update"):
+            for j, (a, g) in enumerate(zip(g_acc, grads)):
+                a.add_(P.sum_over_data(tp, g.contiguous())
+                       if dp > 1 and data_summed[j] else g)
         del grads                # not live beside the next microbatch
         l_acc = l_acc + loss.detach()
     if dp > 1:
         l_acc = P.sum_over_data(tp, l_acc.reshape(1))[0] / dp
     scale = 1.0 / accum
-    new = [(x.to(acc_dt) - lr * scale * g).to(x.dtype)
-           for x, g in zip(leaves, g_acc)]
+    with phase_scope("lm_train/update"):
+        new = [(x.to(acc_dt) - lr * scale * g).to(x.dtype)
+               for x, g in zip(leaves, g_acc)]
     return tree_unflatten(p, new), l_acc * scale
 
 

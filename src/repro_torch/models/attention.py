@@ -12,7 +12,8 @@ Three routes, as in the reference:
   batch dimension and its scan over key chunks a loop.  The reference
   never trains through its Pallas kernel (it has no backward), and neither
   does the port: ``kernels.ops.flash_attention`` refuses autograd on the
-  card.
+  card.  The core, without the projections, is the ``attention/core``
+  span (:func:`_train_core`).
 * **prefill** goes through ``kernels.ops.flash_attention``: the
   hand-written CUDA kernel on the card, its plain PyTorch version
   (``kernels/ref.py::flash_attention_ref``) on the CPU.  The positions are
@@ -64,6 +65,7 @@ import torch.nn.functional as F
 from repro_torch.configs.shapes import effective_cache_len
 from repro_torch.kernels import ops
 from repro_torch.models.layers import _init, apply_rope, rope_frequencies, softcap
+from repro_torch.obs.trace import grad_scope
 from repro_torch.sharding import parallel as P
 
 NEG_INF = -1e30
@@ -383,8 +385,7 @@ def apply_attention(cfg, p, x, *, kind: str, mode: str,
         if mode == "train":
             k_pos = torch.arange(k.shape[1], dtype=torch.int32,
                                  device=k.device)
-            out = chunk_attention(cfg, q, k, v, positions, k_pos,
-                                  causal=False)
+            out = _train_core(cfg, q, k, v, positions, k_pos, causal=False)
         else:                                 # prefill, and decode (Sq = 1)
             out = _flash(cfg, q, k, v, causal=False)
     else:
@@ -400,15 +401,8 @@ def apply_attention(cfg, p, x, *, kind: str, mode: str,
                                    k_scale=new_cache.get("k_scale"),
                                    v_scale=new_cache.get("v_scale"))
         elif mode == "train":
-            if not causal:
-                out = chunk_attention(cfg, q, k, v, positions, positions,
-                                      causal=False)
-            elif window:
-                out = windowed_full_attention(cfg, q, k, v, positions,
-                                              positions, window)
-            else:
-                out = chunk_attention(cfg, q, k, v, positions, positions,
-                                      causal=True)
+            out = _train_core(cfg, q, k, v, positions, positions,
+                              causal=causal, window=window if causal else 0)
         else:                                 # prefill
             out = _flash(cfg, q, k, v, causal=causal,
                          window=window if causal else 0)
@@ -418,6 +412,20 @@ def apply_attention(cfg, p, x, *, kind: str, mode: str,
     B, S = x.shape[:2]
     y = out.reshape(B, S, cfg.q_dim) @ p["wo"]
     return y, new_cache
+
+
+def _train_core(cfg, q, k, v, q_pos, k_pos, *, causal: bool,
+                window: int = 0):
+    """The train-mode core: :func:`windowed_full_attention` where a
+    window is given, else :func:`chunk_attention`, as the
+    ``attention/core`` span (`obs/trace.grad_scope`, its backward and
+    recompute included)."""
+    def core(q, k, v):
+        if window:
+            return windowed_full_attention(cfg, q, k, v, q_pos, k_pos,
+                                           window)
+        return chunk_attention(cfg, q, k, v, q_pos, k_pos, causal=causal)
+    return grad_scope("attention/core", core, q, k, v)
 
 
 def _flash(cfg, q, k, v, *, causal: bool, window: int = 0):
@@ -661,12 +669,8 @@ def _apply_attention_tp(cfg, p, x, *, window: int, mode: str, positions,
         k_pos = (torch.arange(Sk, dtype=torch.int32, device=x.device)
                  if cross else positions)
         if mode == "train":
-            if window:
-                out = windowed_full_attention(cfg, q, ks, vs, positions,
-                                              positions, window)
-            else:
-                out = chunk_attention(cfg, q, ks, vs, positions, k_pos,
-                                      causal=causal)
+            out = _train_core(cfg, q, ks, vs, positions, k_pos,
+                              causal=causal, window=window)
         else:                               # prefill; cross-attention decode
             out = _flash(cfg, q, ks, vs, causal=causal,
                          window=window if causal else 0)

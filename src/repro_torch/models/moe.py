@@ -46,6 +46,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.models.layers import _init, activation
+from repro_torch.obs.trace import grad_scope
 from repro_torch.sharding import parallel as P
 
 
@@ -280,7 +281,9 @@ def apply_moe_scan(cfg, p, x, tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     `parallel.copy_to_model`: their gradients from each rank's partial
     outputs are summed over "model", so the router's gradient is whole
     and the same on every rank.  The float32 sum rounds once where one
-    device's bf16 accumulator rounds after every expert."""
+    device's bf16 accumulator rounds after every expert.  The loop over
+    the experts is the ``moe/experts`` span (`obs/trace.grad_scope`, its
+    backward and recompute included)."""
     top_w, top_idx, probs = router_probs(cfg, p, x, tp)
     aux = load_balance_loss(cfg, probs, top_idx, tp)
     # combine[b, s, e]: the routing weight (0 if unrouted), from a one-hot
@@ -289,12 +292,16 @@ def apply_moe_scan(cfg, p, x, tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     split = _split(cfg, p, tp)
     if split:
         x, combine = P.copy_to_model(tp, x), P.copy_to_model(tp, combine)
-    acc = torch.zeros(x.shape, device=x.device,
-                      dtype=torch.float32 if _on_mesh(tp) else x.dtype)
-    for e in range(cfg.num_experts):
-        acc = acc + _run_expert(cfg, tp, p, e, x, combine[..., e]).to(
-            acc.dtype)
-    y = acc.to(x.dtype)
+
+    def experts(x, combine):
+        acc = torch.zeros(x.shape, device=x.device,
+                          dtype=torch.float32 if _on_mesh(tp) else x.dtype)
+        for e in range(cfg.num_experts):
+            acc = acc + _run_expert(cfg, tp, p, e, x, combine[..., e]).to(
+                acc.dtype)
+        return acc.to(x.dtype)
+
+    y = grad_scope("moe/experts", experts, x, combine)
     return (P.reduce_from_model(tp, y) if split else y), aux
 
 

@@ -14,6 +14,11 @@ Counterpart of ``repro/obs``.
   run / fetch, exported as Chrome trace-event JSON for Perfetto, and
   process-wide counters on the setup cache of `repro_torch.api` and on
   contact-plan builds.
+* **Profiler spans** (`obs/trace.py`): ``phase_scope`` and ``grad_scope``
+  name the round's phases, the host's reads and the transformer layers'
+  cores in a ``torch.profiler`` capture, backward included.  They open
+  only while a capture runs, telemetry on or off, and insert nothing
+  otherwise.
 
 ``RunResult.telemetry`` carries both planes (JSON round-trip through
 ``save``/``load``, in the reference's format), and
@@ -21,7 +26,7 @@ Counterpart of ``repro/obs``.
 table, a phase-time breakdown and the trace export.
 """
 from repro_torch.obs.telemetry import RunTelemetry, Telemetry, rounds_from_scan
-from repro_torch.obs.trace import COUNTERS, Tracer, phase_scope
+from repro_torch.obs.trace import COUNTERS, Tracer, grad_scope, phase_scope
 
 __all__ = ["Telemetry", "RunTelemetry", "rounds_from_scan",
-           "Tracer", "COUNTERS", "phase_scope"]
+           "Tracer", "COUNTERS", "phase_scope", "grad_scope"]

@@ -3,9 +3,9 @@
 Counterpart of ``repro/obs/trace.py``.  :class:`Tracer` wraps host phases
 (setup / compile / run / fetch, fleet classes, ...) in nested spans
 recorded against one wall-clock epoch.  A span optionally enters
-``torch.profiler.record_function(name)`` and, on a tracer made for a CUDA
-run, an NVTX range, so a ``torch.profiler`` or Nsight capture of the same
-run shows the phase names beside the kernels (the counterpart of
+:func:`phase_scope` and, on a tracer made for a CUDA run, an NVTX range,
+so a ``torch.profiler`` or Nsight capture of the same run shows the phase
+names beside the kernels (the counterpart of
 ``jax.profiler.TraceAnnotation``).  ``Tracer.span_dicts()`` is the
 JSON-ready record that rides ``RunResult.telemetry``; the Chrome
 trace-event rendering lives in
@@ -17,9 +17,30 @@ increments ``api.setup_cache.hit/miss`` on every call that passes a
 counts contact-plan builds and reuses (``engine.plan_cache.miss/hit``),
 which is what a fleet class shares in eager PyTorch.
 
-:func:`phase_scope` is the in-round marker: ``record_function(name)``
-around the engines' ``fed_step`` phases when telemetry is on, a no-op
-``nullcontext`` when it is off, so telemetry off adds nothing to a round.
+The program's spans open only while a ``torch.profiler`` capture runs
+(``torch._C._autograd._profiler_enabled()``, a fraction of a microsecond
+to ask); otherwise they return a shared ``nullcontext`` and insert
+nothing, so an uncaptured run's launches, autograd graph and results are
+those of a program without them.  A span is a ``record_function`` range
+on the profiler's own clock and keeps nothing of its own: the capture
+holds it.
+
+* :func:`phase_scope` opens a range around a phase on the calling
+  thread: the round's ``fed_step/*`` phases, the ``host_read/*`` reads
+  (`core/engine.host_read`), ``lm_train/update`` (`launch/steps.py`).
+* :func:`grad_scope` spans a differentiable region, its backward
+  included (``moe/experts``, ``attention/core``).  Autograd runs backward
+  on an engine thread of its own on the card, so a range opened in the
+  forward pass never covers the backward kernels: identity autograd
+  functions on the region's inputs and output open a range of the same
+  name in backward, when the output's gradient arrives, and close it
+  when the inputs' gradients leave.  A remat recompute reruns the region
+  inside that range and reopens its forward range there.
+
+A kernel takes the innermost range open on the thread that launched it,
+so no span that a metric reads holds another (a remat recompute of a
+whole layer runs inside the backward range of the layer's last region:
+the benchmark's readers take the inner ranges out).
 """
 from __future__ import annotations
 
@@ -65,12 +86,11 @@ class Tracer:
              **args: Any) -> Iterator[None]:
         """``with tracer.span("compile"): ...`` records one span; nesting
         depth follows the with-stack.  ``annotate=True`` also enters
-        ``torch.profiler.record_function(name)`` (and an NVTX range on a
-        CUDA tracer), so a profiler capture shows the same phase
-        boundaries."""
+        :func:`phase_scope` (and an NVTX range on a CUDA tracer), so a
+        profiler capture shows the same phase boundaries."""
         with contextlib.ExitStack() as stack:
             if annotate:
-                stack.enter_context(torch.profiler.record_function(name))
+                stack.enter_context(phase_scope(name))
                 if self._nvtx:
                     torch.cuda.nvtx.range_push(name)
                     stack.callback(torch.cuda.nvtx.range_pop)
@@ -128,10 +148,71 @@ class Counters:
 COUNTERS = Counters()
 
 
-def phase_scope(name: str, enabled: bool = True):
-    """``torch.profiler.record_function(name)`` when enabled (profiler
-    captures then group the phase's kernels under its name), a
-    ``nullcontext`` otherwise: the disabled path does nothing."""
-    if not enabled:
-        return contextlib.nullcontext()
+_NULL = contextlib.nullcontext()
+
+
+def phase_scope(name: str):
+    """``torch.profiler.record_function(name)`` while a capture runs (the
+    capture then groups the phase's kernels under its name), the shared
+    ``nullcontext`` otherwise."""
+    if not torch._C._autograd._profiler_enabled():
+        return _NULL
     return torch.profiler.record_function(name)
+
+
+class _CloseInBackward(torch.autograd.Function):
+    """Identity on a region's inputs.  Its backward runs after every node
+    of the region's backward (autograd runs the later-made nodes first,
+    and these inputs' gradients are complete only then) and closes the
+    range that :class:`_OpenInBackward` opened."""
+
+    @staticmethod
+    def forward(ctx, held, *xs):
+        ctx.held = held
+        return xs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        if ctx.held:
+            ctx.held.pop().__exit__(None, None, None)
+        return (None,) + grads
+
+
+class _OpenInBackward(torch.autograd.Function):
+    """Identity on a region's output.  Its backward runs before the
+    region's and opens the range ``name`` on the thread that runs it."""
+
+    @staticmethod
+    def forward(ctx, held, name, y):
+        ctx.held, ctx.name = held, name
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        scope = torch.profiler.record_function(ctx.name)
+        scope.__enter__()
+        ctx.held.append(scope)
+        return None, None, grad
+
+
+def grad_scope(name: str, fn, *args):
+    """``fn(*args)`` (one tensor out) under the range ``name`` in forward
+    and, while a capture runs and autograd records, in its backward too.
+    The tensor arguments that require grad must lead to what backward
+    differentiates (their gradients close the range).  Without a capture
+    it is ``fn(*args)``: no range, no autograd node."""
+    if not torch._C._autograd._profiler_enabled():
+        return fn(*args)
+    marked = ([i for i, a in enumerate(args)
+               if isinstance(a, torch.Tensor) and a.requires_grad]
+              if torch.is_grad_enabled() else [])
+    held = None
+    if marked:
+        held = []
+        args = list(args)
+        for i, a in zip(marked, _CloseInBackward.apply(
+                held, *(args[i] for i in marked))):
+            args[i] = a
+    with torch.profiler.record_function(name):
+        y = fn(*args)
+    return y if held is None else _OpenInBackward.apply(held, name, y)

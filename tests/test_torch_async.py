@@ -211,7 +211,7 @@ def test_blackout_defers_stage2_until_a_window():
     # rounds_per_global-th on
     assert tengine.HOST_READS == {"window": 0, "recluster": 0,
                                   "stage2": cfg.rounds
-                                  - cfg.rounds_per_global + 1}
+                                  - cfg.rounds_per_global + 1, "fetch": 1}
     lit = data._replace(plan=plan._replace(
         gs_visible=torch.ones_like(plan.gs_visible)))
     state, outs = tasync.simulate(cfg, device="cpu", state0=state0,
@@ -255,7 +255,8 @@ def test_host_reads_only_where_stage2_could_be_due():
     the rounds_per_global-th event after the last global on."""
     tengine.reset_host_reads()
     tengine.run(_cfg("fedbuff", async_cohort=4), device="cpu")
-    assert tengine.HOST_READS == {"window": 0, "recluster": 0, "stage2": 0}
+    assert tengine.HOST_READS == {"window": 0, "recluster": 0, "stage2": 0,
+                                  "fetch": 1}
     cfg = _cfg("fedhc-async", async_cohort=16, async_buffer=16,
                staleness="constant")
     _, outs = tengine.simulate(cfg, device="cpu")

@@ -208,7 +208,7 @@ def test_host_reads_one_per_due_round(method, mask):
             due += 1
             pending = not outs.did_global[rnd]
     assert tengine.HOST_READS == {"window": due, "recluster": 0,
-                                "stage2": 0}
+                                "stage2": 0, "fetch": 1}
     assert due > cfg.rounds // cfg.rounds_per_global or method != "fedspace"
 
 
@@ -216,10 +216,12 @@ def test_always_up_methods_read_no_window():
     cfg = _cfg("fedhc", rounds=8)
     tengine.reset_host_reads()
     _sim(cfg)
-    assert tengine.HOST_READS == {"window": 0, "recluster": 2, "stage2": 0}
+    assert tengine.HOST_READS == {"window": 0, "recluster": 2, "stage2": 0,
+                                  "fetch": 1}
     tengine.reset_host_reads()
     _sim(_cfg("h-base", rounds=8))
-    assert tengine.HOST_READS == {"window": 0, "recluster": 0, "stage2": 0}
+    assert tengine.HOST_READS == {"window": 0, "recluster": 0, "stage2": 0,
+                                  "fetch": 1}
 
 
 def test_plan_layouts_need_a_static_layout():

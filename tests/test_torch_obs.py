@@ -14,16 +14,18 @@ the JAX package.
   engine's host reads and the kernel-wrapper calls unchanged, sync and
   async; the energy and time series reconcile with the history.
 * The host plane: span nesting, ``phase_times``, ``Counters.delta``, the
-  setup-cache counters.
+  setup-cache counters; ``phase_scope`` opens only under a capture.
 * Files: a ``RunResult`` with telemetry saved by either package loads in
   the other; the Chrome trace validates; the report CLI renders a run
   file of either package.
 """
+import contextlib
 import dataclasses
 import json
 
 import numpy as np
 import pytest
+from torch.profiler import ProfilerActivity, profile
 
 from repro import api as japi
 from repro.core.fedhc import FLRunConfig as JaxConfig
@@ -193,8 +195,15 @@ def test_tracer_nesting_and_phase_scope():
             pass
         with phase_scope("fed_step/local_train"):
             pass
-    with phase_scope("off", enabled=False):
-        pass
+    # no capture running: the one shared no-op context, no range
+    off = phase_scope("off")
+    assert isinstance(off, contextlib.nullcontext)
+    assert off is phase_scope("fed_step/local_train")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with phase_scope("on"):
+            pass
+    assert [e.name for e in prof.events() if e.name in ("on", "off")] \
+        == ["on"]
     d = tr.span_dicts()
     assert [s["name"] for s in d] == ["outer", "inner"]
     assert [s["depth"] for s in d] == [0, 1]
