@@ -14,8 +14,13 @@ Three dispatches, as in the reference:
                   bf16 rounds as the reference's does.  Under autograd
                   each expert runs under ``torch.utils.checkpoint`` (the
                   reference's ``jax.checkpoint``): its hidden activations
-                  are recomputed in the backward pass.  The serving
-                  profiles of grok-1-314b and mixtral-8x22b take it.
+                  are recomputed in the backward pass.  The experts'
+                  weights are views from one ``unbind`` of each stack a
+                  layer call, so backward builds each stack's gradient
+                  once (one stacking of the E slices), not E zero-filled
+                  gradients of the whole stack and their sum.  The
+                  serving profiles of grok-1-314b and mixtral-8x22b take
+                  it.
 
 The reference computes all three in XLA, with no Pallas kernel, so here
 they are torch ops; the expert products are ``torch.matmul``.
@@ -145,14 +150,24 @@ def _expert(cfg, tp, x, wg, wu, wd, ce=None):
     return y if ce is None else y * ce[..., None].to(x.dtype)
 
 
-def _run_expert(cfg, tp, p, e: int, x, ce=None):
-    """:func:`_expert` ``e`` on ``x``, under ``torch.utils.checkpoint``
-    where autograd records (the reference's ``jax.checkpoint``: its hidden
-    activations, and under FSDP its gathered blocks, are recomputed in
-    the backward pass)."""
-    args = (x, p["w_gate"][e], p["w_up"][e], p["w_down"][e], ce)
-    if torch.is_grad_enabled() and (x.requires_grad
-                                    or p["w_gate"].requires_grad):
+def _expert_weights(p):
+    """Each expert's (w_gate, w_up, w_down), in expert order: views from
+    one ``unbind`` of each (E, ..) stack.  Under autograd a stack's
+    gradient then comes back through one ``UnbindBackward``, which stacks
+    the experts' slice gradients once; a select ``w[e]`` an expert would
+    instead give each expert a zero-filled gradient of the whole stack,
+    added E - 1 times."""
+    return zip(*(p[k].unbind(0) for k in ("w_gate", "w_up", "w_down")))
+
+
+def _run_expert(cfg, tp, wg, wu, wd, x, ce=None):
+    """:func:`_expert` with one expert's weights ``wg``, ``wu``, ``wd``
+    (views from :func:`_expert_weights`) on ``x``, under
+    ``torch.utils.checkpoint`` where autograd records (the reference's
+    ``jax.checkpoint``: its hidden activations, and under FSDP its
+    gathered blocks, are recomputed in the backward pass)."""
+    args = (x, wg, wu, wd, ce)
+    if torch.is_grad_enabled() and (x.requires_grad or wg.requires_grad):
         return torch.utils.checkpoint.checkpoint(
             _expert, cfg, tp, *args, use_reentrant=False)
     return _expert(cfg, tp, *args)
@@ -164,8 +179,8 @@ def _experts(cfg, p, xs, tp):
     (:func:`_run_expert`)."""
     if P.data_size(tp) == 1:
         return _expert_mlp(cfg, p, xs)
-    return torch.stack([_run_expert(cfg, tp, p, e, xs[e])
-                        for e in range(cfg.num_experts)])
+    return torch.stack([_run_expert(cfg, tp, *w, x)
+                        for w, x in zip(_expert_weights(p), xs.unbind(0))])
 
 
 def _on_mesh(tp) -> bool:
@@ -296,9 +311,8 @@ def apply_moe_scan(cfg, p, x, tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     def experts(x, combine):
         acc = torch.zeros(x.shape, device=x.device,
                           dtype=torch.float32 if _on_mesh(tp) else x.dtype)
-        for e in range(cfg.num_experts):
-            acc = acc + _run_expert(cfg, tp, p, e, x, combine[..., e]).to(
-                acc.dtype)
+        for w, ce in zip(_expert_weights(p), combine.unbind(-1)):
+            acc = acc + _run_expert(cfg, tp, *w, x, ce).to(acc.dtype)
         return acc.to(x.dtype)
 
     y = grad_scope("moe/experts", experts, x, combine)

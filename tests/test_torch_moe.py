@@ -214,6 +214,114 @@ def test_scan_bf16_rounds_as_reference():
     np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-3)
 
 
+# ------------------------------------------- the experts' weight stacks
+
+STACKS = ("w_gate", "w_up", "w_down")
+
+
+def _stack_consumers(root, p):
+    """For each expert stack of ``p`` (a leaf), the names of the backward
+    nodes that take it as input, from a walk of ``root``'s graph."""
+    names = {id(p[k]): k for k in STACKS}
+    found = {k: [] for k in STACKS}
+    seen, todo = set(), [root.grad_fn]
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        for nxt, _ in node.next_functions:
+            leaf = getattr(nxt, "variable", None)
+            if leaf is not None and id(leaf) in names:
+                found[names[id(leaf)]].append(type(node).__name__)
+            todo.append(nxt)
+    return found
+
+
+def _scan_by_selects(cfg, p, x, tp=None):
+    """The scan dispatch on one device with a select ``w[e]`` of each
+    stack an expert, outside the expert's checkpoint: the same router,
+    products, checkpoints and accumulator in the same order."""
+    top_w, top_idx, probs = tmoe.router_probs(cfg, p, x)
+    combine = (torch.nn.functional.one_hot(top_idx.long(), cfg.num_experts)
+               .float() * top_w[..., None]).sum(-2)
+    acc = torch.zeros_like(x)
+    for e in range(cfg.num_experts):
+        acc = acc + torch.utils.checkpoint.checkpoint(
+            tmoe._expert, cfg, None, x, p["w_gate"][e], p["w_up"][e],
+            p["w_down"][e], combine[..., e], use_reentrant=False).to(
+                acc.dtype)
+    return acc, tmoe.load_balance_loss(cfg, probs, top_idx)
+
+
+def _experts_by_selects(cfg, p, xs, tp):
+    """``moe._experts``' FSDP path, one expert after another, with a
+    select ``w[e]`` of each stack and ``xs[e]`` an expert."""
+    return torch.stack([torch.utils.checkpoint.checkpoint(
+        tmoe._expert, cfg, tp, xs[e], p["w_gate"][e], p["w_up"][e],
+        p["w_down"][e], use_reentrant=False)
+        for e in range(cfg.num_experts)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dispatch", ["scan", "dense-fsdp", "capacity-fsdp"])
+def test_experts_unbind_each_stack_once_with_gradients_of_selects(
+        monkeypatch, dispatch, dtype):
+    """Under autograd each expert stack reaches the graph through one
+    ``UnbindBackward`` and no select, and every gradient (the stacks', the
+    router's, x's) and the loss are bit for bit those of the per-expert
+    selects ``w[e]``: a select's gradient is the slice padded with zeros,
+    so the sum of the E of them is the stacked slices exactly.  The scan
+    on one device; the dense and capacity dispatches under FSDP (a "data"
+    size of 2 whose gather stacks the block twice, in one process: their
+    ``_experts`` runs an expert at a time), against ``_experts`` with
+    selects."""
+    from repro_torch.sharding import parallel as P
+    _, cfg = _cfgs()
+    d = cfg.d_model
+    gen = torch.Generator().manual_seed(14)
+    full = tmoe.init_moe(cfg, gen, dtype, CPU)
+    x0 = (0.5 * torch.randn((2, 16, d), generator=gen)).to(dtype)
+    if dispatch == "scan":
+        tp, p0, apply, by_selects = None, full, tmoe.apply_moe_scan, \
+            _scan_by_selects
+    else:
+        def gather(tp, w, dim, n):
+            return w if w.shape[dim] == n else torch.cat([w, w], dim)
+        monkeypatch.setattr(tmoe.P, "fsdp_gather", gather)
+        tp = P.TP(group=None, size=1, rank=0, data_size=2)
+        p0 = {"router": full["router"][: d // 2],
+              "w_gate": full["w_gate"][:, : d // 2],
+              "w_up": full["w_up"][:, : d // 2],
+              "w_down": full["w_down"][..., : d // 2]}
+        apply = (tmoe.apply_moe_dense if dispatch == "dense-fsdp"
+                 else tmoe.apply_moe_capacity)
+
+        def by_selects(cfg, p, x, tp):
+            with monkeypatch.context() as m:
+                m.setattr(tmoe, "_experts", _experts_by_selects)
+                return apply(cfg, p, x, tp=tp)
+
+    def run(fn):
+        p = {k: v.detach().clone().requires_grad_(True)
+             for k, v in p0.items()}
+        x = x0.clone().requires_grad_(True)
+        y, aux = fn(cfg, p, x, tp=tp)
+        loss = y.float().square().mean() + 0.01 * aux
+        return loss, _stack_consumers(loss, p), torch.autograd.grad(
+            loss, list(p.values()) + [x])
+
+    loss, consumers, grads = run(apply)
+    want_loss, want_consumers, want = run(by_selects)
+    assert consumers == {k: ["UnbindBackward0"] for k in STACKS}
+    assert want_consumers == {k: ["SelectBackward0"] * cfg.num_experts
+                              for k in STACKS}
+    assert torch.equal(loss, want_loss)
+    for name, g, w in zip(list(p0) + ["x"], grads, want):
+        assert g.dtype == dtype and torch.equal(g, w), name
+
+
 # -------------------------------------------------------------- loss_fn
 
 @pytest.mark.parametrize("dispatch", ["dense", "capacity", "scan"])
